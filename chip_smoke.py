@@ -54,7 +54,7 @@ T, L, HID, IN = N_WINDOWS, 3, 128, 517  # LSTMNetVIT's LSTM over the windows
 K3_ATOL, K4_ATOL, K4_ATOL_CARRIED, VEL_ATOL = 3e-5, 2e-5, 3e-5, 1e-4
 
 BUDGET_S = 600  # the whole run, cold build included
-# H100 SXM peaks (on-chip-measurement guide): HBM bytes/s, f32 FLOP/s
+# H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
