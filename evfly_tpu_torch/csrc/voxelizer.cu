@@ -1,30 +1,48 @@
-// K3: events -> signed count frame -> q-quantile normalize -> bilinear resize.
+// K1, K2, K3: events -> signed count frame, and its quantile-normalized forms.
 //
-// Replaces evfly_tpu/ops/voxelizer.py `_hist_pallas_fused_quantile_resize`
-// (kernel body `_make_hist_kernel_fused_quantile_resize`).  It computes what
-// `event_histogram_scaled_resized` computes, for a batch of windows:
+// Replaces the three voxelizer kernels of evfly_tpu/ops/voxelizer.py:
+//
+//   K1  `_hist_pallas`                        (event_histogram)
+//       frame = thresh * counts, or pos * pos_counts - neg * neg_counts
+//   K2  `_hist_pallas_fused_quantile`         (event_histogram_scaled)
+//       frame = clip(counts * scale, -1, 1) and q
+//   K3  `_hist_pallas_fused_quantile_resize`  (event_histogram_scaled_resized)
+//       out   = R_h . clip(counts * scale, -1, 1) . R_w^T and q
+//
+// with, for every window of events,
 //
 //   counts[y, x] = sum_e sign_e [yi_e = y][xi_e = x]   (np.histogram2d bins)
 //   q            = k-th smallest |counts|, 18-step f32 bisection, zero snap
-//   scaled       = clip(counts * (q > 0 ? 1 / max(q, 1e-30) : thresh), -1, 1)
-//   out          = R_h . scaled . R_w^T                  (<= 2 taps per row)
+//   scale        = q > 0 ? 1 / max(q, 1e-30) : thresh
 //
-// What bounds it on the H100: bytes.  The function reads 12 bytes per event
-// and writes h_out * w_out floats per window; its arithmetic is a few
-// operations per event and per frame cell.  The TPU kernel turned the
+// What bounds them on the H100: bytes.  They read 12 bytes per event and
+// write the frame (K1, K2) or the small input (K3); the arithmetic is a few
+// operations per event and per frame cell.  The TPU kernels turned the
 // scatter into one-hot matmuls for the MXU; here the scatter is what the
-// hardware does well (shared-memory atomics), so the design is:
+// hardware does well (shared-memory atomics).
 //
-//   * one block per window; the full frame never leaves shared memory.  A
-//     260x346 int32 frame (352 KiB) does not fit in the 227 KB a block may
-//     use, so two int16 counts share one int32 word.  atomicAdd on the word
-//     with +-1 or +-65536 keeps word == hi * 65536 + lo exactly while
-//     |hi|, |lo| <= 32767, which the wrapper guarantees (events per window).
+// K1 takes any number of events per window, so its counts are int32, and a
+// 260x346 int32 frame (352 KiB) is larger than the 227 KB a block may use.
+// The frame is cut into bands of rows: one block per (band, window), each
+// block reads all of the window's events, counts those that fall in its
+// band in shared memory and writes its band.  For the streaming path's
+// single window this also puts a dozen SMs to work instead of one.  Counts
+// are exact integers; the thresholds are applied with round-to-nearest
+// multiplies and subtract (no FMA contraction), as the JAX package does in
+// f32, so the frame is bit for bit the JAX one.
+//
+// K2 and K3 need the whole frame in one block for the quantile:
+//
+//   * one block per window; the full frame never leaves shared memory.  Two
+//     int16 counts share one int32 word.  atomicAdd on the word with +-1 or
+//     +-65536 keeps word == hi * 65536 + lo exactly while |hi|, |lo| <=
+//     32767, which the wrappers guarantee (events per window).
 //   * the quantile comes from a count-of-counts table over |count| in
 //     shared memory, prefix-summed once.  Because |count| is an integer,
 //     #(|count| <= mid) == CDF[floor(mid)], so each bisection step is O(1)
 //     and gives bit for bit the same result as the TPU's masked counts.
-//   * the resize reads its <= 2x2 taps straight from the packed frame.
+//   * K2 writes the clipped frame; K3 reads its <= 2x2 resize taps straight
+//     from the packed frame.
 //
 // Each C entry point returns cudaGetLastError() after its launch.
 
@@ -34,12 +52,78 @@
 namespace {
 
 constexpr int kThreads = 1024;
+constexpr int kBandThreads = 512;
+
+// np.histogram2d binning: the flat cell of an event, or -1 when it is
+// dropped (outside [0, W] x [0, H], NaN, or pol == 0); *sign gets +-1.
+__device__ __forceinline__ int bin_event(float xf, float yf, int p, int H, int W,
+                                         int* sign) {
+  const float Wf = static_cast<float>(W), Hf = static_cast<float>(H);
+  const int s = p > 0 ? 1 : (p < 0 ? -1 : 0);
+  const bool valid = xf >= 0.f && xf <= Wf && yf >= 0.f && yf <= Hf;
+  if (!valid || s == 0) return -1;
+  const int xi = xf >= Wf ? W - 1 : static_cast<int>(floorf(xf));
+  const int yi = yf >= Hf ? H - 1 : static_cast<int>(floorf(yf));
+  *sign = s;
+  return yi * W + xi;
+}
+
+// ---------------------------------------------------------------- K1
+
+__global__ void __launch_bounds__(kBandThreads)
+hist_frame_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                  const int* __restrict__ pol, float* __restrict__ out, int N, int H, int W,
+                  int rows_per_band, float pos_thresh, float neg_thresh, int two_pass) {
+  extern __shared__ int band[];  // (rows_per_band, W) counts; two_pass: pos then neg
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * rows_per_band;
+  const int rows = min(rows_per_band, H - row0);
+  const int first = row0 * W, cells = rows * W;
+  int* pos_counts = band;
+  int* neg_counts = band + rows_per_band * W;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+
+  for (int i = tid; i < (two_pass ? 2 : 1) * rows_per_band * W; i += nthreads) band[i] = 0;
+  __syncthreads();
+
+  const float* xb = x + static_cast<size_t>(b) * N;
+  const float* yb = y + static_cast<size_t>(b) * N;
+  const int* pb = pol + static_cast<size_t>(b) * N;
+  for (int e = tid; e < N; e += nthreads) {
+    int s = 0;
+    const int idx = bin_event(xb[e], yb[e], pb[e], H, W, &s) - first;
+    if (idx < 0 || idx >= cells) continue;  // dropped, or another block's band
+    if (two_pass) {
+      atomicAdd(s > 0 ? &pos_counts[idx] : &neg_counts[idx], 1);
+    } else {
+      atomicAdd(&band[idx], s);
+    }
+  }
+  __syncthreads();
+
+  float* ob = out + static_cast<size_t>(b) * H * W + first;
+  for (int i = tid; i < cells; i += nthreads) {
+    if (two_pass) {
+      ob[i] = __fsub_rn(__fmul_rn(pos_thresh, static_cast<float>(pos_counts[i])),
+                        __fmul_rn(neg_thresh, static_cast<float>(neg_counts[i])));
+    } else {
+      ob[i] = __fmul_rn(pos_thresh, static_cast<float>(band[i]));
+    }
+  }
+}
+
+// ----------------------------------------------------------- K2 and K3
 
 __device__ __forceinline__ int decode_count(const int* words, int idx) {
   const int w = words[idx >> 1];
   const int lo = static_cast<int>(static_cast<int16_t>(w & 0xFFFF));
   if ((idx & 1) == 0) return lo;
   return (w - lo) / 65536;  // exact: w - lo is a multiple of 65536
+}
+
+__device__ __forceinline__ float scaled_count(const int* words, int idx, float scale) {
+  return fminf(fmaxf(__fmul_rn(static_cast<float>(decode_count(words, idx)), scale), -1.f),
+               1.f);
 }
 
 __device__ __forceinline__ int warp_sum(int v) {
@@ -61,26 +145,22 @@ __device__ __forceinline__ int warp_inclusive_scan(int v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-hist_scaled_resized_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                           const int* __restrict__ pol, const float* __restrict__ taps,
-                           float* __restrict__ out, float* __restrict__ qout,
-                           int N, int H, int W, int h_out, int w_out, int kth,
-                           float thresh, int iters, int table_len) {
-  extern __shared__ int smem[];
-  const int HW = H * W;
-  const int nwords = (HW + 1) / 2;
-  int* words = smem;
-  int* table = smem + nwords;  // table[v] = #(|count| == v), then the CDF
-
+// Steps 1-4 of K2 and K3 for window b: the packed count frame in
+// words[(H*W+1)/2] and the scale in the return value; q goes to qout[b].
+__device__ float packed_frame_and_scale(const float* __restrict__ x,
+                                        const float* __restrict__ y,
+                                        const int* __restrict__ pol, float* __restrict__ qout,
+                                        int* words, int* table, int b, int N, int H, int W,
+                                        int kth, float thresh, int iters, int table_len) {
   __shared__ int s_zero, s_max;
   __shared__ int s_warp[kThreads / 32];
   __shared__ float s_scale;
 
+  const int HW = H * W;
+  const int nwords = (HW + 1) / 2;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int nthreads = blockDim.x, nwarps = nthreads >> 5;
-  const int b = blockIdx.x;
 
   for (int i = tid; i < nwords; i += nthreads) words[i] = 0;
   for (int i = tid; i < table_len; i += nthreads) table[i] = 0;
@@ -91,16 +171,10 @@ hist_scaled_resized_kernel(const float* __restrict__ x, const float* __restrict_
   const float* xb = x + static_cast<size_t>(b) * N;
   const float* yb = y + static_cast<size_t>(b) * N;
   const int* pb = pol + static_cast<size_t>(b) * N;
-  const float Wf = static_cast<float>(W), Hf = static_cast<float>(H);
   for (int e = tid; e < N; e += nthreads) {
-    const float xf = xb[e], yf = yb[e];
-    const int p = pb[e];
-    const int s = p > 0 ? 1 : (p < 0 ? -1 : 0);
-    const bool valid = xf >= 0.f && xf <= Wf && yf >= 0.f && yf <= Hf;
-    if (!valid || s == 0) continue;
-    const int xi = xf >= Wf ? W - 1 : static_cast<int>(floorf(xf));
-    const int yi = yf >= Hf ? H - 1 : static_cast<int>(floorf(yf));
-    const int idx = yi * W + xi;
+    int s = 0;
+    const int idx = bin_event(xb[e], yb[e], pb[e], H, W, &s);
+    if (idx < 0) continue;
     atomicAdd(&words[idx >> 1], (idx & 1) ? s * 65536 : s);
   }
   __syncthreads();
@@ -158,22 +232,52 @@ hist_scaled_resized_kernel(const float* __restrict__ x, const float* __restrict_
     qout[b] = qv;
   }
   __syncthreads();
-  const float scale = s_scale;
+  return s_scale;
+}
+
+__global__ void __launch_bounds__(kThreads)
+hist_scaled_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                   const int* __restrict__ pol, float* __restrict__ out,
+                   float* __restrict__ qout, int N, int H, int W, int kth, float thresh,
+                   int iters, int table_len) {
+  extern __shared__ int smem[];
+  int* words = smem;
+  int* table = smem + (H * W + 1) / 2;  // table[v] = #(|count| == v), then the CDF
+  const int b = blockIdx.x;
+  const float scale = packed_frame_and_scale(x, y, pol, qout, words, table, b, N, H, W, kth,
+                                             thresh, iters, table_len);
+  // 5. the clipped frame
+  float* ob = out + static_cast<size_t>(b) * H * W;
+  for (int i = threadIdx.x; i < H * W; i += blockDim.x) ob[i] = scaled_count(words, i, scale);
+}
+
+__global__ void __launch_bounds__(kThreads)
+hist_scaled_resized_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                           const int* __restrict__ pol, const float* __restrict__ taps,
+                           float* __restrict__ out, float* __restrict__ qout,
+                           int N, int H, int W, int h_out, int w_out, int kth,
+                           float thresh, int iters, int table_len) {
+  extern __shared__ int smem[];
+  int* words = smem;
+  int* table = smem + (H * W + 1) / 2;
+  const int b = blockIdx.x;
+  const float scale = packed_frame_and_scale(x, y, pol, qout, words, table, b, N, H, W, kth,
+                                             thresh, iters, table_len);
 
   // 5. bilinear resize from the <= 2x2 taps; taps rows are (i0, i1, w0, w1)
   const float* th = taps;
   const float* tw = taps + 4 * h_out;
   float* ob = out + static_cast<size_t>(b) * h_out * w_out;
-  for (int o = tid; o < h_out * w_out; o += nthreads) {
+  for (int o = threadIdx.x; o < h_out * w_out; o += blockDim.x) {
     const int i = o / w_out, j = o - i * w_out;
     const int h0 = static_cast<int>(th[4 * i]), h1 = static_cast<int>(th[4 * i + 1]);
     const float a0 = th[4 * i + 2], a1 = th[4 * i + 3];
     const int c0 = static_cast<int>(tw[4 * j]), c1 = static_cast<int>(tw[4 * j + 1]);
     const float b0 = tw[4 * j + 2], b1 = tw[4 * j + 3];
-    const float s00 = fminf(fmaxf(decode_count(words, h0 * W + c0) * scale, -1.f), 1.f);
-    const float s10 = fminf(fmaxf(decode_count(words, h1 * W + c0) * scale, -1.f), 1.f);
-    const float s01 = fminf(fmaxf(decode_count(words, h0 * W + c1) * scale, -1.f), 1.f);
-    const float s11 = fminf(fmaxf(decode_count(words, h1 * W + c1) * scale, -1.f), 1.f);
+    const float s00 = scaled_count(words, h0 * W + c0, scale);
+    const float s10 = scaled_count(words, h1 * W + c0, scale);
+    const float s01 = scaled_count(words, h0 * W + c1, scale);
+    const float s11 = scaled_count(words, h1 * W + c1, scale);
     // rows first, then columns: the order of the TPU kernel's two matmuls
     const float t0 = a0 * s00 + a1 * s10;
     const float t1 = a0 * s01 + a1 * s11;
@@ -181,18 +285,58 @@ hist_scaled_resized_kernel(const float* __restrict__ x, const float* __restrict_
   }
 }
 
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+size_t packed_smem(int H, int W, int table_len) {
+  return static_cast<size_t>((H * W + 1) / 2 + table_len) * sizeof(int);
+}
+
 }  // namespace
+
+extern "C" int evfly_hist_frame(const void* x, const void* y, const void* pol, void* out,
+                                int B, int N, int H, int W, int rows_per_band,
+                                float pos_thresh, float neg_thresh, int two_pass,
+                                void* stream) {
+  const size_t smem =
+      static_cast<size_t>((two_pass ? 2 : 1) * rows_per_band * W) * sizeof(int);
+  cudaError_t err = allow_smem(hist_frame_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B > 0) {
+    const dim3 grid((H + rows_per_band - 1) / rows_per_band, B);
+    hist_frame_kernel<<<grid, kBandThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(y),
+        static_cast<const int*>(pol), static_cast<float*>(out), N, H, W, rows_per_band,
+        pos_thresh, neg_thresh, two_pass);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int evfly_hist_scaled(const void* x, const void* y, const void* pol, void* out,
+                                 void* qout, int B, int N, int H, int W, int kth,
+                                 float thresh, int iters, int table_len, void* stream) {
+  const size_t smem = packed_smem(H, W, table_len);
+  cudaError_t err = allow_smem(hist_scaled_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B > 0) {
+    hist_scaled_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(y),
+        static_cast<const int*>(pol), static_cast<float*>(out), static_cast<float*>(qout), N,
+        H, W, kth, thresh, iters, table_len);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int evfly_hist_scaled_resized(const void* x, const void* y, const void* pol,
                                          const void* taps, void* out, void* qout,
                                          int B, int N, int H, int W, int h_out, int w_out,
                                          int kth, float thresh, int iters, int table_len,
                                          void* stream) {
-  const int nwords = (H * W + 1) / 2;
-  const size_t smem = static_cast<size_t>(nwords + table_len) * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(hist_scaled_resized_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  const size_t smem = packed_smem(H, W, table_len);
+  cudaError_t err = allow_smem(hist_scaled_resized_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B > 0) {
     hist_scaled_resized_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -51,6 +51,18 @@ def init_conv2d(gen, in_ch: int, out_ch: int, kernel_size: int, bias: bool = Tru
     return p
 
 
+def init_conv_transpose2d(gen, in_ch: int, out_ch: int, kernel_size: int,
+                          bias: bool = True) -> Params:
+    """torch ConvTranspose2d params: weight (in, out, k, k); torch's fan_in
+    for that layout is out * k * k."""
+    k = kernel_size
+    b = _kaiming_uniform_bound(out_ch * k * k)
+    p = {"weight": _uniform(gen, (in_ch, out_ch, k, k), b)}
+    if bias:
+        p["bias"] = _uniform(gen, (out_ch,), b)
+    return p
+
+
 def init_linear(gen, in_f: int, out_f: int, bias: bool = True) -> Params:
     b = _kaiming_uniform_bound(in_f)
     p = {"weight": _uniform(gen, (out_f, in_f), b)}
@@ -160,6 +172,16 @@ class Conv2d(ParamLeaf):
 
     def forward(self, x):
         return imageops.conv2d(x, self.weight, self._bias(), self.stride, self.padding, self.groups)
+
+
+class ConvTranspose2d(ParamLeaf):
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, gen, device, stride=1,
+                 padding=0, bias: bool = True):
+        super().__init__(init_conv_transpose2d(gen, in_ch, out_ch, kernel_size, bias), device)
+        self.stride, self.padding = stride, padding
+
+    def forward(self, x):
+        return imageops.conv_transpose2d(x, self.weight, self._bias(), self.stride, self.padding)
 
 
 class LayerNorm(ParamLeaf):

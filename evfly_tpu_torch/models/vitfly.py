@@ -2,10 +2,12 @@
 
 Port of ``LSTMNetVIT`` and ``refine_inputs`` of ``evfly_tpu/models/vitfly.py``
 (3,563,663 params); its ``_speclin`` layers are ``common.SpectralLinear``.
-The model takes a depth (or event) image (N, 1, H, W), the desired velocity (N, 1) and an optional
-attitude quaternion (N, 4), and returns velocity commands (N, 3) with the
-LSTM's (h, c).  The LSTM runs over the N axis as its time axis
-(unbatched nn.LSTM semantics), so hidden states are (3, 128).
+The model takes a depth (or event) image (N, 1, H, W), the desired velocity
+(N, 1) and an optional attitude quaternion (N, 4), and returns velocity
+commands (N, 3) with the LSTM's (h, c).  The LSTM runs over the N axis as
+its time axis (unbatched nn.LSTM semantics), so hidden states are (3, 128);
+with a leading stream axis G (the batched streaming pipeline) they are
+(G, 3, 128).
 """
 
 from __future__ import annotations
@@ -79,7 +81,17 @@ class LSTMNetVIT(nn.Module):
         quat: Optional[torch.Tensor] = None,
         hidden: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """img (N, 1, H, W), desvel (N, 1), quat (N, 4) or None: the LSTM
+        runs over N as its time axis, hidden (3, 128) each.  With a leading
+        stream axis, img (G, N, 1, H, W), desvel (G, N, 1), quat (G, N, 4):
+        G sequences through one LSTM launch, hidden (G, 3, 128) each.
+        Returns (velocity (..., 3), (h, c))."""
+        lead = img.shape[:-3]
+        img = img.reshape(-1, *img.shape[-3:])
+        desvel = desvel.reshape(-1, desvel.shape[-1])
+        if quat is not None:
+            quat = quat.reshape(-1, quat.shape[-1])
         img, quat = refine_inputs(img, quat)
         out = torch.cat([self._encode(img), desvel / 10.0, quat], dim=1)
-        out, h = self.lstm(out, hidden)
+        out, h = self.lstm(out.reshape(*lead, out.shape[-1]), hidden)
         return self.nn_fc2(out), h

@@ -38,10 +38,13 @@ _F = ctypes.c_float
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so ctypes does not cut a 64-bit address to a 32-bit int)
 _SIGNATURES = {
+    "evfly_hist_frame": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P],
+    "evfly_hist_scaled": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
     "evfly_hist_scaled_resized": (
         [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P]
     ),
-    "evfly_lstm_stacked": [_P] * 9 + [_I] * 3 + [_P],
+    "evfly_lstm_stacked": [_P] * 9 + [_I] * 4 + [_P],
+    "evfly_lstm_wavefront": [_P] * 9 + [_I] * 4 + [_P],
     "evfly_error_string": [_I],
 }
 

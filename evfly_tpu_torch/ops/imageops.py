@@ -1,7 +1,7 @@
 """Torch-semantics image and layer primitives, as plain tensor functions.
 
-Port of ``evfly_tpu/ops/imageops.py`` for the functions the serving path
-of ``LSTMNetVIT`` needs.  Layouts are torch's (NCHW activations, OIHW conv
+Port of ``evfly_tpu/ops/imageops.py`` for the functions the serving and
+streaming paths need (``LSTMNetVIT``, ``OrigUNet``).  Layouts are torch's (NCHW activations, OIHW conv
 weights, (out, in) linear weights), the same as the JAX package keeps, so
 one state_dict feeds both.  Matmuls and convolutions run in full f32: the
 JAX package's parity contract uses ``Precision.HIGHEST``, and on the card
@@ -31,6 +31,23 @@ def conv2d(
     kH, kW); ``padding`` may be an int, a pair or 'same' (stride 1, as
     MixFFN's depthwise conv uses it)."""
     return F.conv2d(x, weight, bias, stride=stride, padding=padding, groups=groups)
+
+
+def conv_transpose2d(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    stride=1,
+    padding=0,
+) -> torch.Tensor:
+    """torch.nn.functional.conv_transpose2d.  weight: (I, O, kH, kW) (torch
+    IOHW); output size (in - 1) * stride - 2 * padding + k."""
+    return F.conv_transpose2d(x, weight, bias, stride=stride, padding=padding)
+
+
+def max_pool2d(x: torch.Tensor, kernel_size, stride=None) -> torch.Tensor:
+    """torch.nn.functional.max_pool2d with floor semantics (VALID windows)."""
+    return F.max_pool2d(x, kernel_size, stride if stride is not None else kernel_size)
 
 
 def _interp_axis_weights(n_in: int, n_out: int, align_corners: bool, device):

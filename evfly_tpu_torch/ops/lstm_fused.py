@@ -1,21 +1,33 @@
-"""Stacked multi-layer LSTM inference as one CUDA kernel (K4).
+"""Stacked multi-layer LSTM inference as one CUDA kernel (K4, K5).
 
-Port of ``evfly_tpu/ops/lstm_pallas.py`` in its "stacked" mode: the vitfly
-models run torch ``nn.LSTM`` over an unbatched (T, features) sequence, and
-step by step that is T * L dependent matrix-vector products.  The kernel
-(``csrc/lstm.cu``, the port of ``_lstm_fused``) runs the whole recurrence in
-one launch, advancing layers 0..L-1 at each time step.  The layer-0 input
-projection x W_ih0^T + b is one large matmul and stays outside the kernel
-(``torch.matmul``), as the JAX code keeps it outside Pallas.
+Port of ``evfly_tpu/ops/lstm_pallas.py``: the vitfly models run torch
+``nn.LSTM`` over an unbatched (T, features) sequence, and step by step that
+is T * L dependent matrix-vector products.  Each kernel (``csrc/lstm.cu``)
+runs the whole recurrence in one launch, in one of the JAX package's two
+orders:
 
-``lstm_stacked`` is the kernel's wrapper, ``lstm_stacked_plain`` its plain
-PyTorch version (what CPU tensors take), and ``lstm_apply_fused`` the
-drop-in for ``models.recurrent.lstm_apply`` at inference.  Gates are ordered
-(i, f, g, o), as torch packs them; everything is f32.
+- "stacked" (K4, ``lstm_stacked``, the port of ``_lstm_fused``): time steps,
+  advancing layers 0..L-1 inside each;
+- "wavefront" (K5, ``lstm_wavefront``, the port of
+  ``_lstm_fused_wavefront``): anti-diagonals of the (layer, time) grid, every
+  live layer advancing at once on its own time index.
+
+Both take a leading stream axis, one block per stream: xp0 (G, T, 4H) and
+the state (G, L, H), what ``jax.vmap`` over the kernel computes for the
+batched streaming pipeline; an unbatched (T, 4H) call is G = 1.  The layer-0
+input projection x W_ih0^T + b is one large matmul and stays outside the
+kernels (``torch.matmul``), as the JAX code keeps it outside Pallas.
+
+Each wrapper has a plain PyTorch version (``*_plain``), which CPU tensors
+take; ``lstm_apply_fused`` is the drop-in for ``models.recurrent.lstm_apply``
+at inference, with ``mode`` defaulting to ``FUSED_LSTM_MODE`` (from
+``EVFLY_FLSTM_MODE``, "stacked" when unset, as in the JAX package).  Gates are
+ordered (i, f, g, o), as torch packs them; everything is f32.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -24,10 +36,12 @@ from . import _build
 
 Params = Dict[str, torch.Tensor]
 
+FUSED_LSTM_MODE = os.environ.get("EVFLY_FLSTM_MODE", "stacked")
+
 
 def pack_stacked(params: Params, num_layers: int, hidden_size: int):
     """(whh_t (H, L*4H), wih_t (H, (L-1)*4H), bias ((L-1)*4H,)) in the
-    kernel's layouts, from torch nn.LSTM state_dict keys."""
+    kernels' layouts, from torch nn.LSTM state_dict keys."""
     L, H = num_layers, hidden_size
     ref = params["weight_hh_l0"]
     whh_t = torch.cat([params[f"weight_hh_l{l}"].T for l in range(L)], dim=1)
@@ -45,34 +59,112 @@ def pack_stacked(params: Params, num_layers: int, hidden_size: int):
     return whh_t.to(f32).contiguous(), wih_t.to(f32).contiguous(), bias.to(f32).contiguous()
 
 
+def _cell(gates: torch.Tensor, c: torch.Tensor, H: int):
+    i, f, g, o = gates.split(H, dim=-1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c), c
+
+
+def _layer_gates(l: int, xp_t, h_below, h_own, whh_t, wih_t, bias):
+    """Gates (..., 4H) of layer l from the layer-0 gates at its time step
+    (layer 0), the input from the layer below (layers >= 1) and its own h."""
+    G = xp_t.shape[-1]
+    rec = h_own @ whh_t[:, l * G:(l + 1) * G]
+    if l == 0:
+        return xp_t + rec
+    return (h_below @ wih_t[:, (l - 1) * G:l * G] + bias[(l - 1) * G:l * G]) + rec
+
+
+def _streams(xp0, h0, c0):
+    """(xp0, h0, c0) with a leading stream axis, and whether it was added."""
+    if xp0.dim() == 2:
+        return xp0[None], h0[None], c0[None], True
+    return xp0, h0, c0, False
+
+
 def lstm_stacked_plain(xp0, whh_t, wih_t, bias, h0, c0):
-    """Plain PyTorch version of K4: (out (T, H), h_n (L, H), c_n (L, H))."""
-    T, G = xp0.shape
-    L, H = h0.shape
-    hs = list(h0.unbind(0))
-    cs = list(c0.unbind(0))
+    """Plain PyTorch version of K4: (out (G, T, H), h_n (G, L, H), c_n
+    (G, L, H)); without the stream axis, (T, H), (L, H), (L, H)."""
+    xp0, h0, c0, squeeze = _streams(xp0, h0, c0)
+    S, T, _ = xp0.shape
+    H = h0.shape[-1]
+    hs, cs = list(h0.unbind(1)), list(c0.unbind(1))
     outs = []
     for t in range(T):
-        inp = None
-        for l in range(L):
-            if l == 0:
-                gates = xp0[t]
-            else:
-                gates = inp @ wih_t[:, (l - 1) * G:l * G] + bias[(l - 1) * G:l * G]
-            gates = gates + hs[l] @ whh_t[:, l * G:(l + 1) * G]
-            i, f, g, o = gates.split(H)
-            c = torch.sigmoid(f) * cs[l] + torch.sigmoid(i) * torch.tanh(g)
-            h = torch.sigmoid(o) * torch.tanh(c)
+        for l in range(len(hs)):
+            gates = _layer_gates(l, xp0[:, t], hs[l - 1] if l else None, hs[l],
+                                 whh_t, wih_t, bias)
+            hs[l], cs[l] = _cell(gates, cs[l], H)
+        outs.append(hs[-1])
+    out = torch.stack(outs, 1) if outs else xp0.new_zeros(S, 0, H)
+    hn, cn = torch.stack(hs, 1), torch.stack(cs, 1)
+    return (out[0], hn[0], cn[0]) if squeeze else (out, hn, cn)
+
+
+def lstm_wavefront_plain(xp0, whh_t, wih_t, bias, h0, c0):
+    """Plain PyTorch version of K5, the wavefront order: on wavefront w each
+    layer l with 0 <= w - l < T advances from the state wavefront w - 1
+    left.  Shapes as ``lstm_stacked_plain``."""
+    xp0, h0, c0, squeeze = _streams(xp0, h0, c0)
+    S, T, _ = xp0.shape
+    L, H = h0.shape[1], h0.shape[2]
+    hs, cs = list(h0.unbind(1)), list(c0.unbind(1))
+    out = xp0.new_zeros(S, T, H)
+    for w in range(T + L - 1):
+        live = range(max(0, w - T + 1), min(L - 1, w) + 1)
+        new = {
+            l: _cell(_layer_gates(l, xp0[:, min(w, T - 1)], hs[l - 1] if l else None, hs[l],
+                                  whh_t, wih_t, bias), cs[l], H)
+            for l in live
+        }
+        for l, (h, c) in new.items():
             hs[l], cs[l] = h, c
-            inp = h
-        outs.append(inp)
-    out = torch.stack(outs) if outs else xp0.new_zeros(0, H)
-    return out, torch.stack(hs), torch.stack(cs)
+        if L - 1 in new:
+            out[:, w - (L - 1)] = new[L - 1][0]
+    hn, cn = torch.stack(hs, 1), torch.stack(cs, 1)
+    return (out[0], hn[0], cn[0]) if squeeze else (out, hn, cn)
+
+
+def _launch(name: str, fn, xp0, whh_t, wih_t, bias, h0, c0):
+    """Check the inputs of K4 or K5 on CUDA, launch ``fn`` of the kernel
+    library and return its outputs in the inputs' stream layout."""
+    if xp0.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {xp0.device}")
+    xp0, h0, c0, squeeze = _streams(xp0, h0, c0)
+    S, T, G4 = xp0.shape
+    L, H = h0.shape[1], h0.shape[2]
+    if H % 128 != 0:
+        raise ValueError(f"{name} needs hidden_size % 128 == 0, got {H}")
+    expected = {
+        "xp0": (xp0, (S, T, 4 * H)), "whh_t": (whh_t, (H, L * 4 * H)),
+        "wih_t": (wih_t, (H, (L - 1) * 4 * H)), "bias": (bias, ((L - 1) * 4 * H,)),
+        "h0": (h0, (S, L, H)), "c0": (c0, (S, L, H)),
+    }
+    for arg, (t, shape) in expected.items():
+        if tuple(t.shape) != shape or t.device != xp0.device:
+            raise ValueError(
+                f"{name}: {arg} is {tuple(t.shape)} on {t.device}, "
+                f"expected {shape} on {xp0.device}"
+            )
+    if torch.is_grad_enabled() and any(t.requires_grad for t, _ in expected.values()):
+        raise RuntimeError(f"{name} has no backward; call it under torch.no_grad()")
+    args = [t.to(torch.float32).contiguous() for t, _ in expected.values()]
+    out = torch.empty(S, T, H, dtype=torch.float32, device=xp0.device)
+    hn = torch.empty(S, L, H, dtype=torch.float32, device=xp0.device)
+    cn = torch.empty(S, L, H, dtype=torch.float32, device=xp0.device)
+    with torch.cuda.device(xp0.device):
+        status = fn(
+            *(a.data_ptr() for a in args), out.data_ptr(), hn.data_ptr(), cn.data_ptr(),
+            S, T, H, L, _build.stream_of(xp0.device),
+        )
+    _build.check(name, status)
+    return (out[0], hn[0], cn[0]) if squeeze else (out, hn, cn)
 
 
 def lstm_stacked(xp0, whh_t, wih_t, bias, h0, c0):
-    """K4: (out (T, H), h_n (L, H), c_n (L, H)) from the layouts of
-    ``pack_stacked`` and the layer-0 gates ``xp0`` (T, 4H).
+    """K4: (out, h_n, c_n) from the layouts of ``pack_stacked``, the layer-0
+    gates ``xp0`` (G, T, 4H) and the state (G, L, H) of G streams, or
+    (T, 4H) and (L, H) for one sequence.
 
     CPU tensors take ``lstm_stacked_plain``; CUDA tensors launch the kernel
     or raise.  The kernel has no backward: under autograd the wrapper raises
@@ -80,57 +172,55 @@ def lstm_stacked(xp0, whh_t, wih_t, bias, h0, c0):
     """
     if xp0.device.type == "cpu":
         return lstm_stacked_plain(xp0, whh_t, wih_t, bias, h0, c0)
-    if xp0.device.type != "cuda":
-        raise ValueError(f"lstm_stacked: unsupported device {xp0.device}")
-    L, H = h0.shape
-    T, G = xp0.shape
-    if H % 128 != 0:
-        raise ValueError(f"lstm_stacked needs hidden_size % 128 == 0, got {H}")
-    expected = {
-        "xp0": (xp0, (T, 4 * H)), "whh_t": (whh_t, (H, L * 4 * H)),
-        "wih_t": (wih_t, (H, (L - 1) * 4 * H)), "bias": (bias, ((L - 1) * 4 * H,)),
-        "h0": (h0, (L, H)), "c0": (c0, (L, H)),
-    }
-    for name, (t, shape) in expected.items():
-        if tuple(t.shape) != shape or t.device != xp0.device:
-            raise ValueError(
-                f"lstm_stacked: {name} is {tuple(t.shape)} on {t.device}, "
-                f"expected {shape} on {xp0.device}"
-            )
-    if torch.is_grad_enabled() and any(t.requires_grad for t, _ in expected.values()):
-        raise RuntimeError("lstm_stacked has no backward; call it under torch.no_grad()")
-    args = [t.to(torch.float32).contiguous() for t, _ in expected.values()]
-    out = torch.empty(T, H, dtype=torch.float32, device=xp0.device)
-    hn = torch.empty(L, H, dtype=torch.float32, device=xp0.device)
-    cn = torch.empty(L, H, dtype=torch.float32, device=xp0.device)
-    lib = _build.library()
-    with torch.cuda.device(xp0.device):
-        status = lib.evfly_lstm_stacked(
-            *(a.data_ptr() for a in args), out.data_ptr(), hn.data_ptr(), cn.data_ptr(),
-            T, H, L, _build.stream_of(xp0.device),
-        )
-    _build.check("evfly_lstm_stacked", status)
+    res = _launch("lstm_stacked", _build.library().evfly_lstm_stacked,
+                  xp0, whh_t, wih_t, bias, h0, c0)
     lstm_stacked.launches += 1
-    return out, hn, cn
+    return res
 
 
 lstm_stacked.launches = 0
 
 
+def lstm_wavefront(xp0, whh_t, wih_t, bias, h0, c0):
+    """K5: ``lstm_stacked``'s function in the wavefront order, with the same
+    arguments and results.
+
+    CPU tensors take ``lstm_wavefront_plain``; CUDA tensors launch the
+    kernel or raise.  ``lstm_wavefront.launches`` counts launches.
+    """
+    if xp0.device.type == "cpu":
+        return lstm_wavefront_plain(xp0, whh_t, wih_t, bias, h0, c0)
+    res = _launch("lstm_wavefront", _build.library().evfly_lstm_wavefront,
+                  xp0, whh_t, wih_t, bias, h0, c0)
+    lstm_wavefront.launches += 1
+    return res
+
+
+lstm_wavefront.launches = 0
+
+_KERNELS = {"stacked": lstm_stacked, "wavefront": lstm_wavefront}
+
+
 def lstm_apply_fused(
     params: Params,
-    x: torch.Tensor,  # (T, input_size)
+    x: torch.Tensor,  # (T, input_size) or (G, T, input_size)
     hidden: Optional[Tuple[torch.Tensor, torch.Tensor]],
     num_layers: int,
     hidden_size: int,
+    mode: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Inference drop-in for ``models.recurrent.lstm_apply``: the same
     params (nn.LSTM state_dict keys) and return (out (T, H), (h_n, c_n)
-    each (L, H)).  Requires hidden_size % 128 == 0 on CUDA."""
+    each (L, H)), or with a leading stream axis G on x, the state and every
+    result.  mode: "stacked" (K4) or "wavefront" (K5); None takes
+    ``FUSED_LSTM_MODE``.  Requires hidden_size % 128 == 0 on CUDA."""
+    mode = FUSED_LSTM_MODE if mode is None else mode
+    if mode not in _KERNELS:
+        raise ValueError(f"unknown fused-LSTM mode {mode!r}")
     L, H = num_layers, hidden_size
     if hidden is None:
-        h0 = x.new_zeros(L, H, dtype=torch.float32)
-        c0 = x.new_zeros(L, H, dtype=torch.float32)
+        h0 = x.new_zeros(*x.shape[:-2], L, H, dtype=torch.float32)
+        c0 = x.new_zeros(*x.shape[:-2], L, H, dtype=torch.float32)
     else:
         h0, c0 = hidden
     # layer-0 input projection: one large matmul, outside the kernel
@@ -138,5 +228,5 @@ def lstm_apply_fused(
     if "bias_ih_l0" in params:
         xp0 = xp0 + params["bias_ih_l0"] + params["bias_hh_l0"]
     whh_t, wih_t, bias = pack_stacked(params, L, H)
-    out, hn, cn = lstm_stacked(xp0, whh_t, wih_t, bias, h0, c0)
+    out, hn, cn = _KERNELS[mode](xp0, whh_t, wih_t, bias, h0, c0)
     return out.to(x.dtype), (hn.to(x.dtype), cn.to(x.dtype))

@@ -1,18 +1,22 @@
-"""Event voxelization for the serving path: events -> normalized model input.
+"""Event voxelization: raw events -> event frames and normalized model inputs.
 
-Port of the part of ``evfly_tpu/ops/voxelizer.py`` that the serving path
-runs: ``_bin_events`` and ``event_histogram_scaled_resized``, with a batch
-axis written out (the JAX bench vmaps 256 windows).  For a batch of windows
-of raw events ``(x, y, p)`` it returns
+Port of ``evfly_tpu/ops/voxelizer.py``: ``_bin_events`` and the three
+functions over its Pallas kernels, each with a batch axis written out (the
+JAX callers vmap over windows).  For windows of raw events ``(x, y, p)``,
+with ``counts`` the signed event count frame under np.histogram2d binning:
 
-    clip(frame / quantile(|frame|, 0.97), +-1) resized bilinearly to
-    (h_out, w_out)
+- ``event_histogram``: ``thresh * counts`` (two passes,
+  ``pos * pos_counts - neg * neg_counts``, when the thresholds differ),
+  through kernel K1 (``hist_frame``);
+- ``event_histogram_scaled``: ``clip(counts / quantile(|counts|, 0.97),
+  +-1)``, through kernel K2 (``hist_scaled``);
+- ``event_histogram_scaled_resized``: the same frame resized bilinearly to
+  (h_out, w_out), through kernel K3 (``hist_scaled_resized``).
 
-where ``frame`` is the signed event count frame with np.histogram2d
-binning.  ``hist_scaled_resized`` is the wrapper of the CUDA kernel K3
-(``csrc/voxelizer.cu``, the port of ``_hist_pallas_fused_quantile_resize``);
-``hist_scaled_resized_plain`` is its plain PyTorch version, which CPU tensors
-take and against which the kernel is held.
+The kernels are in ``csrc/voxelizer.cu``.  Each wrapper ``hist_*`` has a
+plain PyTorch version ``hist_*_plain``, which CPU tensors take and against
+which the kernel is held.  The TPU layout knobs of the JAX functions
+(``chunk``, ``subchunks``, ``int8_mm``, ``interpret``) have no counterpart.
 """
 
 from __future__ import annotations
@@ -31,8 +35,10 @@ from .percentile import bisect_abs_quantile
 # a block may opt in to 227 KB (232,448 bytes) of shared memory; keep 1 KiB
 # for the kernel's static shared variables
 _SMEM_LIMIT = 232448 - 1024
-# two int16 counts share one int32 word in the kernel
+# two int16 counts share one int32 word in K2's and K3's shared frame
 _MAX_EVENTS = 32767
+# K1 counts a band of rows of the frame per block in int32: 32 KiB a band
+_BAND_INTS = 8192
 
 
 def bin_events(
@@ -94,6 +100,49 @@ def _resize_operators(H: int, W: int, h_out: int, w_out: int, align_corners: boo
     )
 
 
+def _signed_counts(x, y, pol, H: int, W: int) -> torch.Tensor:
+    """(B, N) events -> (B, H * W) f32 signed counts, by scatter_add_."""
+    xi, yi, sign = bin_events(x, y, pol, H, W)
+    counts = torch.zeros(x.shape[0], H * W, dtype=torch.float32, device=x.device)
+    return counts.scatter_add_(1, yi * W + xi, sign)
+
+
+def _quantile_scale_plain(counts, thresh: float, q: float, iters: int):
+    """(scale (B,), q (B,)) of K2's and K3's normalization: 1 / q, or
+    ``thresh`` where the quantile snapped to 0 (the fallback scales the
+    VALUE frame thresh * counts by 1)."""
+    qv = bisect_abs_quantile(counts.abs(), _kth(q, counts.shape[1]), iters)
+    return torch.where(qv > 0, 1.0 / qv.clamp_min(1e-30), thresh), qv
+
+
+def hist_frame_plain(
+    x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, H: int, W: int,
+    pos_thresh: float = 0.2, neg_thresh: float = 0.2,
+) -> torch.Tensor:
+    """Plain PyTorch version of K1: (B, N) events -> (B, H, W) frame."""
+    B = x.shape[0]
+    if pos_thresh == neg_thresh:
+        return (pos_thresh * _signed_counts(x, y, pol, H, W)).reshape(B, H, W)
+    xi, yi, sign = bin_events(x, y, pol, H, W)
+    idx = yi * W + xi
+    zeros = torch.zeros(B, H * W, dtype=torch.float32, device=x.device)
+    pos_counts = zeros.clone().scatter_add_(1, idx, sign.clamp_min(0.0))
+    neg_counts = zeros.scatter_add_(1, idx, (-sign).clamp_min(0.0))
+    return (pos_thresh * pos_counts - neg_thresh * neg_counts).reshape(B, H, W)
+
+
+def hist_scaled_plain(
+    x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, H: int, W: int,
+    thresh: float = 0.2, q: float = 0.97, iters: int = 18,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2: (B, N) events -> ((B, H, W) clipped
+    frame, (B,) quantile of |counts|)."""
+    counts = _signed_counts(x, y, pol, H, W)
+    scale, qv = _quantile_scale_plain(counts, thresh, q, iters)
+    frame = (counts * scale[:, None]).clamp(-1.0, 1.0)
+    return frame.reshape(x.shape[0], H, W), qv
+
+
 def hist_scaled_resized_plain(
     x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, H: int, W: int,
     h_out: int, w_out: int, thresh: float = 0.2, q: float = 0.97, iters: int = 18,
@@ -101,23 +150,109 @@ def hist_scaled_resized_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K3: (B, N) events -> ((B, h_out, w_out) input,
     (B,) quantile of |counts|)."""
-    B = x.shape[0]
-    xi, yi, sign = bin_events(x, y, pol, H, W)
-    counts = torch.zeros(B, H * W, dtype=torch.float32, device=x.device)
-    counts.scatter_add_(1, yi * W + xi, sign)
-    qv = bisect_abs_quantile(counts.abs(), _kth(q, H * W), iters)
-    # the zero-quantile fallback scales the VALUE frame (thresh * counts) by 1
-    scale = torch.where(qv > 0, 1.0 / qv.clamp_min(1e-30), thresh)
-    scaled = (counts * scale[:, None]).clamp(-1.0, 1.0).reshape(B, H, W)
+    scaled, qv = hist_scaled_plain(x, y, pol, H, W, thresh, q, iters)
     _, rh, rw = _resize_operators(H, W, h_out, w_out, align_corners, x.device)
     small = torch.matmul(torch.matmul(rh, scaled), rw.T)
     return small, qv
 
 
-def _kernel_pol(pol: torch.Tensor) -> torch.Tensor:
+def _kernel_events(name: str, x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor):
+    """The events as the kernels take them: (B, N) f32 x, y and int32 pol
+    on one CUDA device, contiguous; raises on anything else."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dim() != 2 or y.shape != x.shape or pol.shape != x.shape:
+        raise ValueError(
+            f"{name}: x, y, pol must share one (B, N) shape, got "
+            f"{tuple(x.shape)}, {tuple(y.shape)}, {tuple(pol.shape)}"
+        )
+    if y.device != x.device or pol.device != x.device:
+        raise ValueError(f"{name}: x, y and pol must be on one device")
     if pol.dtype == torch.int32:
-        return pol.contiguous()
-    return torch.where(pol > 0, 1, torch.where(pol < 0, -1, 0)).to(torch.int32)
+        pc = pol.contiguous()
+    else:
+        pc = torch.where(pol > 0, 1, torch.where(pol < 0, -1, 0)).to(torch.int32)
+    return x.to(torch.float32).contiguous(), y.to(torch.float32).contiguous(), pc
+
+
+def _packed_table_len(name: str, N: int, H: int, W: int) -> int:
+    """K2's and K3's count-of-counts table length; raises when the packed
+    frame and the table do not fit one block or a count could pass int16."""
+    table_len = N + 1  # |count| <= events per window
+    smem = ((H * W + 1) // 2 + table_len) * 4
+    if N > _MAX_EVENTS or smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: {N} events per window at {H}x{W} need {smem} bytes of shared "
+            f"memory (limit {_SMEM_LIMIT}) or exceed {_MAX_EVENTS} events: the kernel "
+            f"packs two int16 counts per word, so it takes at most {_MAX_EVENTS} events "
+            f"per window (event_histogram takes any number)"
+        )
+    return table_len
+
+
+def hist_frame(
+    x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, H: int, W: int,
+    pos_thresh: float = 0.2, neg_thresh: float = 0.2,
+) -> torch.Tensor:
+    """K1: (B, N) events, any N -> (B, H, W) frame ``thresh * counts``
+    (``pos * pos_counts - neg * neg_counts`` when the thresholds differ).
+
+    CPU tensors take ``hist_frame_plain``; CUDA tensors launch the kernel or
+    raise.  ``hist_frame.launches`` counts the launches.
+    """
+    if x.device.type == "cpu":
+        return hist_frame_plain(x, y, pol, H, W, pos_thresh, neg_thresh)
+    xc, yc, pc = _kernel_events("hist_frame", x, y, pol)
+    B, N = xc.shape
+    two_pass = pos_thresh != neg_thresh
+    arrays = 2 if two_pass else 1
+    rows_per_band = max(1, min(H, _BAND_INTS // (W * arrays)))
+    if rows_per_band * W * arrays * 4 > _SMEM_LIMIT:
+        raise ValueError(f"hist_frame: a row of {W} cells does not fit in shared memory")
+    out = torch.empty(B, H, W, dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        status = lib.evfly_hist_frame(
+            xc.data_ptr(), yc.data_ptr(), pc.data_ptr(), out.data_ptr(), B, N, H, W,
+            rows_per_band, pos_thresh, neg_thresh, int(two_pass), _build.stream_of(x.device),
+        )
+    _build.check("evfly_hist_frame", status)
+    hist_frame.launches += 1
+    return out
+
+
+hist_frame.launches = 0
+
+
+def hist_scaled(
+    x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, H: int, W: int,
+    thresh: float = 0.2, q: float = 0.97, iters: int = 18,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: (B, N) events, N <= 32,767 -> ((B, H, W) clipped frame, (B,)
+    quantile).
+
+    CPU tensors take ``hist_scaled_plain``; CUDA tensors launch the kernel
+    or raise.  ``hist_scaled.launches`` counts the launches.
+    """
+    if x.device.type == "cpu":
+        return hist_scaled_plain(x, y, pol, H, W, thresh, q, iters)
+    xc, yc, pc = _kernel_events("hist_scaled", x, y, pol)
+    B, N = xc.shape
+    table_len = _packed_table_len("hist_scaled", N, H, W)
+    out = torch.empty(B, H, W, dtype=torch.float32, device=x.device)
+    qout = torch.empty(B, dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        status = lib.evfly_hist_scaled(
+            xc.data_ptr(), yc.data_ptr(), pc.data_ptr(), out.data_ptr(), qout.data_ptr(),
+            B, N, H, W, _kth(q, H * W), thresh, iters, table_len, _build.stream_of(x.device),
+        )
+    _build.check("evfly_hist_scaled", status)
+    hist_scaled.launches += 1
+    return out, qout
+
+
+hist_scaled.launches = 0
 
 
 def hist_scaled_resized(
@@ -125,7 +260,8 @@ def hist_scaled_resized(
     h_out: int, w_out: int, thresh: float = 0.2, q: float = 0.97, iters: int = 18,
     align_corners: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3: (B, N) events -> ((B, h_out, w_out) input, (B,) quantile).
+    """K3: (B, N) events, N <= 32,767 -> ((B, h_out, w_out) input, (B,)
+    quantile).
 
     CPU tensors take ``hist_scaled_resized_plain``; CUDA tensors launch the
     kernel or raise.  ``hist_scaled_resized.launches`` counts the launches.
@@ -134,26 +270,9 @@ def hist_scaled_resized(
         return hist_scaled_resized_plain(
             x, y, pol, H, W, h_out, w_out, thresh, q, iters, align_corners
         )
-    if x.device.type != "cuda":
-        raise ValueError(f"hist_scaled_resized: unsupported device {x.device}")
-    if x.dim() != 2 or y.shape != x.shape or pol.shape != x.shape:
-        raise ValueError(
-            f"hist_scaled_resized: x, y, pol must share one (B, N) shape, got "
-            f"{tuple(x.shape)}, {tuple(y.shape)}, {tuple(pol.shape)}"
-        )
-    if y.device != x.device or pol.device != x.device:
-        raise ValueError("hist_scaled_resized: x, y and pol must be on one device")
-    B, N = x.shape
-    table_len = N + 1  # |count| <= events per window
-    smem = ((H * W + 1) // 2 + table_len) * 4
-    if N > _MAX_EVENTS or smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"hist_scaled_resized: {N} events per window at {H}x{W} need {smem} bytes "
-            f"of shared memory (limit {_SMEM_LIMIT}) or exceed {_MAX_EVENTS} events"
-        )
-    xc = x.to(torch.float32).contiguous()
-    yc = y.to(torch.float32).contiguous()
-    pc = _kernel_pol(pol)
+    xc, yc, pc = _kernel_events("hist_scaled_resized", x, y, pol)
+    B, N = xc.shape
+    table_len = _packed_table_len("hist_scaled_resized", N, H, W)
     taps, _, _ = _resize_operators(H, W, h_out, w_out, align_corners, x.device)
     out = torch.empty(B, h_out, w_out, dtype=torch.float32, device=x.device)
     qout = torch.empty(B, dtype=torch.float32, device=x.device)
@@ -170,6 +289,70 @@ def hist_scaled_resized(
 
 
 hist_scaled_resized.launches = 0
+
+
+def _device_events(x, y, pol, device: DeviceLike):
+    """Tensors or arrays of events on the resolved device, as a (B, N)
+    batch, and whether the caller gave one (N,) window."""
+    dev = resolve_device(device)
+    x, y, pol = (torch.as_tensor(v, device=dev) for v in (x, y, pol))
+    if x.dim() not in (1, 2):
+        raise ValueError(f"expected (N,) or (B, N) events, got {tuple(x.shape)}")
+    single = x.dim() == 1
+    if single:
+        x, y, pol = x[None], y[None], pol[None]
+    return x, y, pol, single
+
+
+def event_histogram(
+    x, y, pol, H: int, W: int, pos_thresh: float = 0.2, neg_thresh: float = 0.2,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """One (N,) window of raw events -> (H, W) f32 event frame; a (B, N)
+    batch -> (B, H, W).
+
+    Equals the JAX package's ``event_histogram`` bit for bit:
+    ``pos_thresh * counts``, or ``pos_thresh * pos_counts - neg_thresh *
+    neg_counts`` when the thresholds differ (the reference's
+    ``pos_th*hist2d(pos).T - neg_th*hist2d(neg).T``).  pol's sign is the
+    polarity; 0 is ignored.  Any number of events.  Runs on ``device``
+    (CUDA unless the caller names another), through kernel K1 on CUDA.
+    """
+    x, y, pol, single = _device_events(x, y, pol, device)
+    frame = hist_frame(x, y, pol, H, W, pos_thresh, neg_thresh)
+    return frame[0] if single else frame
+
+
+def event_histogram_reference(
+    x, y, pol, H: int, W: int, pos_thresh: float = 0.2, neg_thresh: float = 0.2,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Plain oracle with the semantics of ``event_histogram``: the threshold
+    values themselves summed per cell (``index_add_``), as the JAX
+    ``event_histogram_reference`` sums them with ``segment_sum``.  (N,) ->
+    (H, W), (B, N) -> (B, H, W)."""
+    x, y, pol, single = _device_events(x, y, pol, device)
+    xi, yi, sign = bin_events(x, y, pol, H, W)
+    vals = torch.where(sign > 0, pos_thresh, torch.where(sign < 0, -neg_thresh, 0.0))
+    flat = torch.zeros(x.shape[0], H * W, dtype=torch.float32, device=x.device)
+    frame = flat.scatter_add_(1, yi * W + xi, vals.to(torch.float32)).reshape(-1, H, W)
+    return frame[0] if single else frame
+
+
+def event_histogram_scaled(
+    x, y, pol, H: int, W: int, thresh: float = 0.2, q: float = 0.97, iters: int = 18,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Events -> clip(frame / quantile(|frame|, q), +-1), the deployment
+    input transform, as the JAX package's ``event_histogram_scaled``.
+
+    One (N,) window -> (H, W); a (B, N) batch -> (B, H, W).  At most
+    32,767 events per window (kernel K2 packs int16 counts).  Runs on
+    ``device`` (CUDA unless the caller names another), through K2 on CUDA.
+    """
+    x, y, pol, single = _device_events(x, y, pol, device)
+    frame, _ = hist_scaled(x, y, pol, H, W, thresh, q, iters)
+    return frame[0] if single else frame
 
 
 def event_histogram_scaled_resized(
@@ -194,4 +377,3 @@ def event_histogram_scaled_resized(
         x, y, pol, H, W, h_out, w_out, thresh, q, iters, align_corners
     )
     return small
-

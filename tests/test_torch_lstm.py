@@ -1,9 +1,11 @@
 """The port's LSTM (ops.lstm_fused, models.recurrent) against the JAX package.
 
 The same numpy weights and sequences go through the JAX
-``lstm_apply_fused(mode="stacked")`` (its Pallas kernel in interpret mode on
-the CPU) and ``lstm_apply`` (lax.scan), and through the port, whose K4
-wrapper takes its plain PyTorch version on CPU tensors.  atol 2e-5, and
+``lstm_apply_fused(mode="stacked"|"wavefront")`` (its Pallas kernels in
+interpret mode on the CPU) and ``lstm_apply`` (lax.scan), and through the
+port, whose K4 and K5 wrappers take their plain PyTorch versions on CPU
+tensors.  The port's stream axis (G sequences in one call) is held against
+G separate JAX calls.  atol 2e-5, and
 3e-5 with a carried hidden state, are the JAX package's own bounds for the
 fused kernel (tests/test_lstm_pallas.py:53,79): sums run in another order.
 """
@@ -119,6 +121,83 @@ def test_pack_stacked_layouts():
     assert torch.equal(bias[:512], p["bias_ih_l1"] + p["bias_hh_l1"])
 
 
+@pytest.mark.parametrize("T", [1, 2, 17])
+@pytest.mark.parametrize("layers", [1, 3])
+@pytest.mark.parametrize("bias", [True, False])
+def test_plain_k5_matches_jax_wavefront(T, layers, bias):
+    """T < L runs the ramp-up and drain corners of the (layer, time) grid
+    (tests/test_lstm_pallas.py:85-98)."""
+    rng = np.random.default_rng(100 + 10 * T + 2 * layers + bias)
+    input_size, hidden = 37, 128
+    p = _params(rng, input_size, hidden, layers, bias)
+    x = rng.normal(size=(T, input_size)).astype(np.float32)
+    got = lstm_fused.lstm_apply_fused(_torch(p), torch.from_numpy(x), None, layers, hidden,
+                                      mode="wavefront")
+    ref = jax_lstm_apply_fused(_jax(p), jnp.asarray(x), None, layers, hidden, mode="wavefront")
+    _close(got, ref, ATOL)
+    _close(got, jax_lstm_apply(_jax(p), jnp.asarray(x), None, layers, hidden), ATOL)
+
+
+def test_plain_k5_carried_hidden_matches_jax():
+    rng = np.random.default_rng(8)
+    T, input_size, hidden, layers = 16, 24, 128, 3
+    p = _params(rng, input_size, hidden, layers)
+    x = rng.normal(size=(T, input_size)).astype(np.float32)
+    tp, xt = _torch(p), torch.from_numpy(x)
+    out_a, hid = lstm_fused.lstm_apply_fused(tp, xt[: T // 2], None, layers, hidden, "wavefront")
+    out_b, hid = lstm_fused.lstm_apply_fused(tp, xt[T // 2:], hid, layers, hidden, "wavefront")
+    ref = jax_lstm_apply(_jax(p), jnp.asarray(x), None, layers, hidden)
+    _close((torch.cat([out_a, out_b]), hid), ref, ATOL_CARRIED)
+
+    h0 = (rng.normal(size=(layers, hidden)) * 0.5).astype(np.float32)
+    c0 = (rng.normal(size=(layers, hidden)) * 0.5).astype(np.float32)
+    got = lstm_fused.lstm_apply_fused(
+        tp, xt, (torch.from_numpy(h0), torch.from_numpy(c0)), layers, hidden, "wavefront")
+    ref = jax_lstm_apply_fused(_jax(p), jnp.asarray(x), (jnp.asarray(h0), jnp.asarray(c0)),
+                               layers, hidden, mode="wavefront")
+    _close(got, ref, ATOL_CARRIED)
+
+
+@pytest.mark.parametrize("mode", ["stacked", "wavefront"])
+@pytest.mark.parametrize("T", [1, 5])
+def test_stream_axis_matches_separate_jax_calls(mode, T):
+    """(G, T, in) with (G, L, H) state == G separate JAX calls, what the
+    JAX package's vmap over the kernel computes."""
+    rng = np.random.default_rng(60 + T)
+    G, input_size, hidden, layers = 4, 19, 128, 3
+    p = _params(rng, input_size, hidden, layers)
+    x = rng.normal(size=(G, T, input_size)).astype(np.float32)
+    h0 = (rng.normal(size=(G, layers, hidden)) * 0.5).astype(np.float32)
+    c0 = (rng.normal(size=(G, layers, hidden)) * 0.5).astype(np.float32)
+    out, (h, c) = lstm_fused.lstm_apply_fused(
+        _torch(p), torch.from_numpy(x), (torch.from_numpy(h0), torch.from_numpy(c0)),
+        layers, hidden, mode)
+    assert out.shape == (G, T, hidden) and h.shape == c.shape == (G, layers, hidden)
+    plain = recurrent.lstm_apply(
+        _torch(p), torch.from_numpy(x), (torch.from_numpy(h0), torch.from_numpy(c0)),
+        layers, hidden)
+    for g in range(G):
+        ref = jax_lstm_apply_fused(_jax(p), jnp.asarray(x[g]),
+                                   (jnp.asarray(h0[g]), jnp.asarray(c0[g])),
+                                   layers, hidden, mode=mode)
+        _close((out[g], (h[g], c[g])), ref, ATOL_CARRIED)
+        _close((plain[0][g], (plain[1][0][g], plain[1][1][g])), ref, ATOL_CARRIED)
+
+
+def test_mode_default_and_unknown_mode():
+    assert lstm_fused.FUSED_LSTM_MODE in ("stacked", "wavefront")
+    with pytest.raises(ValueError, match="mode"):
+        lstm_fused.lstm_apply_fused({}, torch.zeros(2, 3), None, 1, 128, mode="diagonal")
+
+
+def test_k5_wrapper_on_cpu_takes_plain_version():
+    rng = np.random.default_rng(4)
+    p = _torch(_params(rng, 9, 128, 2))
+    before = lstm_fused.lstm_wavefront.launches
+    lstm_fused.lstm_apply_fused(p, torch.zeros(3, 5, 9), None, 2, 128, mode="wavefront")
+    assert lstm_fused.lstm_wavefront.launches == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("carried", [False, True])
 def test_k4_kernel_matches_plain_on_gpu(cuda_device, carried):
@@ -146,3 +225,21 @@ def test_k4_rejects_hidden_not_multiple_of_128(cuda_device):
                                 torch.zeros(0, device=cuda_device),
                                 torch.zeros(1, 64, device=cuda_device),
                                 torch.zeros(1, 64, device=cuda_device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["stacked", "wavefront"])
+@pytest.mark.parametrize("G,T", [(1, 64), (16, 1), (3, 2)])
+def test_stream_kernels_match_plain_on_gpu(cuda_device, kernel, G, T):
+    rng = np.random.default_rng(12)
+    hidden, layers = 128, 3
+    p = {k: v.to(cuda_device) for k, v in _torch(_params(rng, 517, hidden, layers)).items()}
+    xp0 = torch.randn(G, T, 4 * hidden, device=cuda_device)
+    h0 = torch.randn(G, layers, hidden, device=cuda_device) * 0.5
+    c0 = torch.randn(G, layers, hidden, device=cuda_device) * 0.5
+    packed = lstm_fused.pack_stacked(p, layers, hidden)
+    fn = {"stacked": lstm_fused.lstm_stacked, "wavefront": lstm_fused.lstm_wavefront}[kernel]
+    plain = {"stacked": lstm_fused.lstm_stacked_plain,
+             "wavefront": lstm_fused.lstm_wavefront_plain}[kernel]
+    for a, b in zip(fn(xp0, *packed, h0, c0), plain(xp0, *packed, h0, c0)):
+        torch.testing.assert_close(a, b, atol=ATOL_CARRIED, rtol=0)

@@ -10,8 +10,11 @@ import pytest
 import torch
 
 import evfly_tpu_torch
+from evfly_tpu_torch.models.composites import OrigUNet_w_VITFLY_ViTLSTM
+from evfly_tpu_torch.models.origunet import OrigUNet
 from evfly_tpu_torch.models.vitfly import LSTMNetVIT
 from evfly_tpu_torch.ops import voxelizer
+from evfly_tpu_torch.stream import BatchedStreamingPipeline, StreamingPipeline
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "evfly_tpu_torch"
@@ -20,6 +23,14 @@ MODULES = sorted(
     ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
     for p in PORT.rglob("*.py")
 ) + ["chip_smoke"]
+
+
+def test_import_check_covers_every_module():
+    for module in ("evfly_tpu_torch.stream", "evfly_tpu_torch.stream.pipeline",
+                   "evfly_tpu_torch.models.origunet", "evfly_tpu_torch.models.composites",
+                   "evfly_tpu_torch.models.recurrent", "evfly_tpu_torch.ops.lstm_fused",
+                   "evfly_tpu_torch.ops.voxelizer", "chip_smoke"):
+        assert module in MODULES
 
 
 def test_imports_load_no_jax_and_nothing_of_evfly_tpu():
@@ -64,6 +75,19 @@ def test_default_device_raises_without_cuda(monkeypatch):
         LSTMNetVIT()
     with pytest.raises(RuntimeError, match="CUDA"):
         voxelizer.event_histogram_scaled_resized([[1.0]], [[1.0]], [[1]], 4, 4, 2, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        voxelizer.event_histogram([1.0], [1.0], [1], 4, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        voxelizer.event_histogram_scaled([1.0], [1.0], [1], 4, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OrigUNet()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OrigUNet_w_VITFLY_ViTLSTM(input_shape=(1, 1, 196, 196), form_BEV=2)
+    model = OrigUNet_w_VITFLY_ViTLSTM(input_shape=(1, 1, 196, 196), form_BEV=2, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamingPipeline(model, input_hw=(196, 196))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedStreamingPipeline(model, 2, input_hw=(196, 196))
     assert evfly_tpu_torch.resolve_device("cpu") == torch.device("cpu")
 
 

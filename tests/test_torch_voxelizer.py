@@ -1,12 +1,19 @@
 """The port's voxelizer (evfly_tpu_torch.ops.voxelizer) against the JAX package.
 
-The same numpy events go through the JAX ``event_histogram_scaled_resized``
-(its Pallas kernel in interpret mode on the CPU, as the JAX package's own
-tests run it) and through the port's K3 wrapper, which on CPU tensors takes
-its plain PyTorch version.  Output atol 3e-5 is the JAX package's own bound
-for this kernel (tests/test_fused_voxelizer.py:68): the resize sums its taps
-in another order.  The quantile is an order statistic of integer counts and
-must be equal.
+The same numpy events go through the JAX ``event_histogram`` (K1),
+``event_histogram_scaled`` (K2) and ``event_histogram_scaled_resized`` (K3),
+their Pallas kernels in interpret mode on the CPU as the JAX package's own
+tests run them, and through the port's wrappers, which on CPU tensors take
+their plain PyTorch versions.  Tolerances:
+
+- K1: exact.  Counts are integers and the thresholds are applied with the
+  same f32 multiplies (and subtract, for unequal thresholds).
+- K2: the quantile exact (an order statistic of integer counts), the frame
+  within 2e-5, the JAX package's own bound for this kernel
+  (tests/test_fused_voxelizer.py:34).
+- K3: the quantile exact, the output within 3e-5, the JAX package's bound
+  (tests/test_fused_voxelizer.py:68): the resize sums its taps in another
+  order.
 """
 
 import numpy as np
@@ -22,6 +29,7 @@ from evfly_tpu_torch.ops import imageops, percentile, voxelizer
 from torch_helpers import cuda_device  # noqa: F401  (fixture)
 
 ATOL = 3e-5
+K2_ATOL = 2e-5
 
 
 def _events(seed, B, N, H, W):
@@ -158,3 +166,113 @@ def test_kernel_taps_rebuild_resize_matrix(n_in, n_out, align):
         R[i, int(i0)] += w0
         R[i, int(i1)] += w1
     np.testing.assert_array_equal(R, rh.numpy())
+
+
+def _edge_events(seed, N, H, W):
+    """Events over and past the frame's edges: x == W, y == H, negative
+    coordinates, NaN and pol 0 among uniform ones."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2, W + 2, N).astype(np.float32)
+    y = rng.uniform(-2, H + 2, N).astype(np.float32)
+    p = rng.choice([-1, 0, 1], N).astype(np.int32)
+    if N >= 8:
+        x[:2], y[2:4], x[4], y[5], x[6] = W, H, -0.5, np.nan, np.nan
+        p[7] = 0
+    return x, y, p
+
+
+@pytest.mark.parametrize("thresholds", [(0.2, 0.2), (0.2, 0.3)], ids=["equal", "unequal"])
+@pytest.mark.parametrize("N", [0, 37, 5000])
+def test_plain_k1_matches_jax_exactly(N, thresholds):
+    H, W = 64, 86
+    x, y, p = _edge_events(N + 1, N, H, W)
+    ref = np.asarray(jvox.event_histogram(jnp.asarray(x), jnp.asarray(y), jnp.asarray(p),
+                                          H, W, *thresholds))
+    got = voxelizer.event_histogram(x, y, p, H, W, *thresholds, device="cpu")
+    assert got.shape == (H, W) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), ref)
+    ref_ref = np.asarray(jvox.event_histogram_reference(
+        jnp.asarray(x), jnp.asarray(y), jnp.asarray(p), H, W, *thresholds))
+    got_ref = voxelizer.event_histogram_reference(x, y, p, H, W, *thresholds, device="cpu")
+    np.testing.assert_allclose(got_ref.numpy(), ref_ref, atol=1e-6)
+
+
+def test_k1_batch_equals_windows():
+    """A (B, N) batch is B independent windows."""
+    H, W = 32, 40
+    x, y, p = _events(4, 3, 300, H, W)
+    batch = voxelizer.event_histogram(x, y, p, H, W, 0.2, 0.3, device="cpu")
+    for b in range(3):
+        one = voxelizer.event_histogram(x[b], y[b], p[b], H, W, 0.2, 0.3, device="cpu")
+        assert torch.equal(batch[b], one)
+
+
+def test_k1_takes_more_events_than_int16_counts():
+    """K1 has no cap: 40,000 events on one pixel, past any int16 count."""
+    H, W = 16, 20
+    x, y, p = _events(6, 1, 60000, H, W)
+    x = np.concatenate([x[0], np.full(40000, 3.5, np.float32)])
+    y = np.concatenate([y[0], np.full(40000, 7.25, np.float32)])
+    p = np.concatenate([p[0], np.ones(40000, np.int32)])
+    ref = np.asarray(jvox.event_histogram_reference(jnp.asarray(x), jnp.asarray(y),
+                                                    jnp.asarray(p), H, W, 1.0, 1.0))
+    got = voxelizer.event_histogram(x, y, p, H, W, 1.0, 1.0, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert got[7, 3] > 40000
+
+
+@pytest.mark.parametrize("N", [0, 37, 5000])
+def test_plain_k2_matches_jax(N):
+    H, W = 64, 86
+    x, y, p = _edge_events(N + 11, N, H, W)
+    xb, yb, pb = (jnp.asarray(a) for a in (x, y, p))
+    ref = np.asarray(jvox.event_histogram_scaled(xb, yb, pb, H, W))
+    xi, yi, sign = jvox._bin_events(xb, yb, pb, H, W)
+    _, qref = jvox._hist_pallas_fused_quantile(
+        yi, xi, sign, H=H, W=W, chunk=512, interpret=True, q=0.97, iters=18)
+    got = voxelizer.event_histogram_scaled(x, y, p, H, W, device="cpu")
+    np.testing.assert_allclose(got.numpy(), ref, atol=K2_ATOL)
+    frame, q = voxelizer.hist_scaled(*(torch.from_numpy(a)[None] for a in (x, y, p)), H, W)
+    assert torch.equal(frame[0], got)
+    assert q.item() == float(qref)
+
+
+def test_k2_zero_quantile_fallback():
+    """tests/test_fused_voxelizer.py:37-50: a frame whose 97th percentile is
+    0 is the value frame thresh * counts, clipped."""
+    H, W = 32, 40
+    x = np.array([3.0, 3.0, 3.0], np.float32)
+    y = np.array([5.0, 5.0, 5.0], np.float32)
+    p = np.array([1, 1, 1], np.int32)
+    ref = np.asarray(jvox.event_histogram_scaled(jnp.asarray(x), jnp.asarray(y),
+                                                 jnp.asarray(p), H, W))
+    got = voxelizer.event_histogram_scaled(x, y, p, H, W, device="cpu").numpy()
+    np.testing.assert_allclose(got, ref, atol=K2_ATOL)
+    assert got[5, 3] == pytest.approx(min(3 * 0.2, 1.0))
+    assert np.count_nonzero(got) == 1
+
+
+def test_k1_k2_wrappers_count_only_kernel_launches():
+    x, y, p = (torch.from_numpy(a) for a in _events(3, 1, 50, 16, 20))
+    before = (voxelizer.hist_frame.launches, voxelizer.hist_scaled.launches)
+    voxelizer.hist_frame(x, y, p, 16, 20)
+    voxelizer.hist_scaled(x, y, p, 16, 20)
+    assert (voxelizer.hist_frame.launches, voxelizer.hist_scaled.launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("thresholds", [(0.2, 0.2), (0.2, 0.3)], ids=["equal", "unequal"])
+def test_k1_kernel_matches_plain_on_gpu(cuda_device, thresholds):
+    x, y, p = (torch.from_numpy(a).to(cuda_device) for a in _events(8, 2, 100000, 260, 346))
+    x[:, :40000], y[:, :40000] = 17.5, 101.5
+    got = voxelizer.hist_frame(x, y, p, 260, 346, *thresholds)
+    assert torch.equal(got, voxelizer.hist_frame_plain(x, y, p, 260, 346, *thresholds))
+
+
+@pytest.mark.gpu
+def test_k2_kernel_matches_plain_on_gpu(cuda_device):
+    x, y, p = (torch.from_numpy(a).to(cuda_device) for a in _events(10, 16, 5000, 260, 346))
+    out, q = voxelizer.hist_scaled(x, y, p, 260, 346)
+    ref, qref = voxelizer.hist_scaled_plain(x, y, p, 260, 346)
+    torch.testing.assert_close(out, ref, atol=K2_ATOL, rtol=0)
+    assert torch.equal(q, qref)
