@@ -4,20 +4,27 @@
 
 Builds the port's CUDA kernels from ``evfly_tpu_torch/csrc`` (one ``nvcc``
 call, cached in ``build/``), holds each of K1-K5 against its plain PyTorch
-version on the card, then drives the port's paths through the entry points a
-user calls, each compared with its plain path on the card and each with the
-kernels' launch counts set to 0 just before it and read just after:
+version on the card (K4 and K5 on both of their routes: one 8-CTA cluster
+per stream with the weights in shared memory, and one block per stream
+reading them from L2), times the two routes in turns, checks the port's
+repaired faults (precision under PyTorch's default flags, an eval-mode
+forward under autograd, more than 32,767 events per window through K2's and
+K3's entry points, more than 65,535 windows through K1), then drives the
+port's paths through the entry points a user calls, each compared with its
+plain path on the card and each with the kernels' launch counts set to 0
+just before it and read just after:
 
 - serving: 256 windows x 5,000 raw events -> ``event_histogram_scaled_resized``
   (K3) -> ``LSTMNetVIT`` with ``artifacts/pretrain_v_final.pth`` (its LSTM
-  through K4) -> velocity (256, 3);
+  through K4 on the cluster route) -> velocity (256, 3), its rate timed
+  against the L2 route in turns;
 - the fused rung of ``bench.py``: the same windows -> ``event_histogram_scaled``
   (K2) -> bilinear resize -> ``LSTMNetVIT`` (K4);
 - streaming: ``StreamingPipeline.step_events`` with the joint model
   ``OrigUNet_w_VITFLY_ViTLSTM`` and ``artifacts/policy_best.pth`` over 8
   windows of 5,000 events, state carried: ``event_histogram`` (K1) ->
   97th-percentile scale -> OrigUNet with its ConvLSTM -> LSTMNetVIT through
-  K4 (mode "stacked") or K5 (mode "wavefront");
+  K4 (mode "stacked") or K5 (mode "wavefront"), on each route;
 - batched streaming: ``BatchedStreamingPipeline`` with 16 streams over 4
   steps, some streams reset before the third, against 16 single streams.
 
@@ -33,8 +40,10 @@ kernel fails to build, launch or agree, or when the run exceeds its budget.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import re
 import signal
 import statistics
 import subprocess
@@ -48,14 +57,22 @@ from evfly_tpu_torch.models.composites import OrigUNet_w_VITFLY_ViTLSTM
 from evfly_tpu_torch.models.port import load_state_dict
 from evfly_tpu_torch.models.recurrent import set_fused_lstm
 from evfly_tpu_torch.models.vitfly import LSTMNetVIT
-from evfly_tpu_torch.ops import _build
+from evfly_tpu_torch.precision import get_precision, set_precision
+from evfly_tpu_torch.ops import _build, lstm_fused
 from evfly_tpu_torch.ops.imageops import interpolate_bilinear
 from evfly_tpu_torch.ops.lstm_fused import (
+    choose_route,
+    cluster_fits,
+    cluster_occupancy,
     lstm_stacked,
+    lstm_stacked_cluster,
+    lstm_stacked_cluster_plain,
     lstm_stacked_plain,
     lstm_wavefront,
+    lstm_wavefront_cluster,
+    lstm_wavefront_cluster_plain,
     lstm_wavefront_plain,
-    pack_stacked,
+    pack,
 )
 from evfly_tpu_torch.ops.voxelizer import (
     bin_events,
@@ -67,6 +84,13 @@ from evfly_tpu_torch.ops.voxelizer import (
     hist_scaled_plain,
     hist_scaled_resized,
     hist_scaled_resized_plain,
+    hist_scaled_resized_routed,
+    hist_scaled_routed,
+    scale_counts,
+    scale_counts_plain,
+    scale_counts_resized,
+    scale_counts_resized_plain,
+    scaled_route,
 )
 from evfly_tpu_torch.stream import BatchedStreamingPipeline, StreamingPipeline
 
@@ -83,6 +107,12 @@ N_WINDOWS, N_EVENTS = 256, 5000         # the JAX benchmark's serving step
 SPARSE_EVENTS = 80                      # a window whose 97th percentile is 0
 T, L, HID, IN = N_WINDOWS, 3, 128, 517  # LSTMNetVIT's LSTM over the windows
 BIG_EVENTS, HOT_EVENTS = 100_000, 40_000  # K1's window past any int16 count
+CAP_EVENTS, HOT = 40_000, 33_000        # past K2's and K3's 32,767 per window; on one pixel
+MANY_WINDOWS, FEW_EVENTS, SMALL_H, SMALL_W = 70_000, 16, 64, 86  # past grid.y's 65,535
+# (G, T) of the K4 and K5 checks; (G, T) of their timings, in turns
+LSTM_CHECKS = ((1, N_WINDOWS), (1, 2), (1, 1), (16, N_WINDOWS), (16, 2), (16, 1))
+LSTM_TIMED = ((1, N_WINDOWS), (1, 1), (16, 1), (64, 1))
+TURNS = ("l2", "cluster", "cluster", "l2")  # old, new, new, old
 STREAM_WINDOWS, STREAMS = 8, 16         # streaming steps; batched streams
 # tools/latency_bench.py's counts: chained and synchronized streaming
 # steps, and batched steps at each number of streams
@@ -168,10 +198,10 @@ def max_err(got, ref) -> float:
     return max((a - r).abs().max().item() for a, r in zip(got, ref))
 
 
-def make_events(seed: int, B: int, N: int, device):
+def make_events(seed: int, B: int, N: int, device, h: int = H, w: int = W):
     rng = np.random.default_rng(seed)
-    ex = torch.tensor(rng.uniform(0, W, (B, N)), dtype=torch.float32, device=device)
-    ey = torch.tensor(rng.uniform(0, H, (B, N)), dtype=torch.float32, device=device)
+    ex = torch.tensor(rng.uniform(0, w, (B, N)), dtype=torch.float32, device=device)
+    ey = torch.tensor(rng.uniform(0, h, (B, N)), dtype=torch.float32, device=device)
     ep = torch.tensor(rng.choice([-1, 1], (B, N)), dtype=torch.int32, device=device)
     return ex, ey, ep
 
@@ -186,13 +216,31 @@ def phase_device():
     return name, smi
 
 
+def _kernel_label(mangled: str) -> str:
+    """A readable name for a mangled kernel name of ptxas's log."""
+    name = next((n for n in ("lstm_cluster_kernel", "lstm_stacked_kernel",
+                             "lstm_wavefront_kernel", "hist_scaled_resized_kernel",
+                             "hist_scaled_kernel", "hist_frame_kernel", "scale_counts_kernel")
+                 if n in mangled), mangled)
+    m = re.search(r"ILi(\d+)ELb([01])E", mangled)
+    if m:
+        name += f"<H={m.group(1)}, {'wavefront' if m.group(2) == '1' else 'stacked'}>"
+    elif (m := re.search(r"scale_counts_kernelILb([01])E", mangled)):
+        name += "<resize>" if m.group(1) == "1" else "<frame>"
+    return name
+
+
 def phase_build():
     info = _build.build()
     _build.library()
     log(f"build: {info.seconds:.1f}s, cache hit: {info.cache_hit}, {info.path.name}")
+    kernel = "?"
     for line in info.log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            log(f"  nvcc: {line.strip()}")
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = _kernel_label(m.group(1))
+        elif "registers" in line or "spill" in line or "error" in line.lower():
+            log(f"  nvcc (-Xptxas -v) {kernel}: {line.strip()}")
 
 
 def phase_k3(dev, flush):
@@ -230,54 +278,6 @@ def phase_k3(dev, flush):
     log(f"K3 times: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
-
-
-def phase_k4(dev, flush):
-    gen = torch.Generator().manual_seed(4)
-    b = 1.0 / HID ** 0.5
-    # cuDNN's LSTM with the same weights: the yardstick (library_ms) only
-    lstm = torch.nn.LSTM(IN, HID, L)
-    with torch.no_grad():
-        for p in lstm.parameters():
-            p.copy_(torch.empty_like(p).uniform_(-b, b, generator=gen))
-    lstm = lstm.to(dev)
-    params = {k: v.detach() for k, v in lstm.named_parameters()}
-    x = torch.randn(T, IN, generator=gen).to(dev)
-    h0 = (torch.randn(L, HID, generator=gen) * 0.5).to(dev)
-    c0 = (torch.randn(L, HID, generator=gen) * 0.5).to(dev)
-    with torch.no_grad():
-        xp0 = x @ params["weight_ih_l0"].T + params["bias_ih_l0"] + params["bias_hh_l0"]
-        whh_t, wih_t, bias = pack_stacked(params, L, HID)
-        zeros = torch.zeros(L, HID, device=dev)
-        errs = {}
-        for label, (hh, cc), atol in (("zero state", (zeros, zeros), K4_ATOL),
-                                      ("carried state", (h0, c0), K4_ATOL_CARRIED)):
-            got = lstm_stacked(xp0, whh_t, wih_t, bias, hh, cc)
-            ref = lstm_stacked_plain(xp0, whh_t, wih_t, bias, hh, cc)
-            torch.cuda.synchronize()
-            err = max((a - r).abs().max().item() for a, r in zip(got, ref))
-            errs[label] = err
-            log(f"K4 T={T} L={L} H={HID} {label}: max|diff| {err:.3e} (atol {atol})")
-            require(all(bool(torch.isfinite(a).all()) for a in got), "K4 output not finite")
-            require(err <= atol, f"K4 disagrees with its plain version ({label})")
-        lib_out, _ = lstm(x, (h0, c0))
-        k4_out, _, _ = lstm_stacked(xp0, whh_t, wih_t, bias, h0, c0)
-        log(f"K4 vs torch.nn.LSTM (yardstick only): max|diff| "
-            f"{(lib_out - k4_out).abs().max().item():.3e}")
-
-        ms = time_ms(lambda: lstm_stacked(xp0, whh_t, wih_t, bias, h0, c0), flush, 10)
-        plain_ms = time_ms(lambda: lstm_stacked_plain(xp0, whh_t, wih_t, bias, h0, c0),
-                           flush, 3, warmup=1)
-        library_ms = time_ms(lambda: lstm(x, (h0, c0)), flush, 10)
-    G = 4 * HID
-    n_bytes = sum(t.numel() * 4 for t in (xp0, whh_t, wih_t, bias, h0, c0)) \
-        + (T * HID + 2 * L * HID) * 4
-    n_flops = 2 * T * HID * G * (2 * L - 1)
-    b_ms, b_by = bound_ms(n_bytes, n_flops)
-    log(f"K4 times: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.nn.LSTM "
-        f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms)
 
 
 def phase_k1(dev, flush):
@@ -354,99 +354,174 @@ def phase_k2(dev, flush):
                 library_ms=None)
 
 
-def _lstm_problem(dev, seed, G, T):
+# (mode, route) -> (label, kernel wrapper, its plain version)
+LSTM_ROUTES = {
+    ("stacked", "cluster"): ("K4 cluster", lstm_stacked_cluster, lstm_stacked_cluster_plain),
+    ("stacked", "l2"): ("K4 L2", lstm_stacked, lstm_stacked_plain),
+    ("wavefront", "cluster"): ("K5 cluster", lstm_wavefront_cluster,
+                               lstm_wavefront_cluster_plain),
+    ("wavefront", "l2"): ("K5 L2", lstm_wavefront, lstm_wavefront_plain),
+}
+
+
+def _route_weights(packed, route):
+    """A route's weight arguments from ``lstm_fused.pack``'s result."""
+    if route == "cluster":
+        return packed.cluster, packed.bias
+    return packed.whh_t, packed.wih_t, packed.bias
+
+
+@contextlib.contextmanager
+def forced_route(route):
+    """Every fused LSTM call takes ``route`` instead of ``choose_route``'s
+    choice by shape, for comparing the routes end to end in this script;
+    the port itself always routes by shape."""
+    by_shape = lstm_fused.choose_route
+    lstm_fused.choose_route = lambda hidden, layers: route
+    try:
+        yield
+    finally:
+        lstm_fused.choose_route = by_shape
+
+
+def _lstm_problem(dev, seed, G, T, hidden=HID, layers=L):
     """cuDNN's LSTM (the yardstick only) and, from its weights, the kernels'
     packed layouts, layer-0 gates (G, T, 4H) and a carried state (G, L, H)."""
     gen = torch.Generator().manual_seed(seed)
-    b = 1.0 / HID ** 0.5
-    lstm = torch.nn.LSTM(IN, HID, L)
+    b = 1.0 / hidden ** 0.5
+    lstm = torch.nn.LSTM(IN, hidden, layers)
     with torch.no_grad():
         for p in lstm.parameters():
             p.copy_(torch.empty_like(p).uniform_(-b, b, generator=gen))
     lstm = lstm.to(dev)
     params = {k: v.detach() for k, v in lstm.named_parameters()}
     x = torch.randn(G, T, IN, generator=gen).to(dev)
-    h0 = (torch.randn(G, L, HID, generator=gen) * 0.5).to(dev)
-    c0 = (torch.randn(G, L, HID, generator=gen) * 0.5).to(dev)
+    h0 = (torch.randn(G, layers, hidden, generator=gen) * 0.5).to(dev)
+    c0 = (torch.randn(G, layers, hidden, generator=gen) * 0.5).to(dev)
     with torch.no_grad():
         xp0 = x @ params["weight_ih_l0"].T + params["bias_ih_l0"] + params["bias_hh_l0"]
-    return lstm, x, xp0, pack_stacked(params, L, HID), h0, c0
+    return lstm, x, xp0, pack(params, layers, hidden), h0, c0
 
 
-def _check_lstm(name, kernel, plain, xp0, packed, h0, c0):
+def _check_lstm(name, kernel, plain, xp0, weights, h0, c0):
+    """The kernel against its plain version with a zero and a carried state."""
     zeros = torch.zeros_like(h0)
     errs = []
-    for label, (hh, cc), atol in (("zero state", (zeros, zeros), K4_ATOL),
-                                  ("carried state", (h0, c0), K4_ATOL_CARRIED)):
-        got = kernel(xp0, *packed, hh, cc)
-        ref = plain(xp0, *packed, hh, cc)
+    for (hh, cc), atol in (((zeros, zeros), K4_ATOL), ((h0, c0), K4_ATOL_CARRIED)):
+        got = kernel(xp0, *weights, hh, cc)
+        ref = plain(xp0, *weights, hh, cc)
         torch.cuda.synchronize()
-        err = max_err(got, ref)
-        errs.append(err)
-        log(f"{name} G={xp0.shape[0]} T={xp0.shape[1]} L={L} H={HID} {label}: "
-            f"max|diff| {err:.3e} (atol {atol})")
+        errs.append(max_err(got, ref))
         require(all(bool(torch.isfinite(a).all()) for a in got), f"{name} output not finite")
-        require(err <= atol, f"{name} disagrees with its plain version ({label})")
+        require(errs[-1] <= atol, f"{name} disagrees with its plain version")
+    G, T = xp0.shape[:2]
+    log(f"{name} G={G} T={T} L={h0.shape[1]} H={h0.shape[2]}: max|diff| zero state "
+        f"{errs[0]:.3e} (atol {K4_ATOL}), carried {errs[1]:.3e} (atol {K4_ATOL_CARRIED})")
     return max(errs)
 
 
-def _lstm_times(kernel, plain, lstm, x, xp0, packed, h0, c0, flush, plain_reps):
-    G, T = xp0.shape[:2]
-    ms = time_ms(lambda: kernel(xp0, *packed, h0, c0), flush, 10)
-    plain_ms = time_ms(lambda: plain(xp0, *packed, h0, c0), flush, plain_reps, warmup=1)
-    # cuDNN's LSTM takes (T, G, in) with (L, G, H) states
-    xs, hs, cs = x.transpose(0, 1).contiguous(), h0.transpose(0, 1).contiguous(), \
-        c0.transpose(0, 1).contiguous()
-    library_ms = time_ms(lambda: lstm(xs, (hs, cs)), flush, 10)
-    n_bytes = sum(t.numel() * 4 for t in (xp0, *packed, h0, c0)) \
-        + (G * T * HID + 2 * G * L * HID) * 4
-    n_flops = 2 * G * T * HID * 4 * HID * (2 * L - 1)
-    b_ms, b_by = bound_ms(n_bytes, n_flops)
-    return ms, plain_ms, library_ms, b_ms, b_by
-
-
-def phase_k5(dev, flush):
-    """K5 against its plain version at the serving length and the short
-    sequences of the wavefront's corners; times at the streaming path's
-    shape (one stream, T = 1) and at T = 256 beside K4."""
-    lstm, x, xp0, packed, h0, c0 = _lstm_problem(dev, 5, 1, T)
+def phase_lstm_routes(dev):
+    """K4 and K5 on both routes against their plain versions, at the
+    serving length, the wavefront's short corners and 16 streams; the route
+    each other shape takes; how many clusters fit the card."""
+    errs = dict.fromkeys(LSTM_ROUTES, 0.0)
     with torch.no_grad():
-        err = _check_lstm("K5", lstm_wavefront, lstm_wavefront_plain, xp0, packed, h0, c0)
-        for t_short in (1, 2):
-            err = max(err, _check_lstm("K5", lstm_wavefront, lstm_wavefront_plain,
-                                       xp0[:, :t_short], packed, h0, c0))
-        k5_out = lstm_wavefront(xp0[0], *packed, h0[0], c0[0])[0]
-        lib_out, _ = lstm(x[0], (h0[0], c0[0]))
-        log(f"K5 vs torch.nn.LSTM (yardstick only): max|diff| "
-            f"{(lib_out - k5_out).abs().max().item():.3e}")
-        long_ms = _lstm_times(lstm_wavefront, lstm_wavefront_plain, lstm, x, xp0, packed,
-                              h0, c0, flush, 3)
-        log("K5 times at T=%d: kernel %.4f ms, plain %.4f ms, torch.nn.LSTM %.4f ms, "
-            "bound %.4f ms (%s)" % ((T,) + long_ms))
-        one = _lstm_times(lstm_wavefront, lstm_wavefront_plain, lstm, x[:, :1], xp0[:, :1],
-                          packed, h0, c0, flush, 10)
-    ms, plain_ms, library_ms, b_ms, b_by = one
-    log(f"K5 times at G=1 T=1 (streaming): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.nn.LSTM {library_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms)
+        for G, T_ in LSTM_CHECKS:
+            lstm, x, xp0, packed, h0, c0 = _lstm_problem(dev, 20 + G + T_, G, T_)
+            for key, (name, kernel, plain) in LSTM_ROUTES.items():
+                err = _check_lstm(name, kernel, plain, xp0, _route_weights(packed, key[1]),
+                                  h0, c0)
+                errs[key] = max(errs[key], err)
+            if (G, T_) == (1, N_WINDOWS):
+                lib_out, _ = lstm(x[0], (h0[0], c0[0]))
+                k4_out = lstm_stacked_cluster(xp0[0], packed.cluster, packed.bias, h0[0],
+                                              c0[0])[0]
+                log(f"K4 cluster vs torch.nn.LSTM (yardstick only): max|diff| "
+                    f"{(lib_out - k4_out).abs().max().item():.3e}")
+        # the routes of the other shapes: H = 256 fits the cluster with one
+        # layer; with three it takes the L2 route
+        for hidden, layers, route in ((256, 1, "cluster"), (256, 3, "l2")):
+            require(choose_route(hidden, layers) == route, f"route of H={hidden} L={layers}")
+            _, _, xp0, packed, h0, c0 = _lstm_problem(dev, 30 + layers, 3, 5, hidden, layers)
+            for mode in ("stacked", "wavefront"):
+                name, kernel, plain = LSTM_ROUTES[(mode, route)]
+                err = _check_lstm(name, kernel, plain, xp0, _route_weights(packed, route),
+                                  h0, c0)
+                errs[(mode, route)] = max(errs[(mode, route)], err)
+    # the route rule of lstm_fused against the library's own (csrc/lstm.cu)
+    shapes = [(h, l) for h in (64, 128, 192, 256, 384, 512) for l in (1, 2, 3, 4)]
+    differ = [s for s in shapes
+              if cluster_fits(*s) != bool(_build.library().evfly_lstm_cluster_fits(*s))]
+    log(f"cluster route rule: Python and csrc/lstm.cu agree on {len(shapes) - len(differ)} "
+        f"of {len(shapes)} (H, L) shapes; cluster route: "
+        f"{[s for s in shapes if cluster_fits(*s)]}")
+    require(not differ, f"cluster_fits disagrees with csrc/lstm.cu at {differ}")
+    for hidden, layers in ((HID, L), (256, 1)):
+        for mode in ("stacked", "wavefront"):
+            clusters = cluster_occupancy(hidden, layers, mode)
+            log(f"cudaOccupancyMaxActiveClusters, {mode} H={hidden} L={layers}: "
+                f"{clusters} clusters of 8 CTAs")
+            require(clusters > 0, f"no cluster of the {mode} kernel fits the card")
+    return errs
 
 
-def phase_streams(dev, flush):
-    """K4 and K5 with a stream axis: G = 16 streams of T = 1, the batched
-    streaming path's shape, one launch each."""
-    lstm, x, xp0, packed, h0, c0 = _lstm_problem(dev, 6, STREAMS, 1)
+def phase_lstm_times(dev, flush):
+    """Both routes of K4 and K5 timed in turns (L2, cluster, cluster, L2)
+    at each shape of LSTM_TIMED, beside cuDNN's LSTM and the bound; the
+    plain versions at the shapes of the kernels' JSON entries."""
+    times = {}
     with torch.no_grad():
-        for name, kernel, plain in (("K4", lstm_stacked, lstm_stacked_plain),
-                                    ("K5", lstm_wavefront, lstm_wavefront_plain)):
-            _check_lstm(name, kernel, plain, xp0, packed, h0, c0)
-            ms, plain_ms, library_ms, b_ms, _ = _lstm_times(
-                kernel, plain, lstm, x, xp0, packed, h0, c0, flush, 10)
-            log(f"{name} times at G={STREAMS} T=1: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                f"ms, torch.nn.LSTM {library_ms:.4f} ms, bound {b_ms:.6f} ms")
+        for G, T_ in LSTM_TIMED:
+            lstm, x, xp0, packed, h0, c0 = _lstm_problem(dev, 40 + G + T_, G, T_)
+            # cuDNN's LSTM takes (T, G, in) with (L, G, H) states
+            xs, hs, cs = (t.transpose(0, 1).contiguous() for t in (x, h0, c0))
+            library_ms = time_ms(lambda: lstm(xs, (hs, cs)), flush, 10)
+            n_bytes = sum(t.numel() * 4 for t in (xp0, packed.whh_t, packed.wih_t, packed.bias,
+                                                   h0, c0)) + (G * T_ * HID + 2 * G * L * HID) * 4
+            n_flops = 2 * G * T_ * HID * 4 * HID * (2 * L - 1)
+            b_ms, b_by = bound_ms(n_bytes, n_flops)
+            for mode in ("stacked", "wavefront"):
+                turns = {"l2": [], "cluster": []}
+                for route in TURNS:
+                    _, kernel, _ = LSTM_ROUTES[(mode, route)]
+                    w = _route_weights(packed, route)
+                    turns[route].append(time_ms(lambda: kernel(xp0, *w, h0, c0), flush, 10))
+                entry = dict(library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                             **{r: statistics.mean(v) for r, v in turns.items()})
+                if (mode, G, T_) in (("stacked", 1, N_WINDOWS), ("wavefront", 1, 1)):
+                    for route in ("l2", "cluster"):
+                        _, _, plain = LSTM_ROUTES[(mode, route)]
+                        w = _route_weights(packed, route)
+                        entry[f"plain_{route}"] = time_ms(lambda: plain(xp0, *w, h0, c0), flush,
+                                                          3 if T_ > 1 else 10, warmup=1)
+                times[(mode, G, T_)] = entry
+                log(f"{'K4' if mode == 'stacked' else 'K5'} times G={G} T={T_}, in turns L2, "
+                    f"cluster, cluster, L2: L2 {turns['l2'][0]:.4f} / {turns['l2'][1]:.4f} ms, "
+                    f"cluster {turns['cluster'][0]:.4f} / {turns['cluster'][1]:.4f} ms; "
+                    f"torch.nn.LSTM {library_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by})"
+                    + "".join(f"; plain ({r}) {entry[f'plain_{r}']:.4f} ms"
+                              for r in ("l2", "cluster") if f"plain_{r}" in entry))
+    return times
+
+
+def serving_rate(step) -> list:
+    """Windows/s of 5 reps x 10 serving steps, after 3 warm-up steps."""
+    for _ in range(3):
+        step()
+    reps = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step()
+        torch.cuda.synchronize()
+        reps.append(10 * N_WINDOWS / (time.perf_counter() - t0))
+    return reps
 
 
 def phase_main_path(dev, smi):
+    """The serving path through K3 and K4 on the cluster route, against its
+    plain path; its rate against the L2 route's, in turns."""
     model = LSTMNetVIT(device=dev).eval().load_params(load_state_dict(CHECKPOINT))
     ex, ey, ep = make_events(2, N_WINDOWS, N_EVENTS, dev)
     desvel = torch.full((N_WINDOWS, 1), 4.0, device=dev)
@@ -458,12 +533,14 @@ def phase_main_path(dev, smi):
     with torch.inference_mode():
         set_fused_lstm(True)
         hist_scaled_resized.launches = 0
-        lstm_stacked.launches = 0
+        lstm_stacked_cluster.launches = lstm_stacked.launches = 0
         vel, (h, c) = step()
         torch.cuda.synchronize()
-        launches = {"K3": hist_scaled_resized.launches, "K4": lstm_stacked.launches}
-        log(f"main path launches: {launches}")
+        launches = {"K3": hist_scaled_resized.launches,
+                    "K4 cluster": lstm_stacked_cluster.launches}
+        log(f"main path launches: {launches}, K4 L2 {lstm_stacked.launches}")
         require(all(n > 0 for n in launches.values()), "a kernel of the path never launched")
+        require(lstm_stacked.launches == 0, "the serving LSTM did not take the cluster route")
 
         set_fused_lstm(False)
         small_p, _ = hist_scaled_resized_plain(ex, ey, ep, H, W, H_OUT, W_OUT)
@@ -484,36 +561,46 @@ def phase_main_path(dev, smi):
         # scales with its size
         require(cerr <= VEL_ATOL * max(1.0, cmax), "LSTM cell state disagrees with the plain path")
 
-        for _ in range(3):
+        # the same path with its LSTM forced onto the L2 route: its launches,
+        # then the two routes' rates in turns
+        with forced_route("l2"):
+            lstm_stacked.launches = lstm_stacked_cluster.launches = 0
             step()
-        reps = []
-        for _ in range(5):
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(10):
-                step()
-            torch.cuda.synchronize()
-            reps.append(10 * N_WINDOWS / (time.perf_counter() - t0))
-    wps = statistics.median(reps)
-    log(f"main path: {wps:.1f} windows/s median of 5 reps x 10 steps "
-        f"(min {min(reps):.1f}, max {max(reps):.1f}) on {smi}, f32, TF32 off")
-    return launches, wps, step
+        l2_launches = {"K4 L2": lstm_stacked.launches}
+        require(lstm_stacked.launches > 0 and lstm_stacked_cluster.launches == 0,
+                "the L2 route did not run")
+        rates = {"l2": [], "cluster": []}
+        for route in TURNS:
+            with forced_route(route):
+                rates[route].append(serving_rate(step))
+    for route in ("cluster", "l2"):
+        runs = rates[route]
+        log(f"main path, K4 {route} route: windows/s medians "
+            + ", ".join(f"{statistics.median(r):.1f}" for r in runs)
+            + f" (5 reps x 10 steps each, in turns L2, cluster, cluster, L2; min "
+            f"{min(min(r) for r in runs):.1f}, max {max(max(r) for r in runs):.1f}) on {smi}, "
+            f"f32, TF32 off")
+    wps = statistics.median([v for r in rates["cluster"] for v in r])
+    wps_l2 = statistics.median([v for r in rates["l2"] for v in r])
+    return launches, l2_launches, wps, wps_l2, step
 
 
 def phase_fused_rung(dev):
     """bench.py's fused rung: events -> event_histogram_scaled (K2) ->
-    bilinear 60x90 -> LSTMNetVIT (K4), against its plain path."""
+    bilinear 60x90 -> LSTMNetVIT (K4, cluster route), against its plain
+    path."""
     model = LSTMNetVIT(device=dev).eval().load_params(load_state_dict(CHECKPOINT))
     ex, ey, ep = make_events(2, N_WINDOWS, N_EVENTS, dev)
     desvel = torch.full((N_WINDOWS, 1), 4.0, device=dev)
     with torch.inference_mode():
         set_fused_lstm(True)
         hist_scaled.launches = 0
-        lstm_stacked.launches = 0
+        lstm_stacked_cluster.launches = 0
         frames = event_histogram_scaled(ex, ey, ep, H, W, device=dev)
         vel, (h, c) = model(interpolate_bilinear(frames[:, None], (H_OUT, W_OUT)), desvel)
         torch.cuda.synchronize()
-        launches = {"K2": hist_scaled.launches, "K4": lstm_stacked.launches}
+        launches = {"K2": hist_scaled.launches, "K4 cluster": lstm_stacked_cluster.launches}
         log(f"fused rung launches: {launches}")
         require(all(n > 0 for n in launches.values()), "a kernel of the fused rung never launched")
 
@@ -557,23 +644,29 @@ def state_errs(hidden, ref):
 
 def phase_streaming(dev, model):
     """StreamingPipeline.step_events over STREAM_WINDOWS windows, state
-    carried, in each LSTM mode and percentile mode, against the plain path
-    (plain K1, set_fused_lstm(False)) on the same model."""
+    carried, in each LSTM mode, route and percentile mode, against the plain
+    path (plain K1, set_fused_lstm(False)) on the same model."""
     windows = stream_windows(dev, STREAM_WINDOWS)
     launches = {}
-    for mode, kernel, key in (("stacked", lstm_stacked, "K4"),
-                              ("wavefront", lstm_wavefront, "K5")):
+    lstm = model.vitfly_vitlstm.lstm
+    kernels = (lstm_stacked, lstm_wavefront, lstm_stacked_cluster, lstm_wavefront_cluster)
+    for (mode, route), (key, kernel, _) in LSTM_ROUTES.items():
         for fast in (False, True):
-            model.vitfly_vitlstm.lstm.mode = mode
+            lstm.mode = mode
             pipe = StreamingPipeline(model, fast_percentile=fast, device=dev)
             plain = StreamingPipeline(model, fast_percentile=fast, device=dev)
             set_fused_lstm(True)
-            hist_frame.launches = lstm_stacked.launches = lstm_wavefront.launches = 0
-            outs = [pipe.step_events(*w) for w in windows]
-            torch.cuda.synchronize()
+            hist_frame.launches = 0
+            for k in kernels:
+                k.launches = 0
+            with forced_route(route):
+                outs = [pipe.step_events(*w) for w in windows]
+                torch.cuda.synchronize()
             counts = {"K1": hist_frame.launches, key: kernel.launches}
             require(all(n > 0 for n in counts.values()),
-                    f"a kernel of the streaming path ({mode}) never launched")
+                    f"a kernel of the streaming path ({mode}, {route}) never launched")
+            require(sum(k.launches for k in kernels) == kernel.launches,
+                    f"the streaming path ({mode}, {route}) ran another LSTM kernel")
             if not fast:
                 launches.update(counts)
             set_fused_lstm(False)
@@ -584,7 +677,7 @@ def phase_streaming(dev, model):
             verr = max((v - vr).abs().max().item() for (v, _), (vr, _) in zip(outs, refs))
             derr = max((d - dr).abs().max().item() for (_, d), (_, dr) in zip(outs, refs))
             herr, cerr = state_errs(pipe.hidden, plain.hidden)
-            log(f"streaming {mode}, fast_percentile={fast}: launches {counts}; over "
+            log(f"streaming {mode} {route}, fast_percentile={fast}: launches {counts}; over "
                 f"{STREAM_WINDOWS} windows max|diff| vs plain path: velocity {verr:.3e}, "
                 f"depth {derr:.3e}, h {herr:.3e}, c/max(1,|c|) {cerr:.3e}; last velocity "
                 f"{outs[-1][0].tolist()}")
@@ -592,8 +685,8 @@ def phase_streaming(dev, model):
             require(all(bool(torch.isfinite(v).all()) and bool(torch.isfinite(d).all())
                         for v, d in outs), "streaming output not finite")
             require(max(verr, derr, herr, cerr) <= VEL_ATOL,
-                    f"streaming path ({mode}, fast={fast}) disagrees with the plain path")
-    model.vitfly_vitlstm.lstm.mode = None
+                    f"streaming path ({mode}, {route}, fast={fast}) disagrees with the plain path")
+    lstm.mode = None
     return launches, windows
 
 
@@ -620,13 +713,14 @@ def phase_batched(dev, model, steps: int = 4):
              for s in range(steps)]
     desvel = [3.0 + 2.0 * g / (STREAMS - 1) for g in range(STREAMS)]
     set_fused_lstm(True)
-    lstm_stacked.launches = lstm_wavefront.launches = 0
+    lstm_stacked_cluster.launches = lstm_wavefront_cluster.launches = 0
     pipe = BatchedStreamingPipeline(model, STREAMS, desvel=desvel, fast_percentile=True,
                                     device=dev)
     outs = [pipe.step_frames(frames[s], masks[s]) for s in range(steps)]
     torch.cuda.synchronize()
-    counts = {"K4": lstm_stacked.launches, "K5": lstm_wavefront.launches}
-    require(sum(counts.values()) > 0, "the batched path launched no LSTM kernel")
+    counts = {"K4 cluster": lstm_stacked_cluster.launches,
+              "K5 cluster": lstm_wavefront_cluster.launches}
+    require(sum(counts.values()) > 0, "the batched path launched no cluster LSTM kernel")
     set_fused_lstm(False)
     verr = derr = herr = cerr = 0.0
     for g in range(STREAMS):
@@ -648,35 +742,47 @@ def phase_batched(dev, model, steps: int = 4):
     require(max(verr, derr, herr, cerr) <= VEL_ATOL, "batched path disagrees with single streams")
 
 
+def _streaming_ms(pipe, windows):
+    """(ms per step over CHAINED_STEPS chained steps, the SYNC_STEPS
+    synchronized steps' ms) of a streaming pipeline."""
+    for w in windows[:3]:
+        pipe.step_events(*w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(CHAINED_STEPS):
+        pipe.step_events(*windows[i % len(windows)])
+    torch.cuda.synchronize()
+    chained = (time.perf_counter() - t0) / CHAINED_STEPS * 1e3
+    samples = []
+    for i in range(SYNC_STEPS):
+        t0 = time.perf_counter()
+        pipe.step_events(*windows[i % len(windows)])
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return chained, samples
+
+
 def phase_card_numbers(dev, model, windows, smi):
     """tools/latency_bench.py's numbers on the card: ms per streaming step
-    over 100 chained steps (one synchronize), p50 of 20 synchronized steps,
-    and steps/s of G streams stepped together."""
+    over 100 chained steps (one synchronize) and p50 of 20 synchronized
+    steps, each LSTM mode on both routes in turns, and steps/s of G streams
+    stepped together."""
     numbers = {}
+    lstm = model.vitfly_vitlstm.lstm
     with torch.inference_mode():
         for mode in ("stacked", "wavefront"):
-            model.vitfly_vitlstm.lstm.mode = mode
-            pipe = StreamingPipeline(model, fast_percentile=True, device=dev)
-            for w in windows[:3]:
-                pipe.step_events(*w)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(CHAINED_STEPS):
-                vel, _ = pipe.step_events(*windows[i % len(windows)])
-            torch.cuda.synchronize()
-            chained = (time.perf_counter() - t0) / CHAINED_STEPS * 1e3
-            samples = []
-            for i in range(SYNC_STEPS):
-                t0 = time.perf_counter()
-                vel, _ = pipe.step_events(*windows[i % len(windows)])
-                torch.cuda.synchronize()
-                samples.append((time.perf_counter() - t0) * 1e3)
-            p50 = statistics.median(samples)
-            numbers[mode] = (chained, p50)
-            log(f"streaming step ({mode}, fast percentile): {chained:.3f} ms per step over "
-                f"{CHAINED_STEPS} chained steps; p50 {p50:.3f} ms of {SYNC_STEPS} synchronized (min {min(samples):.3f}, "
-                f"max {max(samples):.3f}) on {smi}")
-        model.vitfly_vitlstm.lstm.mode = None
+            lstm.mode = mode
+            for route in TURNS:
+                pipe = StreamingPipeline(model, fast_percentile=True, device=dev)
+                with forced_route(route):
+                    chained, samples = _streaming_ms(pipe, windows)
+                p50 = statistics.median(samples)
+                numbers.setdefault((mode, route), []).append((chained, p50))
+                log(f"streaming step ({mode}, {route} route, fast percentile): {chained:.3f} ms "
+                    f"per step over {CHAINED_STEPS} chained steps; p50 {p50:.3f} ms of "
+                    f"{SYNC_STEPS} synchronized (min {min(samples):.3f}, max "
+                    f"{max(samples):.3f}) on {smi}")
+        lstm.mode = None
         for G in RATE_STREAMS:
             frames = sparse_frames(5, (G, H, W), dev)
             pipe = BatchedStreamingPipeline(model, G, fast_percentile=True, device=dev)
@@ -694,7 +800,7 @@ def phase_card_numbers(dev, model, windows, smi):
     return numbers
 
 
-_SERVING_KERNELS = {"K3": "hist_scaled_resized_kernel", "K4": "lstm_stacked_kernel"}
+_SERVING_KERNELS = {"K3": "hist_scaled_resized_kernel", "K4": "lstm_cluster_kernel"}
 
 
 def phase_profile(step, kernel_names=_SERVING_KERNELS, label="main-path"):
@@ -731,6 +837,191 @@ def phase_profile(step, kernel_names=_SERVING_KERNELS, label="main-path"):
         log(f"  other: {us / 1e3:8.3f} ms in {n:5d} launches  {name[:90]}")
 
 
+def phase_precision(dev, model, windows):
+    """Fault 1: under PyTorch's default flags (cuDNN TF32 on), the entry
+    points still compute in f32: the joint model's streaming step and
+    LSTMNetVIT on the card against the CPU plain path within 1e-4, and the
+    global flags as they were after every call."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32)
+    defaults = (True, False)  # PyTorch's own: TF32 for cuDNN, not for matmuls
+    cudnn.allow_tf32, matmul.allow_tf32 = defaults
+    cpu = torch.device("cpu")
+    try:
+        require(get_precision() == "highest", "the port's default precision is not 'highest'")
+        pipe = StreamingPipeline(model, fast_percentile=True, device=dev)
+        outs = [pipe.step_events(*w) for w in windows[:3]]
+        torch.cuda.synchronize()
+        require((cudnn.allow_tf32, matmul.allow_tf32) == defaults,
+                "the streaming entry point left the global flags changed")
+        cpu_model = OrigUNet_w_VITFLY_ViTLSTM(device=cpu, **JOINT_CONFIG).eval()
+        cpu_model.load_params(load_state_dict(JOINT_CHECKPOINT))
+        cpu_pipe = StreamingPipeline(cpu_model, fast_percentile=True, device=cpu)
+        refs = [cpu_pipe.step_events(*(t.cpu() for t in w)) for w in windows[:3]]
+        verr = max((v.cpu() - vr).abs().max().item() for (v, _), (vr, _) in zip(outs, refs))
+        derr = max((d.cpu() - dr).abs().max().item() for (_, d), (_, dr) in zip(outs, refs))
+        hidden = ([(hu.cpu(), cu.cpu()) for hu, cu in pipe.hidden[0][0]], None), \
+            tuple(t.cpu() for t in pipe.hidden[1])
+        herr, cerr = state_errs(hidden, cpu_pipe.hidden)
+
+        vit = LSTMNetVIT(device=dev).eval().load_params(load_state_dict(CHECKPOINT))
+        vit_cpu = LSTMNetVIT(device=cpu).eval().load_params(load_state_dict(CHECKPOINT))
+        ex, ey, ep = make_events(2, N_WINDOWS, N_EVENTS, cpu)
+        small = event_histogram_scaled_resized(ex, ey, ep, H, W, H_OUT, W_OUT, device=cpu)
+        desvel = torch.full((N_WINDOWS, 1), 4.0)
+        with torch.inference_mode():
+            vel, (h, c) = vit(small[:, None].to(dev), desvel.to(dev))
+            vel_c, (h_c, c_c) = vit_cpu(small[:, None], desvel)
+            set_precision("tf32")
+            try:
+                vel_tf32, _ = vit(small[:, None].to(dev), desvel.to(dev))
+            finally:
+                set_precision("highest")
+        torch.cuda.synchronize()
+        require((cudnn.allow_tf32, matmul.allow_tf32) == defaults,
+                "LSTMNetVIT left the global flags changed")
+        vit_err = (vel.cpu() - vel_c).abs().max().item()
+        vit_herr = (h.cpu() - h_c).abs().max().item()
+        vit_cerr = (c.cpu() - c_c).abs().max().item() / max(1.0, c_c.abs().max().item())
+        tf32_err = (vel_tf32.cpu() - vel_c).abs().max().item()
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+    log(f"precision, PyTorch's default flags (cudnn.allow_tf32 True): streaming step x3 vs "
+        f"the CPU: velocity {verr:.3e}, depth {derr:.3e}, h {herr:.3e}, c/max(1,|c|) "
+        f"{cerr:.3e}; LSTMNetVIT x {N_WINDOWS} windows vs the CPU: velocity {vit_err:.3e}, "
+        f"h {vit_herr:.3e}, c/max(1,|c|) {vit_cerr:.3e} (atol {VEL_ATOL}); with "
+        f"set_precision('tf32') the velocity differs by {tf32_err:.3e}")
+    require(max(verr, derr, herr, cerr) <= VEL_ATOL,
+            "the streaming step under PyTorch's default flags disagrees with the CPU")
+    require(max(vit_err, vit_herr, vit_cerr) <= VEL_ATOL,
+            "LSTMNetVIT under PyTorch's default flags disagrees with the CPU")
+
+
+def phase_autograd(dev):
+    """Fault 2: LSTMNetVIT.eval()(x, desvel) on the card without no_grad
+    takes the plain loop (the kernels have no backward): its velocity and
+    the gradient of its sum agree with set_fused_lstm(False)'s, and the
+    velocity with the kernel's under no_grad, within 1e-4."""
+    model = LSTMNetVIT(device=dev).eval().load_params(load_state_dict(CHECKPOINT))
+    frames = sparse_frames(7, (64, 1, H_OUT, W_OUT), dev)
+    desvel = torch.full((64, 1), 4.0, device=dev)
+    kernels = (lstm_stacked, lstm_wavefront, lstm_stacked_cluster, lstm_wavefront_cluster)
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        vel, _ = model(frames, desvel)
+        vel.sum().backward()
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        return vel.detach(), grads
+
+    set_fused_lstm(True)
+    for k in kernels:
+        k.launches = 0
+    vel, grads = run()
+    launched = sum(k.launches for k in kernels)
+    set_fused_lstm(False)
+    vel_p, grads_p = run()
+    set_fused_lstm(True)
+    lstm_stacked_cluster.launches = 0
+    with torch.no_grad():
+        vel_k, _ = model(frames, desvel)
+    torch.cuda.synchronize()
+    require(lstm_stacked_cluster.launches > 0, "the no_grad forward did not take the kernel")
+    verr = (vel - vel_p).abs().max().item()
+    kerr = (vel - vel_k).abs().max().item()
+    require(set(grads) == set(grads_p) and "lstm.weight_hh_l0" in grads, "gradients missing")
+    gerr = max((grads[n] - grads_p[n]).abs().max().item()
+               / max(1.0, grads_p[n].abs().max().item()) for n in grads)
+    log(f"eval-mode forward under autograd: {launched} LSTM kernel launches; velocity vs the "
+        f"plain loop {verr:.3e}, vs the kernel under no_grad {kerr:.3e}; gradients of "
+        f"{len(grads)} parameters, max |diff|/max(1,|g|) {gerr:.3e} (atol {VEL_ATOL})")
+    require(launched == 0, "a kernel without backward ran under autograd")
+    require(max(verr, kerr, gerr) <= VEL_ATOL, "the forward under autograd disagrees")
+
+
+def phase_event_cap(dev, flush):
+    """Fault 3: CAP_EVENTS events per window through K2's and K3's entry
+    points, routed by shape through K1's counts and ``scale_counts`` /
+    ``scale_counts_resized``: the quantile equal to the plain version's,
+    the frames within 2e-5 and 3e-5; each of the two kernels held against
+    its plain version on K1's counts and timed."""
+    require(scaled_route(CAP_EVENTS, H, W) == "k1", "the route of CAP_EVENTS events")
+    ex, ey, ep = make_events(12, 2, CAP_EVENTS, dev)
+    # window 1: a count past int16 on one pixel (and a zero quantile)
+    ex[1, :HOT], ey[1, :HOT], ep[1, :HOT] = 100.5, 130.5, 1
+    kernels = (hist_frame, hist_scaled, hist_scaled_resized, scale_counts, scale_counts_resized)
+    for k in kernels:
+        k.launches = 0
+    frame, q = hist_scaled_routed(ex, ey, ep, H, W)
+    small, qs = hist_scaled_resized_routed(ex, ey, ep, H, W, H_OUT, W_OUT)
+    public = event_histogram_scaled(ex, ey, ep, H, W, device=dev)
+    public_small = event_histogram_scaled_resized(ex, ey, ep, H, W, H_OUT, W_OUT, device=dev)
+    torch.cuda.synchronize()
+    counts = dict(zip(("K1", "K2", "K3", "scale_counts", "scale_counts_resized"),
+                      (k.launches for k in kernels)))
+    ref, qref = hist_scaled_plain(ex, ey, ep, H, W)
+    sref, qsref = hist_scaled_resized_plain(ex, ey, ep, H, W, H_OUT, W_OUT)
+    torch.cuda.synchronize()
+    err, serr = (frame - ref).abs().max().item(), (small - sref).abs().max().item()
+    q_bad = int((q != qref).sum().item()) + int((qs != qsref).sum().item())
+    log(f"{CAP_EVENTS:,} events per window through event_histogram_scaled(_resized): "
+        f"launches {counts}; q {q.tolist()} (plain {qref.tolist()}), {q_bad} mismatches; "
+        f"frame max|diff| {err:.3e} (atol {K2_ATOL}), resized {serr:.3e} (atol {K3_ATOL})")
+    require(counts == {"K1": 4, "K2": 0, "K3": 0, "scale_counts": 2, "scale_counts_resized": 2},
+            "the over-cap batches did not take K1 and the scale kernels")
+    require(q_bad == 0 and err <= K2_ATOL and serr <= K3_ATOL,
+            "the K1 route disagrees with the plain version")
+    require(torch.equal(public, frame) and torch.equal(public_small, small),
+            "the entry points disagree with their routes")
+
+    # each kernel on K1's counts against its plain version, and its times
+    cnt = hist_frame(ex, ey, ep, H, W, 1.0, 1.0)
+    B, HW, HWo = cnt.shape[0], H * W, H_OUT * W_OUT
+    entries = {}
+    for name, kernel, plain, atol, extra, n_out, per_out in (
+            ("scale_counts", scale_counts, scale_counts_plain, K2_ATOL, (), HW, 3),
+            ("scale_counts_resized", scale_counts_resized, scale_counts_resized_plain, K3_ATOL,
+             (H_OUT, W_OUT), HWo, 4 * 3 + 6)):
+        got, gq = kernel(cnt, *extra)
+        want, wq = plain(cnt, *extra)
+        torch.cuda.synchronize()
+        kerr = (got - want).abs().max().item()
+        require(bool(torch.isfinite(got).all()) and torch.equal(gq, wq) and kerr <= atol,
+                f"{name} disagrees with its plain version")
+        ms = time_ms(lambda: kernel(cnt, *extra), flush, 20)
+        plain_ms = time_ms(lambda: plain(cnt, *extra), flush, 5)
+        # the counts read once, the output and q written once; |count|,
+        # the max and the zero count per cell, a compare and an add per cell
+        # on each of the 18 bisection steps, then per output its scalings
+        # (and the resize's taps)
+        n_bytes = 4 * (B * HW + B * n_out + B)
+        n_flops = B * HW * (3 + 2 * 18) + B * n_out * per_out
+        b_ms, b_by = bound_ms(n_bytes, n_flops)
+        log(f"{name} ({B} x {H}x{W} counts, max |count| {cnt.abs().max().item():.0f}): "
+            f"max|diff| {kerr:.3e} (atol {atol}), q equal; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        entries[name] = dict(max_abs_err=kerr, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None)
+    return counts, entries
+
+
+def phase_many_windows(dev):
+    """Fault 4: K1 with MANY_WINDOWS windows, more than grid.y's 65,535,
+    of FEW_EVENTS events at SMALL_H x SMALL_W: exactly equal to plain."""
+    ex, ey, ep = make_events(13, MANY_WINDOWS, FEW_EVENTS, dev, SMALL_H, SMALL_W)
+    got = hist_frame(ex, ey, ep, SMALL_H, SMALL_W)
+    torch.cuda.synchronize()
+    ref = hist_frame_plain(ex, ey, ep, SMALL_H, SMALL_W)
+    bad = int((got != ref).sum().item())
+    log(f"K1 with {MANY_WINDOWS:,} windows of {FEW_EVENTS} events at {SMALL_H}x{SMALL_W} "
+        f"({got.numel() * 4 / 1e9:.2f} GB of frames): {bad} cells differ from plain")
+    require(got.shape == (MANY_WINDOWS, SMALL_H, SMALL_W) and bad == 0,
+            "K1 disagrees with its plain version past 65,535 windows")
+    del got, ref
+    torch.cuda.empty_cache()
+
+
 def _on_alarm(signum, frame):
     raise TimeoutError(f"chip_smoke exceeded its {BUDGET_S}s budget")
 
@@ -759,19 +1050,26 @@ def main() -> int:
         k2 = phase_k2(dev, flush)
     with Phase("K3 vs plain"):
         k3 = phase_k3(dev, flush)
-    with Phase("K4 vs plain"):
-        k4 = phase_k4(dev, flush)
-    with Phase("K5 vs plain"):
-        k5 = phase_k5(dev, flush)
-    with Phase(f"K4 and K5 with {STREAMS} streams"):
-        phase_streams(dev, flush)
+    with Phase("K4 and K5 on both routes vs plain"):
+        lstm_errs = phase_lstm_routes(dev)
+    with Phase("K4 and K5 times, routes in turns"):
+        lstm_times = phase_lstm_times(dev, flush)
+    model = joint_model(dev)
+    windows = stream_windows(dev, STREAM_WINDOWS)
+    with Phase("fault 1: precision under PyTorch's default flags"):
+        phase_precision(dev, model, windows)
+    with Phase("fault 2: eval-mode forward under autograd"):
+        phase_autograd(dev)
+    with Phase(f"fault 3: {CAP_EVENTS:,} events per window through K2's and K3's entry points"):
+        cap_launches, cap = phase_event_cap(dev, flush)
+    with Phase(f"fault 4: K1 with {MANY_WINDOWS:,} windows"):
+        phase_many_windows(dev)
     with Phase("main path"):
-        launches, wps, step = phase_main_path(dev, smi)
+        launches, l2_launches, wps, wps_l2, step = phase_main_path(dev, smi)
     with Phase("profile"):
         phase_profile(step)
     with Phase("fused rung"):
         rung_launches = phase_fused_rung(dev)
-    model = joint_model(dev)
     with Phase("streaming path"):
         stream_launches, windows = phase_streaming(dev, model)
     with Phase(f"batched streaming, {STREAMS} streams"):
@@ -781,17 +1079,29 @@ def main() -> int:
     with Phase("streaming profile"):
         pipe = StreamingPipeline(model, fast_percentile=True, device=dev)
         phase_profile(lambda: pipe.step_events(*windows[0]),
-                      {"K1": "hist_frame_kernel", "K4": "lstm_stacked_kernel"}, "streaming")
+                      {"K1": "hist_frame_kernel", "K4": "lstm_cluster_kernel"}, "streaming")
     with Phase(f"batched profile, {STREAMS} streams"):
         bpipe = BatchedStreamingPipeline(model, STREAMS, fast_percentile=True, device=dev)
         bframes = sparse_frames(6, (STREAMS, H, W), dev)
-        phase_profile(lambda: bpipe.step_frames(bframes), {"K4": "lstm_stacked_kernel"},
+        phase_profile(lambda: bpipe.step_frames(bframes), {"K4": "lstm_cluster_kernel"},
                       f"batched G={STREAMS}")
     signal.alarm(0)
 
     def entry(name, source, replaces, n, **times):
         return dict(name=name, route="cuda", source=source, replaces=replaces, launches=n,
                     **times)
+
+    def lstm_entry(mode, route, n):
+        """A K4 or K5 route's JSON entry, timed at its path's shape: K4 at
+        the serving length, K5 at the streaming step's (one stream, T = 1)."""
+        key = (mode, 1, N_WINDOWS) if mode == "stacked" else (mode, 1, 1)
+        t = lstm_times[key]
+        label, kernel, _ = LSTM_ROUTES[(mode, route)]
+        return entry(f"{kernel.__name__} ({label})", lstm_src,
+                     "evfly_tpu/ops/lstm_pallas.py:" + ("111" if mode == "stacked" else "203"),
+                     n, max_abs_err=lstm_errs[(mode, route)], ms=t[route],
+                     plain_ms=t[f"plain_{route}"], bound_ms=t["bound_ms"],
+                     bound_by=t["bound_by"], library_ms=t["library_ms"])
 
     vox, lstm_src = "evfly_tpu_torch/csrc/voxelizer.cu", "evfly_tpu_torch/csrc/lstm.cu"
     kernels = [
@@ -801,14 +1111,22 @@ def main() -> int:
               **k2),
         entry("hist_scaled_resized (K3)", vox, "evfly_tpu/ops/voxelizer.py:405",
               launches["K3"], **k3),
-        entry("lstm_stacked (K4)", lstm_src, "evfly_tpu/ops/lstm_pallas.py:111",
-              launches["K4"], **k4),
-        entry("lstm_wavefront (K5)", lstm_src, "evfly_tpu/ops/lstm_pallas.py:203",
-              stream_launches["K5"], **k5),
+        entry("scale_counts (K2's function over K1's counts)", vox,
+              "evfly_tpu/ops/voxelizer.py:251", cap_launches["scale_counts"],
+              **cap["scale_counts"]),
+        entry("scale_counts_resized (K3's function over K1's counts)", vox,
+              "evfly_tpu/ops/voxelizer.py:405", cap_launches["scale_counts_resized"],
+              **cap["scale_counts_resized"]),
+        lstm_entry("stacked", "cluster", launches["K4 cluster"]),
+        lstm_entry("wavefront", "cluster", stream_launches["K5 cluster"]),
+        lstm_entry("stacked", "l2", l2_launches["K4 L2"]),
+        lstm_entry("wavefront", "l2", stream_launches["K5 L2"]),
     ]
-    log(f"done in {time.perf_counter() - _T0:.1f}s; main path {wps:.1f} windows/s; streaming "
-        f"{numbers['stacked'][0]:.3f} ms per chained step (stacked), "
-        f"{numbers['wavefront'][0]:.3f} (wavefront); steps/s "
+    streaming = "; ".join(
+        f"{mode} {route} " + ", ".join(f"{c:.3f}" for c, _ in numbers[(mode, route)])
+        for mode in ("stacked", "wavefront") for route in ("cluster", "l2"))
+    log(f"done in {time.perf_counter() - _T0:.1f}s; main path {wps:.1f} windows/s (L2 route "
+        f"{wps_l2:.1f}); streaming ms per chained step: {streaming}; steps/s "
         + ", ".join(f"G={G} {numbers[G]:.1f}" for G in RATE_STREAMS))
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

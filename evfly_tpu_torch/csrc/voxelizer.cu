@@ -23,9 +23,10 @@
 //
 // K1 takes any number of events per window, so its counts are int32, and a
 // 260x346 int32 frame (352 KiB) is larger than the 227 KB a block may use.
-// The frame is cut into bands of rows: one block per (band, window), each
-// block reads all of the window's events, counts those that fall in its
-// band in shared memory and writes its band.  For the streaming path's
+// The frame is cut into bands of rows: one block per (window, band), with
+// windows on grid.x (up to 2^31 - 1 of them; grid.y stops at 65,535) and
+// bands on grid.y.  Each block reads all of the window's events, counts
+// those that fall in its band in shared memory and writes its band.  For the streaming path's
 // single window this also puts a dozen SMs to work instead of one.  Counts
 // are exact integers; the thresholds are applied with round-to-nearest
 // multiplies and subtract (no FMA contraction), as the JAX package does in
@@ -43,6 +44,16 @@
 //     and gives bit for bit the same result as the TPU's masked counts.
 //   * K2 writes the clipped frame; K3 reads its <= 2x2 resize taps straight
 //     from the packed frame.
+//
+// A window that K2 and K3 cannot take (more than 32,767 events, or a frame
+// and count table past 227 KB) gets their function in two launches: K1's
+// counts (thresholds 1: exact integers in f32), then scale_counts_kernel,
+// one block per window, which reads the count frame from global memory
+// (L2) and runs the plain version's bisection on it: on [0, max |count|],
+// `iters` halvings, each counting #(|count| <= mid) over the whole frame,
+// and the same zero snap, so the quantile is the plain version's bit for
+// bit.  It then writes the clipped frame (K2's function) or the resized
+// input from K3's taps (K3's function).
 //
 // Each C entry point returns cudaGetLastError() after its launch.
 
@@ -75,8 +86,8 @@ hist_frame_kernel(const float* __restrict__ x, const float* __restrict__ y,
                   const int* __restrict__ pol, float* __restrict__ out, int N, int H, int W,
                   int rows_per_band, float pos_thresh, float neg_thresh, int two_pass) {
   extern __shared__ int band[];  // (rows_per_band, W) counts; two_pass: pos then neg
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * rows_per_band;
+  const int b = blockIdx.x;
+  const int row0 = blockIdx.y * rows_per_band;
   const int rows = min(rows_per_band, H - row0);
   const int first = row0 * W, cells = rows * W;
   int* pos_counts = band;
@@ -285,6 +296,94 @@ hist_scaled_resized_kernel(const float* __restrict__ x, const float* __restrict_
   }
 }
 
+// ------------------------------------------- K2 and K3 over K1's counts
+
+__device__ __forceinline__ float clip_scaled(float count, float scale) {
+  return fminf(fmaxf(__fmul_rn(count, scale), -1.f), 1.f);
+}
+
+// the sum over the block of every thread's v, in every thread
+__device__ int block_sum(int v, int* s_warp) {
+  v = warp_sum(v);
+  __syncthreads();  // s_warp's last readers are done
+  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int total = 0;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) total += s_warp[w];
+  return total;
+}
+
+// the max over the block of every thread's v >= 0, in every thread
+__device__ float block_max(float v, float* s_warp) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float m = 0.f;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) m = fmaxf(m, s_warp[w]);
+  return m;
+}
+
+// counts (B, H, W) -> q[b] and, kResize false, the clipped frame (B, H, W);
+// kResize true, the resized input (B, h_out, w_out) from K3's taps
+template <bool kResize>
+__global__ void __launch_bounds__(kThreads)
+scale_counts_kernel(const float* __restrict__ counts, const float* __restrict__ taps,
+                    float* __restrict__ out, float* __restrict__ qout, int H, int W,
+                    int h_out, int w_out, int kth, float thresh, int iters) {
+  __shared__ int s_int[kThreads / 32];
+  __shared__ float s_flt[kThreads / 32];
+  const int HW = H * W;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const float* cb = counts + static_cast<size_t>(b) * HW;
+
+  // 1. max |count| and the number of zeros
+  float my_max = 0.f;
+  int my_zero = 0;
+  for (int i = tid; i < HW; i += nthreads) {
+    const float a = fabsf(cb[i]);
+    my_max = fmaxf(my_max, a);
+    my_zero += a <= 0.f;
+  }
+  const float maxv = block_max(my_max, s_flt);
+  const int zeros = block_sum(my_zero, s_int);
+
+  // 2. the plain version's bisection (ops/percentile.bisect_abs_quantile)
+  float lo = 0.f, hi = maxv;
+  for (int it = 0; it < iters; ++it) {
+    const float mid = 0.5f * (lo + hi);
+    int n = 0;
+    for (int i = tid; i < HW; i += nthreads) n += fabsf(cb[i]) <= mid;
+    if (block_sum(n, s_int) < kth) lo = mid; else hi = mid;
+  }
+  const float qv = zeros >= kth ? 0.f : hi;
+  const float scale = qv > 0.f ? 1.f / fmaxf(qv, 1e-30f) : thresh;
+  if (tid == 0) qout[b] = qv;
+
+  // 3. the clipped frame, or the bilinear resize of it from the taps
+  if (!kResize) {
+    float* ob = out + static_cast<size_t>(b) * HW;
+    for (int i = tid; i < HW; i += nthreads) ob[i] = clip_scaled(cb[i], scale);
+    return;
+  }
+  const float* th = taps;
+  const float* tw = taps + 4 * h_out;
+  float* ob = out + static_cast<size_t>(b) * h_out * w_out;
+  for (int o = tid; o < h_out * w_out; o += nthreads) {
+    const int i = o / w_out, j = o - i * w_out;
+    const int h0 = static_cast<int>(th[4 * i]), h1 = static_cast<int>(th[4 * i + 1]);
+    const float a0 = th[4 * i + 2], a1 = th[4 * i + 3];
+    const int c0 = static_cast<int>(tw[4 * j]), c1 = static_cast<int>(tw[4 * j + 1]);
+    const float b0 = tw[4 * j + 2], b1 = tw[4 * j + 3];
+    const float t0 = a0 * clip_scaled(cb[h0 * W + c0], scale) +
+                     a1 * clip_scaled(cb[h1 * W + c0], scale);
+    const float t1 = a0 * clip_scaled(cb[h0 * W + c1], scale) +
+                     a1 * clip_scaled(cb[h1 * W + c1], scale);
+    ob[o] = t0 * b0 + t1 * b1;
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -306,7 +405,7 @@ extern "C" int evfly_hist_frame(const void* x, const void* y, const void* pol, v
   cudaError_t err = allow_smem(hist_frame_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B > 0) {
-    const dim3 grid((H + rows_per_band - 1) / rows_per_band, B);
+    const dim3 grid(B, (H + rows_per_band - 1) / rows_per_band);
     hist_frame_kernel<<<grid, kBandThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(y),
         static_cast<const int*>(pol), static_cast<float*>(out), N, H, W, rows_per_band,
@@ -344,6 +443,21 @@ extern "C" int evfly_hist_scaled_resized(const void* x, const void* y, const voi
         static_cast<const int*>(pol), static_cast<const float*>(taps),
         static_cast<float*>(out), static_cast<float*>(qout), N, H, W, h_out, w_out, kth,
         thresh, iters, table_len);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2's (resize == 0) or K3's (resize != 0) function over K1's counts
+// (B, H, W); taps are read only when resize != 0
+extern "C" int evfly_scale_counts(const void* counts, const void* taps, void* out, void* qout,
+                                  int B, int H, int W, int h_out, int w_out, int kth,
+                                  float thresh, int iters, int resize, void* stream) {
+  if (B > 0) {
+    auto kernel = resize ? scale_counts_kernel<true> : scale_counts_kernel<false>;
+    kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(counts), static_cast<const float*>(taps),
+        static_cast<float*>(out), static_cast<float*>(qout), H, W, h_out, w_out, kth, thresh,
+        iters);
   }
   return static_cast<int>(cudaGetLastError());
 }

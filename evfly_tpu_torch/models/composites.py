@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..precision import with_precision
 from .common import Params
 from .origunet import OrigUNet
 from .vitfly import LSTMNetVIT
@@ -45,6 +46,7 @@ class OrigUNet_w_VITFLY_ViTLSTM(nn.Module):
         h_vit = (torch.zeros(shape, device=dev), torch.zeros(shape, device=dev))
         return (self.origunet.init_hidden(streams), h_vit)
 
+    @with_precision
     def forward(self, x: torch.Tensor, desvel: torch.Tensor, hidden_unet=None, hidden_vit=None):
         """x: event frames (N, 1, H, W), or (G, N, 1, H, W) for G streams;
         desvel (N, 1) or (G, N, 1); hidden_unet (h_unet, h_velpred) and

@@ -15,11 +15,9 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ..ops import imageops
-from ..ops.lstm_fused import lstm_apply_fused
+from ..ops import imageops, lstm_fused
 from .common import ParamLeaf, Params, init_conv2d, init_lstm, prefix_params, sub
 
 _USE_FUSED_LSTM = True
@@ -35,6 +33,34 @@ def set_fused_lstm(enabled: bool) -> None:
     _USE_FUSED_LSTM = enabled
 
 
+def _needs_grad(params: Params, x: torch.Tensor, hidden) -> bool:
+    """Whether autograd would record this call: grad mode on and the input,
+    the state or a parameter requiring grad."""
+    if not torch.is_grad_enabled():
+        return False
+    tensors = [x, *params.values(), *(hidden if hidden is not None else ())]
+    return any(t.requires_grad for t in tensors)
+
+
+def fused_wanted(params: Params, x: torch.Tensor, hidden, hidden_size: int,
+                 train: bool) -> bool:
+    """Whether ``lstm_apply`` takes the fused kernel for a CUDA input:
+    ``set_fused_lstm`` on, inference (not ``train``), hidden_size % 128 == 0,
+    and no gradient needed, since the kernels have no backward.  An
+    eval-mode forward under autograd takes the plain loop, which is
+    differentiable, as the JAX package's eval-mode apply is."""
+    return (_USE_FUSED_LSTM and not train and hidden_size % 128 == 0
+            and not _needs_grad(params, x, hidden))
+
+
+def _dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout with the mask drawn from ``generator`` (on x's
+    device): keep with probability 1 - p, scale kept values by 1 / (1 - p),
+    as ``evfly_tpu.ops.imageops.dropout``."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
 def lstm_apply(
     params: Params,
     x: torch.Tensor,  # (T, input_size) or (G, T, input_size)
@@ -44,18 +70,35 @@ def lstm_apply(
     dropout_p: float = 0.0,
     train: bool = False,
     mode: Optional[str] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Multi-layer LSTM over an unbatched sequence, or G of them with a
     leading stream axis; returns (out, (h_n, c_n)).
 
-    Inference on CUDA with hidden_size % 128 == 0 goes through kernel K4, or
-    K5 with ``mode="wavefront"`` (the routing rule of the JAX package, plus
-    the device; ``mode`` None takes ``lstm_fused.FUSED_LSTM_MODE``).
-    Otherwise this is the plain loop, with torch's inter-layer dropout when
-    training.
+    A CUDA input goes through kernel K4, or K5 with ``mode="wavefront"``,
+    where ``fused_wanted`` allows it (the routing rule of the JAX package,
+    plus the device and the need for a gradient; ``mode`` None takes
+    ``lstm_fused.FUSED_LSTM_MODE``).  Otherwise this is ``lstm_loop``.
     """
-    if _USE_FUSED_LSTM and not train and hidden_size % 128 == 0 and x.is_cuda:
-        return lstm_apply_fused(params, x, hidden, num_layers, hidden_size, mode)
+    if x.is_cuda and fused_wanted(params, x, hidden, hidden_size, train):
+        return lstm_fused.lstm_apply_fused(params, x, hidden, num_layers, hidden_size, mode)
+    return lstm_loop(params, x, hidden, num_layers, hidden_size, dropout_p, train, generator)
+
+
+def lstm_loop(
+    params: Params,
+    x: torch.Tensor,
+    hidden: Optional[Tuple[torch.Tensor, torch.Tensor]],
+    num_layers: int,
+    hidden_size: int,
+    dropout_p: float = 0.0,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The plain loop of ``lstm_apply``, with its arguments.  Inter-layer
+    dropout applies only when training and a ``generator`` is given, its
+    mask drawn from that generator, as the JAX package drops out only when
+    an ``rng`` is passed."""
     lead = x.shape[:-2]
     if hidden is None:
         h0 = x.new_zeros(*lead, num_layers, hidden_size)
@@ -83,8 +126,8 @@ def lstm_apply(
         h_finals.append(h)
         c_finals.append(c)
         seq = torch.stack(outs, -2) if outs else x_proj.new_zeros(*lead, 0, hidden_size)
-        if layer < num_layers - 1 and dropout_p > 0.0 and train:
-            seq = F.dropout(seq, dropout_p, training=True)
+        if layer < num_layers - 1 and dropout_p > 0.0 and train and generator is not None:
+            seq = _dropout(seq, dropout_p, generator)
     return seq, (torch.stack(h_finals, -2), torch.stack(c_finals, -2))
 
 
@@ -92,19 +135,45 @@ class LSTM(ParamLeaf):
     """torch nn.LSTM over an unbatched (T, input_size) sequence, or G of them
     as (G, T, input_size), with its state_dict keys (``weight_ih_l0``, ...).
     The attribute ``mode`` picks the fused kernel at inference ("stacked" K4
-    or "wavefront" K5; None: ``lstm_fused.FUSED_LSTM_MODE``)."""
+    or "wavefront" K5; None: ``lstm_fused.FUSED_LSTM_MODE``), which takes
+    its route by shape (``lstm_fused.choose_route``).  The weights in the
+    kernels' layouts are packed once and kept (``packed``) until a
+    parameter changes."""
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int, gen, device,
                  bias: bool = True, dropout: float = 0.0):
         super().__init__(init_lstm(gen, input_size, hidden_size, num_layers, bias), device)
         self.hidden_size, self.num_layers, self.dropout = hidden_size, num_layers, dropout
         self.mode: Optional[str] = None
+        self._packed: Optional[lstm_fused.Packed] = None
+        self._packed_key = None
 
-    def forward(self, x, hidden=None):
-        return lstm_apply(
-            dict(self.named_parameters()), x, hidden, self.num_layers, self.hidden_size,
-            self.dropout, self.training, self.mode,
-        )
+    def packed(self) -> lstm_fused.Packed:
+        """The parameters in the kernels' layouts (``lstm_fused.pack``),
+        packed again only after a parameter was replaced (its ``data_ptr``)
+        or edited in place (its ``_version``), e.g. by ``load_state_dict``
+        or an optimizer step.  An edit through ``.data`` bumps no version
+        and is not seen."""
+        params = dict(self.named_parameters())
+        key = tuple((p.data_ptr(), p._version) for p in params.values())
+        if key != self._packed_key:
+            # ordinary tensors even under inference_mode: the cache outlives the call
+            with torch.inference_mode(False), torch.no_grad():
+                self._packed = lstm_fused.pack(
+                    {k: v.detach() for k, v in params.items()}, self.num_layers,
+                    self.hidden_size)
+            self._packed_key = key
+        return self._packed
+
+    def forward(self, x, hidden=None, generator: Optional[torch.Generator] = None):
+        """``lstm_apply`` with the module's parameters, its weights packed
+        once for the fused kernel."""
+        params = dict(self.named_parameters())
+        L, H = self.num_layers, self.hidden_size
+        if x.is_cuda and fused_wanted(params, x, hidden, H, self.training):
+            return lstm_fused.lstm_apply_fused(params, x, hidden, L, H, self.mode,
+                                               self.packed())
+        return lstm_loop(params, x, hidden, L, H, self.dropout, self.training, generator)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,7 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..ops import imageops
+from ..precision import with_precision
 from .common import Conv2d, Params, SpectralLinear
 from .recurrent import LSTM
 from .vit import MixTransformerEncoderLayer
@@ -74,17 +75,22 @@ class LSTMNetVIT(nn.Module):
         fused = self.down_sample(fused)
         return self.decoder(fused.reshape(fused.shape[0], -1))
 
+    @with_precision
     def forward(
         self,
         img: torch.Tensor,
         desvel: torch.Tensor,
         quat: Optional[torch.Tensor] = None,
         hidden: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """img (N, 1, H, W), desvel (N, 1), quat (N, 4) or None: the LSTM
         runs over N as its time axis, hidden (3, 128) each.  With a leading
         stream axis, img (G, N, 1, H, W), desvel (G, N, 1), quat (G, N, 4):
         G sequences through one LSTM launch, hidden (G, 3, 128) each.
+        ``generator`` draws the LSTM's inter-layer dropout in training, as
+        the JAX package's ``rng``; without one there is no dropout.  Runs at
+        the precision of ``evfly_tpu_torch.set_precision``.
         Returns (velocity (..., 3), (h, c))."""
         lead = img.shape[:-3]
         img = img.reshape(-1, *img.shape[-3:])
@@ -93,5 +99,5 @@ class LSTMNetVIT(nn.Module):
             quat = quat.reshape(-1, quat.shape[-1])
         img, quat = refine_inputs(img, quat)
         out = torch.cat([self._encode(img), desvel / 10.0, quat], dim=1)
-        out, h = self.lstm(out.reshape(*lead, out.shape[-1]), hidden)
+        out, h = self.lstm(out.reshape(*lead, out.shape[-1]), hidden, generator)
         return self.nn_fc2(out), h

@@ -43,8 +43,12 @@ _SIGNATURES = {
     "evfly_hist_scaled_resized": (
         [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P]
     ),
+    "evfly_scale_counts": [_P] * 4 + [_I] * 6 + [_F, _I, _I, _P],
     "evfly_lstm_stacked": [_P] * 9 + [_I] * 4 + [_P],
     "evfly_lstm_wavefront": [_P] * 9 + [_I] * 4 + [_P],
+    "evfly_lstm_cluster": [_P] * 8 + [_I] * 5 + [_P],
+    "evfly_lstm_cluster_occupancy": [_I] * 3 + [_P],
+    "evfly_lstm_cluster_fits": [_I, _I],
     "evfly_error_string": [_I],
 }
 

@@ -3,10 +3,12 @@
 Port of ``evfly_tpu/ops/imageops.py`` for the functions the serving and
 streaming paths need (``LSTMNetVIT``, ``OrigUNet``).  Layouts are torch's (NCHW activations, OIHW conv
 weights, (out, in) linear weights), the same as the JAX package keeps, so
-one state_dict feeds both.  Matmuls and convolutions run in full f32: the
-JAX package's parity contract uses ``Precision.HIGHEST``, and on the card
-the caller turns TF32 off (``torch.backends.cudnn.allow_tf32`` and
-``torch.backends.cuda.matmul.allow_tf32``) where it compares with it.
+one state_dict feeds both.  These functions run at whatever precision
+PyTorch's flags give; the port's entry points set those flags for their own
+work (``evfly_tpu_torch.precision``): full f32 by default, the JAX
+package's ``Precision.HIGHEST``, or TF32 after ``set_precision("tf32")``.
+On the card, PyTorch's own default would run cuDNN's f32 convolutions in
+TF32.
 """
 
 from __future__ import annotations

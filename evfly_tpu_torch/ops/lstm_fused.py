@@ -12,11 +12,22 @@ orders:
   ``_lstm_fused_wavefront``): anti-diagonals of the (layer, time) grid, every
   live layer advancing at once on its own time index.
 
-Both take a leading stream axis, one block per stream: xp0 (G, T, 4H) and
-the state (G, L, H), what ``jax.vmap`` over the kernel computes for the
-batched streaming pipeline; an unbatched (T, 4H) call is G = 1.  The layer-0
-input projection x W_ih0^T + b is one large matmul and stays outside the
-kernels (``torch.matmul``), as the JAX code keeps it outside Pallas.
+Each order has two routes, chosen by shape (``choose_route``):
+
+- "cluster" (``lstm_stacked_cluster``, ``lstm_wavefront_cluster``): one
+  8-CTA cluster per stream with the weights resident in the cluster's shared
+  memory, in the layout of ``pack_cluster``; taken by every shape whose
+  weights fit (``cluster_fits``: H = 128 with L <= 3, which covers every
+  fused LSTM of the repo's models, and H = 256 with L = 1);
+- "l2" (``lstm_stacked``, ``lstm_wavefront``): one block per stream reading
+  the weights from L2 on every step, in the layouts of ``pack_stacked``; the
+  other shapes with hidden_size % 128 == 0.
+
+All take a leading stream axis: xp0 (G, T, 4H) and the state (G, L, H), what
+``jax.vmap`` over the kernel computes for the batched streaming pipeline; an
+unbatched (T, 4H) call is G = 1.  The layer-0 input projection x W_ih0^T + b
+is one large matmul and stays outside the kernels (``torch.matmul``), as the
+JAX code keeps it outside Pallas.
 
 Each wrapper has a plain PyTorch version (``*_plain``), which CPU tensors
 take; ``lstm_apply_fused`` is the drop-in for ``models.recurrent.lstm_apply``
@@ -27,8 +38,9 @@ ordered (i, f, g, o), as torch packs them; everything is f32.
 
 from __future__ import annotations
 
+import ctypes
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,6 +49,12 @@ from . import _build
 Params = Dict[str, torch.Tensor]
 
 FUSED_LSTM_MODE = os.environ.get("EVFLY_FLSTM_MODE", "stacked")
+
+CLUSTER = 8                   # CTAs per stream on the cluster route
+_CLUSTER_HIDDEN = (128, 256)  # the hidden sizes the cluster kernels are built for
+# a block may opt in to 227 KB (232,448 bytes) of shared memory; keep 1 KiB
+# for the kernel's static shared variables
+_SMEM_LIMIT = 232448 - 1024
 
 
 def pack_stacked(params: Params, num_layers: int, hidden_size: int):
@@ -57,6 +75,88 @@ def pack_stacked(params: Params, num_layers: int, hidden_size: int):
         bias = ref.new_zeros((L - 1) * 4 * H)
     f32 = torch.float32
     return whh_t.to(f32).contiguous(), wih_t.to(f32).contiguous(), bias.to(f32).contiguous()
+
+
+def cluster_smem_bytes(hidden_size: int, num_layers: int) -> int:
+    """Shared memory of one CTA of the cluster route: its slices of the
+    2L - 1 weight blocks, h in two parities, its units' c and biases."""
+    H, L = hidden_size, num_layers
+    return 4 * ((2 * L - 1) * H * H // 2 + 2 * L * H + L * H // 8 + (L - 1) * 4 * H // 8)
+
+
+def cluster_fits(hidden_size: int, num_layers: int) -> bool:
+    """Whether the cluster route takes (H, L): a built hidden size, and one
+    CTA's slice of the weights and state within a block's shared memory.
+    The rule of ``csrc/lstm.cu``'s ``cluster_fits``, stated here for the CPU
+    where the library is not built (its entry point
+    ``evfly_lstm_cluster_fits`` gives the library's)."""
+    return (hidden_size in _CLUSTER_HIDDEN and num_layers >= 1
+            and cluster_smem_bytes(hidden_size, num_layers) <= _SMEM_LIMIT)
+
+
+def choose_route(hidden_size: int, num_layers: int) -> str:
+    """"cluster" where the weights fit the cluster's shared memory, else
+    "l2".  Decided by (H, L) alone, before any launch: the number of streams
+    does not enter, although at 64 streams of one step the L2 route runs K5
+    a few microseconds faster (``PERF.md`` §6)."""
+    return "cluster" if cluster_fits(hidden_size, num_layers) else "l2"
+
+
+def _cluster_view(H: int):
+    # (gate, rank, warp, unit parity, i4, e, q) of a block's (4H, H) torch
+    # layout: column gate*H + rank*H/8 + 2*warp + parity, k = (4*i4 + e)*16 + q
+    return (4, CLUSTER, H // 16, 2, H // 64, 4, 16)
+
+
+_TO_CLUSTER = (1, 2, 0, 4, 3, 6, 5)    # -> (rank, warp, gate, i4, parity, q, e)
+_FROM_CLUSTER = (2, 0, 1, 4, 3, 6, 5)  # and back
+
+
+def pack_cluster(whh_t: torch.Tensor, wih_t: torch.Tensor, hidden_size: int,
+                 num_layers: int) -> torch.Tensor:
+    """The cluster route's weights (8, 2L - 1, H*H/2) from ``pack_stacked``'s
+    whh_t and wih_t: for each rank r, one contiguous block holding its
+    slices of W_hh0, W_ih1, W_hh1, W_ih2, ... in that order.  A slice holds
+    the four gate columns of the rank's H/8 hidden units, ordered so that
+    thread (unit, q) of the kernel reads its k = i*16 + q as float4s that a
+    warp loads contiguously (``csrc/lstm.cu``, ``ClusterShape``)."""
+    H, L = hidden_size, num_layers
+    G = 4 * H
+    blocks = [whh_t[:, :G].T]
+    for l in range(1, L):
+        blocks += [wih_t[:, (l - 1) * G:l * G].T, whh_t[:, l * G:(l + 1) * G].T]
+    slices = [b.reshape(_cluster_view(H)).permute(_TO_CLUSTER).reshape(CLUSTER, H * H // 2)
+              for b in blocks]
+    return torch.stack(slices, 1).to(torch.float32).contiguous()
+
+
+def unpack_cluster(wcl: torch.Tensor, hidden_size: int, num_layers: int):
+    """(whh_t, wih_t) in ``pack_stacked``'s layouts from ``pack_cluster``'s."""
+    H, L = hidden_size, num_layers
+    view = [_cluster_view(H)[d] for d in _TO_CLUSTER]
+    blocks = [wcl[:, m].reshape(view).permute(_FROM_CLUSTER).reshape(4 * H, H)
+              for m in range(2 * L - 1)]
+    whh_t = torch.cat([blocks[0].T] + [blocks[2 * l].T for l in range(1, L)], dim=1)
+    wih_t = (torch.cat([blocks[2 * l - 1].T for l in range(1, L)], dim=1) if L > 1
+             else wcl.new_zeros(H, 0))
+    return whh_t.contiguous(), wih_t.contiguous()
+
+
+class Packed(NamedTuple):
+    """A module's weights in the kernels' layouts: ``pack_stacked``'s and,
+    where the shape takes the cluster route, ``pack_cluster``'s."""
+    whh_t: torch.Tensor
+    wih_t: torch.Tensor
+    bias: torch.Tensor
+    cluster: Optional[torch.Tensor]
+
+
+def pack(params: Params, num_layers: int, hidden_size: int) -> Packed:
+    whh_t, wih_t, bias = pack_stacked(params, num_layers, hidden_size)
+    wcl = None
+    if cluster_fits(hidden_size, num_layers):
+        wcl = pack_cluster(whh_t, wih_t, hidden_size, num_layers)
+    return Packed(whh_t, wih_t, bias, wcl)
 
 
 def _cell(gates: torch.Tensor, c: torch.Tensor, H: int):
@@ -125,9 +225,24 @@ def lstm_wavefront_plain(xp0, whh_t, wih_t, bias, h0, c0):
     return (out[0], hn[0], cn[0]) if squeeze else (out, hn, cn)
 
 
-def _launch(name: str, fn, xp0, whh_t, wih_t, bias, h0, c0):
-    """Check the inputs of K4 or K5 on CUDA, launch ``fn`` of the kernel
-    library and return its outputs in the inputs' stream layout."""
+def lstm_stacked_cluster_plain(xp0, wcl, bias, h0, c0):
+    """Plain PyTorch version of K4 on the cluster route: ``lstm_stacked_plain``
+    on the weights that ``wcl`` holds."""
+    L, H = h0.shape[-2], h0.shape[-1]
+    return lstm_stacked_plain(xp0, *unpack_cluster(wcl, H, L), bias, h0, c0)
+
+
+def lstm_wavefront_cluster_plain(xp0, wcl, bias, h0, c0):
+    """Plain PyTorch version of K5 on the cluster route."""
+    L, H = h0.shape[-2], h0.shape[-1]
+    return lstm_wavefront_plain(xp0, *unpack_cluster(wcl, H, L), bias, h0, c0)
+
+
+def _launch(name: str, fn, xp0, weights, h0, c0, *extra):
+    """Check the inputs of a K4 or K5 route on CUDA, launch ``fn`` of the
+    kernel library and return its outputs in the inputs' stream layout.
+    ``weights(L, H)`` gives the route's weight arguments and bias as
+    {name: (tensor, expected shape)}, in the order of the C entry point."""
     if xp0.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {xp0.device}")
     xp0, h0, c0, squeeze = _streams(xp0, h0, c0)
@@ -135,11 +250,8 @@ def _launch(name: str, fn, xp0, whh_t, wih_t, bias, h0, c0):
     L, H = h0.shape[1], h0.shape[2]
     if H % 128 != 0:
         raise ValueError(f"{name} needs hidden_size % 128 == 0, got {H}")
-    expected = {
-        "xp0": (xp0, (S, T, 4 * H)), "whh_t": (whh_t, (H, L * 4 * H)),
-        "wih_t": (wih_t, (H, (L - 1) * 4 * H)), "bias": (bias, ((L - 1) * 4 * H,)),
-        "h0": (h0, (S, L, H)), "c0": (c0, (S, L, H)),
-    }
+    expected = {"xp0": (xp0, (S, T, 4 * H)), **weights(L, H),
+                "h0": (h0, (S, L, H)), "c0": (c0, (S, L, H))}
     for arg, (t, shape) in expected.items():
         if tuple(t.shape) != shape or t.device != xp0.device:
             raise ValueError(
@@ -148,23 +260,41 @@ def _launch(name: str, fn, xp0, whh_t, wih_t, bias, h0, c0):
             )
     if torch.is_grad_enabled() and any(t.requires_grad for t, _ in expected.values()):
         raise RuntimeError(f"{name} has no backward; call it under torch.no_grad()")
-    args = [t.to(torch.float32).contiguous() for t, _ in expected.values()]
+    args = {arg: t.to(torch.float32).contiguous() for arg, (t, _) in expected.items()}
+    if "wcl" in args and args["wcl"].data_ptr() % 16:
+        raise ValueError(f"{name}: wcl must be 16-byte aligned (the source of bulk copies)")
     out = torch.empty(S, T, H, dtype=torch.float32, device=xp0.device)
     hn = torch.empty(S, L, H, dtype=torch.float32, device=xp0.device)
     cn = torch.empty(S, L, H, dtype=torch.float32, device=xp0.device)
     with torch.cuda.device(xp0.device):
         status = fn(
-            *(a.data_ptr() for a in args), out.data_ptr(), hn.data_ptr(), cn.data_ptr(),
-            S, T, H, L, _build.stream_of(xp0.device),
+            *(a.data_ptr() for a in args.values()), out.data_ptr(), hn.data_ptr(), cn.data_ptr(),
+            S, T, H, L, *extra, _build.stream_of(xp0.device),
         )
     _build.check(name, status)
     return (out[0], hn[0], cn[0]) if squeeze else (out, hn, cn)
 
 
+def _l2_weights(whh_t, wih_t, bias):
+    return lambda L, H: {
+        "whh_t": (whh_t, (H, L * 4 * H)), "wih_t": (wih_t, (H, (L - 1) * 4 * H)),
+        "bias": (bias, ((L - 1) * 4 * H,)),
+    }
+
+
+def _cluster_weights(name, wcl, bias):
+    def weights(L, H):
+        if not cluster_fits(H, L):
+            raise ValueError(f"{name}: (H, L) = ({H}, {L}) does not fit the cluster route")
+        return {"wcl": (wcl, (CLUSTER, 2 * L - 1, H * H // 2)),
+                "bias": (bias, ((L - 1) * 4 * H,))}
+    return weights
+
+
 def lstm_stacked(xp0, whh_t, wih_t, bias, h0, c0):
-    """K4: (out, h_n, c_n) from the layouts of ``pack_stacked``, the layer-0
-    gates ``xp0`` (G, T, 4H) and the state (G, L, H) of G streams, or
-    (T, 4H) and (L, H) for one sequence.
+    """K4 on the L2 route: (out, h_n, c_n) from the layouts of
+    ``pack_stacked``, the layer-0 gates ``xp0`` (G, T, 4H) and the state
+    (G, L, H) of G streams, or (T, 4H) and (L, H) for one sequence.
 
     CPU tensors take ``lstm_stacked_plain``; CUDA tensors launch the kernel
     or raise.  The kernel has no backward: under autograd the wrapper raises
@@ -172,8 +302,8 @@ def lstm_stacked(xp0, whh_t, wih_t, bias, h0, c0):
     """
     if xp0.device.type == "cpu":
         return lstm_stacked_plain(xp0, whh_t, wih_t, bias, h0, c0)
-    res = _launch("lstm_stacked", _build.library().evfly_lstm_stacked,
-                  xp0, whh_t, wih_t, bias, h0, c0)
+    res = _launch("lstm_stacked", _build.library().evfly_lstm_stacked, xp0,
+                  _l2_weights(whh_t, wih_t, bias), h0, c0)
     lstm_stacked.launches += 1
     return res
 
@@ -182,23 +312,78 @@ lstm_stacked.launches = 0
 
 
 def lstm_wavefront(xp0, whh_t, wih_t, bias, h0, c0):
-    """K5: ``lstm_stacked``'s function in the wavefront order, with the same
-    arguments and results.
+    """K5 on the L2 route: ``lstm_stacked``'s function in the wavefront
+    order, with the same arguments and results.
 
     CPU tensors take ``lstm_wavefront_plain``; CUDA tensors launch the
     kernel or raise.  ``lstm_wavefront.launches`` counts launches.
     """
     if xp0.device.type == "cpu":
         return lstm_wavefront_plain(xp0, whh_t, wih_t, bias, h0, c0)
-    res = _launch("lstm_wavefront", _build.library().evfly_lstm_wavefront,
-                  xp0, whh_t, wih_t, bias, h0, c0)
+    res = _launch("lstm_wavefront", _build.library().evfly_lstm_wavefront, xp0,
+                  _l2_weights(whh_t, wih_t, bias), h0, c0)
     lstm_wavefront.launches += 1
     return res
 
 
 lstm_wavefront.launches = 0
 
-_KERNELS = {"stacked": lstm_stacked, "wavefront": lstm_wavefront}
+
+def lstm_stacked_cluster(xp0, wcl, bias, h0, c0):
+    """K4 on the cluster route: ``lstm_stacked``'s function with the weights
+    in ``pack_cluster``'s layout ``wcl``; (H, L) must satisfy
+    ``cluster_fits``.
+
+    CPU tensors take ``lstm_stacked_cluster_plain``; CUDA tensors launch the
+    kernel (one 8-CTA cluster per stream) or raise.
+    ``lstm_stacked_cluster.launches`` counts launches.
+    """
+    if xp0.device.type == "cpu":
+        return lstm_stacked_cluster_plain(xp0, wcl, bias, h0, c0)
+    name = "lstm_stacked_cluster"
+    res = _launch(name, _build.library().evfly_lstm_cluster, xp0,
+                  _cluster_weights(name, wcl, bias), h0, c0, 0)
+    lstm_stacked_cluster.launches += 1
+    return res
+
+
+lstm_stacked_cluster.launches = 0
+
+
+def lstm_wavefront_cluster(xp0, wcl, bias, h0, c0):
+    """K5 on the cluster route, with ``lstm_stacked_cluster``'s arguments.
+
+    CPU tensors take ``lstm_wavefront_cluster_plain``; CUDA tensors launch
+    the kernel or raise.  ``lstm_wavefront_cluster.launches`` counts
+    launches.
+    """
+    if xp0.device.type == "cpu":
+        return lstm_wavefront_cluster_plain(xp0, wcl, bias, h0, c0)
+    name = "lstm_wavefront_cluster"
+    res = _launch(name, _build.library().evfly_lstm_cluster, xp0,
+                  _cluster_weights(name, wcl, bias), h0, c0, 1)
+    lstm_wavefront_cluster.launches += 1
+    return res
+
+
+lstm_wavefront_cluster.launches = 0
+
+
+def cluster_occupancy(hidden_size: int, num_layers: int, mode: str) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the cluster kernel of ``mode``
+    at (H, L) on the current device: how many 8-CTA clusters run at once."""
+    n = ctypes.c_int(0)
+    status = _build.library().evfly_lstm_cluster_occupancy(
+        hidden_size, num_layers, int(mode == "wavefront"), ctypes.byref(n))
+    _build.check("evfly_lstm_cluster_occupancy", status)
+    return n.value
+
+
+_KERNELS = {
+    ("stacked", "l2"): lstm_stacked, ("wavefront", "l2"): lstm_wavefront,
+    ("stacked", "cluster"): lstm_stacked_cluster,
+    ("wavefront", "cluster"): lstm_wavefront_cluster,
+}
 
 
 def lstm_apply_fused(
@@ -208,16 +393,20 @@ def lstm_apply_fused(
     num_layers: int,
     hidden_size: int,
     mode: Optional[str] = None,
+    packed: Optional[Packed] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Inference drop-in for ``models.recurrent.lstm_apply``: the same
     params (nn.LSTM state_dict keys) and return (out (T, H), (h_n, c_n)
     each (L, H)), or with a leading stream axis G on x, the state and every
     result.  mode: "stacked" (K4) or "wavefront" (K5); None takes
-    ``FUSED_LSTM_MODE``.  Requires hidden_size % 128 == 0 on CUDA."""
+    ``FUSED_LSTM_MODE``.  packed: the params in the kernels' layouts
+    (``pack``), packed here when None.  The route is ``choose_route``'s, by
+    shape.  Requires hidden_size % 128 == 0 on CUDA."""
     mode = FUSED_LSTM_MODE if mode is None else mode
-    if mode not in _KERNELS:
-        raise ValueError(f"unknown fused-LSTM mode {mode!r}")
     L, H = num_layers, hidden_size
+    route = choose_route(H, L)
+    if (mode, route) not in _KERNELS:
+        raise ValueError(f"unknown fused-LSTM mode {mode!r}")
     if hidden is None:
         h0 = x.new_zeros(*x.shape[:-2], L, H, dtype=torch.float32)
         c0 = x.new_zeros(*x.shape[:-2], L, H, dtype=torch.float32)
@@ -227,6 +416,11 @@ def lstm_apply_fused(
     xp0 = torch.matmul(x.to(torch.float32), params["weight_ih_l0"].T)
     if "bias_ih_l0" in params:
         xp0 = xp0 + params["bias_ih_l0"] + params["bias_hh_l0"]
-    whh_t, wih_t, bias = pack_stacked(params, L, H)
-    out, hn, cn = _KERNELS[mode](xp0, whh_t, wih_t, bias, h0, c0)
+    if packed is None:
+        packed = pack(params, L, H)
+    if route == "cluster":
+        weights = (packed.cluster, packed.bias)
+    else:
+        weights = (packed.whh_t, packed.wih_t, packed.bias)
+    out, hn, cn = _KERNELS[(mode, route)](xp0, *weights, h0, c0)
     return out.to(x.dtype), (hn.to(x.dtype), cn.to(x.dtype))

@@ -15,19 +15,25 @@ with ``counts`` the signed event count frame under np.histogram2d binning:
 
 The kernels are in ``csrc/voxelizer.cu``.  Each wrapper ``hist_*`` has a
 plain PyTorch version ``hist_*_plain``, which CPU tensors take and against
-which the kernel is held.  The TPU layout knobs of the JAX functions
+which the kernel is held.  K2 and K3 pack two int16 counts per word and take
+at most 32,767 events per window; the two entry points over them take any
+number, routing a batch by its shape (``scaled_route``) where K2 and K3
+cannot take it through K1's counts and ``scale_counts`` or
+``scale_counts_resized``, K2's and K3's function over a count frame in a
+kernel of their own.  The TPU layout knobs of the JAX functions
 (``chunk``, ``subchunks``, ``int8_mm``, ``interpret``) have no counterpart.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..precision import with_precision
 from . import _build
 from .imageops import resize_matrix
 from .percentile import bisect_abs_quantile
@@ -107,13 +113,6 @@ def _signed_counts(x, y, pol, H: int, W: int) -> torch.Tensor:
     return counts.scatter_add_(1, yi * W + xi, sign)
 
 
-def _quantile_scale_plain(counts, thresh: float, q: float, iters: int):
-    """(scale (B,), q (B,)) of K2's and K3's normalization: 1 / q, or
-    ``thresh`` where the quantile snapped to 0 (the fallback scales the
-    VALUE frame thresh * counts by 1)."""
-    qv = bisect_abs_quantile(counts.abs(), _kth(q, counts.shape[1]), iters)
-    return torch.where(qv > 0, 1.0 / qv.clamp_min(1e-30), thresh), qv
-
 
 def hist_frame_plain(
     x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, H: int, W: int,
@@ -131,16 +130,39 @@ def hist_frame_plain(
     return (pos_thresh * pos_counts - neg_thresh * neg_counts).reshape(B, H, W)
 
 
+def scale_counts_plain(
+    counts: torch.Tensor, thresh: float = 0.2, q: float = 0.97, iters: int = 18,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2's normalization of a (B, H, W) count
+    frame: (clip(counts * scale, +-1), (B,) quantile of |counts|), with
+    scale 1 / q, or ``thresh`` where the quantile snapped to 0 (the fallback
+    scales the VALUE frame thresh * counts by 1)."""
+    flat = counts.reshape(counts.shape[0], -1)
+    qv = bisect_abs_quantile(flat.abs(), _kth(q, flat.shape[1]), iters)
+    scale = torch.where(qv > 0, 1.0 / qv.clamp_min(1e-30), thresh)
+    return (flat * scale[:, None]).clamp(-1.0, 1.0).reshape(counts.shape), qv
+
+
+def scale_counts_resized_plain(
+    counts: torch.Tensor, h_out: int, w_out: int, thresh: float = 0.2, q: float = 0.97,
+    iters: int = 18, align_corners: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K3's normalization and resize of a (B, H, W)
+    count frame: ((B, h_out, w_out) input, (B,) quantile of |counts|)."""
+    scaled, qv = scale_counts_plain(counts, thresh, q, iters)
+    _, rh, rw = _resize_operators(*counts.shape[1:], h_out, w_out, align_corners,
+                                  counts.device)
+    return torch.matmul(torch.matmul(rh, scaled), rw.T), qv
+
+
 def hist_scaled_plain(
     x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, H: int, W: int,
     thresh: float = 0.2, q: float = 0.97, iters: int = 18,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K2: (B, N) events -> ((B, H, W) clipped
     frame, (B,) quantile of |counts|)."""
-    counts = _signed_counts(x, y, pol, H, W)
-    scale, qv = _quantile_scale_plain(counts, thresh, q, iters)
-    frame = (counts * scale[:, None]).clamp(-1.0, 1.0)
-    return frame.reshape(x.shape[0], H, W), qv
+    counts = _signed_counts(x, y, pol, H, W).reshape(x.shape[0], H, W)
+    return scale_counts_plain(counts, thresh, q, iters)
 
 
 def hist_scaled_resized_plain(
@@ -150,10 +172,8 @@ def hist_scaled_resized_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K3: (B, N) events -> ((B, h_out, w_out) input,
     (B,) quantile of |counts|)."""
-    scaled, qv = hist_scaled_plain(x, y, pol, H, W, thresh, q, iters)
-    _, rh, rw = _resize_operators(H, W, h_out, w_out, align_corners, x.device)
-    small = torch.matmul(torch.matmul(rh, scaled), rw.T)
-    return small, qv
+    counts = _signed_counts(x, y, pol, H, W).reshape(x.shape[0], H, W)
+    return scale_counts_resized_plain(counts, h_out, w_out, thresh, q, iters, align_corners)
 
 
 def _kernel_events(name: str, x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor):
@@ -175,12 +195,27 @@ def _kernel_events(name: str, x: torch.Tensor, y: torch.Tensor, pol: torch.Tenso
     return x.to(torch.float32).contiguous(), y.to(torch.float32).contiguous(), pc
 
 
+def _packed_smem(N: int, H: int, W: int) -> int:
+    # the packed frame and the count-of-counts table (|count| <= N)
+    return ((H * W + 1) // 2 + N + 1) * 4
+
+
+def scaled_route(N: int, H: int, W: int) -> str:
+    """The route of a batch of N events per window at H x W through the
+    scaled entry points: "packed" (K2, K3) where a count fits int16 and the
+    packed frame fits one block, else "k1" (K1's counts, then
+    ``scale_counts`` or ``scale_counts_resized``).  Decided by shape alone,
+    before any launch."""
+    fits = N <= _MAX_EVENTS and _packed_smem(N, H, W) <= _SMEM_LIMIT
+    return "packed" if fits else "k1"
+
+
 def _packed_table_len(name: str, N: int, H: int, W: int) -> int:
     """K2's and K3's count-of-counts table length; raises when the packed
     frame and the table do not fit one block or a count could pass int16."""
     table_len = N + 1  # |count| <= events per window
-    smem = ((H * W + 1) // 2 + table_len) * 4
-    if N > _MAX_EVENTS or smem > _SMEM_LIMIT:
+    smem = _packed_smem(N, H, W)
+    if scaled_route(N, H, W) != "packed":
         raise ValueError(
             f"{name}: {N} events per window at {H}x{W} need {smem} bytes of shared "
             f"memory (limit {_SMEM_LIMIT}) or exceed {_MAX_EVENTS} events: the kernel "
@@ -291,6 +326,100 @@ def hist_scaled_resized(
 hist_scaled_resized.launches = 0
 
 
+def _scale_launch(name: str, counts: torch.Tensor, thresh: float, q: float, iters: int,
+                  resize: Optional[Tuple[int, int, bool]]):
+    """Launch ``scale_counts_kernel`` on (B, H, W) counts on CUDA; ``resize``
+    (h_out, w_out, align_corners) or None.  Returns (out, q)."""
+    if counts.device.type != "cuda" or counts.dim() != 3:
+        raise ValueError(f"{name}: expected (B, H, W) counts on CUDA, got "
+                         f"{tuple(counts.shape)} on {counts.device}")
+    cc = counts.to(torch.float32).contiguous()
+    B, H, W = cc.shape
+    h_out, w_out, align_corners = resize if resize is not None else (H, W, False)
+    taps = cc  # not read without a resize
+    if resize is not None:
+        taps, _, _ = _resize_operators(H, W, h_out, w_out, align_corners, cc.device)
+    out = torch.empty(B, h_out, w_out, dtype=torch.float32, device=cc.device)
+    qout = torch.empty(B, dtype=torch.float32, device=cc.device)
+    with torch.cuda.device(cc.device):
+        status = _build.library().evfly_scale_counts(
+            cc.data_ptr(), taps.data_ptr(), out.data_ptr(), qout.data_ptr(), B, H, W, h_out,
+            w_out, _kth(q, H * W), thresh, iters, int(resize is not None),
+            _build.stream_of(cc.device),
+        )
+    _build.check(name, status)
+    return out, qout
+
+
+def scale_counts(
+    counts: torch.Tensor, thresh: float = 0.2, q: float = 0.97, iters: int = 18,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's function over a (B, H, W) f32 count frame of exact integers (K1's
+    with thresholds 1), for windows K2 cannot take: ((B, H, W) clipped frame,
+    (B,) quantile), the quantile the plain version's bit for bit.
+
+    CPU tensors take ``scale_counts_plain``; CUDA tensors launch the kernel
+    or raise.  ``scale_counts.launches`` counts the launches.
+    """
+    if counts.device.type == "cpu":
+        return scale_counts_plain(counts, thresh, q, iters)
+    res = _scale_launch("scale_counts", counts, thresh, q, iters, None)
+    scale_counts.launches += 1
+    return res
+
+
+scale_counts.launches = 0
+
+
+def scale_counts_resized(
+    counts: torch.Tensor, h_out: int, w_out: int, thresh: float = 0.2, q: float = 0.97,
+    iters: int = 18, align_corners: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's function over a (B, H, W) count frame as ``scale_counts`` takes
+    it: ((B, h_out, w_out) input, (B,) quantile).
+
+    CPU tensors take ``scale_counts_resized_plain``; CUDA tensors launch the
+    kernel or raise.  ``scale_counts_resized.launches`` counts the launches.
+    """
+    if counts.device.type == "cpu":
+        return scale_counts_resized_plain(counts, h_out, w_out, thresh, q, iters,
+                                          align_corners)
+    res = _scale_launch("scale_counts_resized", counts, thresh, q, iters,
+                        (h_out, w_out, align_corners))
+    scale_counts_resized.launches += 1
+    return res
+
+
+scale_counts_resized.launches = 0
+
+
+def hist_scaled_routed(
+    x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, H: int, W: int,
+    thresh: float = 0.2, q: float = 0.97, iters: int = 18,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(frame, quantile) of ``event_histogram_scaled`` for (B, N) events:
+    K2 (``hist_scaled``) or, where ``scaled_route`` says "k1", K1's counts
+    and ``scale_counts``."""
+    if scaled_route(x.shape[1], H, W) == "packed":
+        return hist_scaled(x, y, pol, H, W, thresh, q, iters)
+    return scale_counts(hist_frame(x, y, pol, H, W, 1.0, 1.0), thresh, q, iters)
+
+
+def hist_scaled_resized_routed(
+    x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, H: int, W: int,
+    h_out: int, w_out: int, thresh: float = 0.2, q: float = 0.97, iters: int = 18,
+    align_corners: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(input, quantile) of ``event_histogram_scaled_resized`` for (B, N)
+    events: K3 (``hist_scaled_resized``) or, where ``scaled_route`` says
+    "k1", K1's counts and ``scale_counts_resized``."""
+    if scaled_route(x.shape[1], H, W) == "packed":
+        return hist_scaled_resized(x, y, pol, H, W, h_out, w_out, thresh, q, iters,
+                                   align_corners)
+    return scale_counts_resized(hist_frame(x, y, pol, H, W, 1.0, 1.0), h_out, w_out, thresh,
+                                q, iters, align_corners)
+
+
 def _device_events(x, y, pol, device: DeviceLike):
     """Tensors or arrays of events on the resolved device, as a (B, N)
     batch, and whether the caller gave one (N,) window."""
@@ -346,15 +475,18 @@ def event_histogram_scaled(
     """Events -> clip(frame / quantile(|frame|, q), +-1), the deployment
     input transform, as the JAX package's ``event_histogram_scaled``.
 
-    One (N,) window -> (H, W); a (B, N) batch -> (B, H, W).  At most
-    32,767 events per window (kernel K2 packs int16 counts).  Runs on
-    ``device`` (CUDA unless the caller names another), through K2 on CUDA.
+    One (N,) window -> (H, W); a (B, N) batch -> (B, H, W).  Any number
+    of events.  Runs on ``device`` (CUDA unless the caller names another),
+    through K2 on CUDA, or where K2 cannot take the batch (``scaled_route``:
+    above 32,767 events per window, or about 12,900 at 260 x 346) through
+    K1 and ``scale_counts`` (``hist_scaled_routed``).
     """
     x, y, pol, single = _device_events(x, y, pol, device)
-    frame, _ = hist_scaled(x, y, pol, H, W, thresh, q, iters)
+    frame, _ = hist_scaled_routed(x, y, pol, H, W, thresh, q, iters)
     return frame[0] if single else frame
 
 
+@with_precision
 def event_histogram_scaled_resized(
     x, y, pol, H: int, W: int, h_out: int, w_out: int, thresh: float = 0.2,
     q: float = 0.97, iters: int = 18, align_corners: bool = False,
@@ -366,14 +498,18 @@ def event_histogram_scaled_resized(
     polarity; 0 is ignored).  Equals the JAX package's
     ``event_histogram_scaled_resized`` applied to each window: the
     97th-percentile normalization of the deployment transform and the
-    bilinear resize to the model's input size.  Runs on ``device`` (CUDA
-    unless the caller names another), through kernel K3 on CUDA.
+    bilinear resize to the model's input size.  Any number of events.
+    Runs on ``device`` (CUDA unless the caller names another), through
+    kernel K3 on CUDA, or where K3 cannot take the batch (``scaled_route``)
+    through K1 and ``scale_counts_resized`` (``hist_scaled_resized_routed``),
+    at the precision of
+    ``evfly_tpu_torch.set_precision``.
     """
     dev = resolve_device(device)
     x, y, pol = (torch.as_tensor(v, device=dev) for v in (x, y, pol))
     if x.dim() != 2:
         raise ValueError(f"event_histogram_scaled_resized expects (B, N) events, got {tuple(x.shape)}")
-    small, _ = hist_scaled_resized(
+    small, _ = hist_scaled_resized_routed(
         x, y, pol, H, W, h_out, w_out, thresh, q, iters, align_corners
     )
     return small

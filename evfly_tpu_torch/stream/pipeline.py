@@ -4,7 +4,9 @@ Port of ``evfly_tpu/stream/pipeline.py``.  The reference deployment loop
 (evfly_ros/run.py:244-414) quantile-scales each event frame, runs the joint
 model with its hidden state carried from frame to frame, and scales the
 velocity by the desired speed.  Here each step runs eagerly under
-``torch.inference_mode()`` with the hidden state kept on the device: raw
+``torch.inference_mode()``, at the precision of
+``evfly_tpu_torch.set_precision`` (full f32 by default), with the hidden
+state kept on the device: raw
 events -> ``event_histogram`` (kernel K1 on CUDA) -> 97th-percentile scaling
 -> ``OrigUNet`` with its ConvLSTM -> ``LSTMNetVIT`` (its LSTM through K4, or
 K5 in the wavefront mode) -> velocity and depth.
@@ -21,6 +23,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..ops.percentile import approx_abs_quantile
 from ..ops.voxelizer import event_histogram
+from ..precision import with_precision
 
 
 def _quantile_scale(frame: torch.Tensor, do_events: bool = True, fast: bool = False
@@ -97,10 +100,12 @@ class StreamingPipeline:
         vel, (depth, _upconv, self.hidden) = self.model(x, desvel, *self.hidden)
         return vel[0] * self.desvel, (depth[0, 0] if depth is not None else None)
 
+    @with_precision
     def step_frame(self, frame):
         """One event frame (H, W) -> (velocity (3,), depth (H, W))."""
         return self._step(torch.as_tensor(frame, dtype=torch.float32, device=self.device))
 
+    @with_precision
     def step_events(self, ex, ey, ep):
         """One window of raw events (N,) each -> (velocity (3,), depth (H, W)).
         The frame is ``event_histogram`` of the window (K1 on CUDA)."""
@@ -148,6 +153,7 @@ class BatchedStreamingPipeline:
     def reset(self):
         self.hidden = self.init_hidden()
 
+    @with_precision
     @torch.inference_mode()
     def step_frames(self, frames, reset_mask=None):
         """frames (G, H, W) -> (velocities (G, 3) scaled by desvel, depths

@@ -243,3 +243,171 @@ def test_stream_kernels_match_plain_on_gpu(cuda_device, kernel, G, T):
              "wavefront": lstm_fused.lstm_wavefront_plain}[kernel]
     for a, b in zip(fn(xp0, *packed, h0, c0), plain(xp0, *packed, h0, c0)):
         torch.testing.assert_close(a, b, atol=ATOL_CARRIED, rtol=0)
+
+
+# ------------------------------------------------- cluster route (K4, K5)
+
+
+@pytest.mark.parametrize("hidden,layers", [(128, 1), (128, 3)])
+def test_cluster_pack_unpacks_to_pack_stacked(hidden, layers):
+    rng = np.random.default_rng(200 + layers)
+    p = _torch(_params(rng, 37, hidden, layers))
+    whh_t, wih_t, bias = lstm_fused.pack_stacked(p, layers, hidden)
+    wcl = lstm_fused.pack_cluster(whh_t, wih_t, hidden, layers)
+    assert wcl.shape == (8, 2 * layers - 1, hidden * hidden // 2) and wcl.is_contiguous()
+    got_hh, got_ih = lstm_fused.unpack_cluster(wcl, hidden, layers)
+    assert torch.equal(got_hh, whh_t) and torch.equal(got_ih, wih_t)
+
+
+@pytest.mark.parametrize("hidden,layers", [(128, 3), (256, 1)])
+def test_cluster_pack_follows_the_kernel_indexing(hidden, layers):
+    """Element ((warp*4 + gate)*H/64 + i/4)*128 + lane*4 + i%4 of rank r's
+    slice of block m is W_m[gate*H + r*H/8 + u][i*16 + q] with q = lane % 16,
+    u = 2*warp + lane // 16 (csrc/lstm.cu, ClusterShape), for the blocks
+    W_hh0, W_ih1, W_hh1, W_ih2, W_hh2 in torch's (4H, H) layout."""
+    rng = np.random.default_rng(210 + layers)
+    p = _torch(_params(rng, 37, hidden, layers))
+    wcl = lstm_fused.pack_cluster(*lstm_fused.pack_stacked(p, layers, hidden)[:2], hidden,
+                                  layers)
+    blocks = [p["weight_hh_l0"]]
+    for l in range(1, layers):
+        blocks += [p[f"weight_ih_l{l}"], p[f"weight_hh_l{l}"]]
+    kk = hidden // 16
+    for _ in range(300):
+        r, m = rng.integers(8), rng.integers(len(blocks))
+        warp, gate, i, lane = (rng.integers(n) for n in (hidden // 16, 4, kk, 32))
+        q, u = lane % 16, 2 * warp + lane // 16
+        idx = (((warp * 4 + gate) * (kk // 4) + i // 4) * 32 + lane) * 4 + i % 4
+        assert wcl[r, m, idx] == blocks[m][gate * hidden + r * hidden // 8 + u, i * 16 + q]
+
+
+def test_route_by_shape():
+    assert lstm_fused.choose_route(128, 3) == "cluster"
+    assert lstm_fused.choose_route(128, 1) == "cluster"
+    assert lstm_fused.choose_route(256, 1) == "cluster"
+    assert lstm_fused.choose_route(256, 3) == "l2"
+    assert lstm_fused.choose_route(128, 4) == "l2"  # 224 KiB of weights per CTA
+    assert lstm_fused.choose_route(384, 1) == "l2"
+    # one CTA's share at the repo's LSTM (H = 128, L = 3): 160 KiB of
+    # weights and 3,776 bytes of state
+    assert lstm_fused.cluster_smem_bytes(128, 3) == 5 * 32768 + 3776
+
+
+@pytest.mark.parametrize("route", ["cluster", "l2"])
+@pytest.mark.parametrize("mode", ["stacked", "wavefront"])
+def test_both_routes_match_jax(mode, route):
+    """Each route's plain version (the cluster one unpacks its layout) against
+    the JAX kernel of the same order, with a carried state and two streams."""
+    rng = np.random.default_rng(220)
+    G, T, input_size, hidden, layers = 2, 6, 19, 128, 3
+    p = _params(rng, input_size, hidden, layers)
+    x = rng.normal(size=(G, T, input_size)).astype(np.float32)
+    h0 = (rng.normal(size=(G, layers, hidden)) * 0.5).astype(np.float32)
+    c0 = (rng.normal(size=(G, layers, hidden)) * 0.5).astype(np.float32)
+    tp = _torch(p)
+    packed = lstm_fused.pack(tp, layers, hidden)
+    xp0 = torch.from_numpy(x) @ tp["weight_ih_l0"].T + tp["bias_ih_l0"] + tp["bias_hh_l0"]
+    kernel = {("stacked", "cluster"): lstm_fused.lstm_stacked_cluster,
+              ("wavefront", "cluster"): lstm_fused.lstm_wavefront_cluster,
+              ("stacked", "l2"): lstm_fused.lstm_stacked,
+              ("wavefront", "l2"): lstm_fused.lstm_wavefront}[(mode, route)]
+    weights = ((packed.cluster, packed.bias) if route == "cluster"
+               else (packed.whh_t, packed.wih_t, packed.bias))
+    out, h, c = kernel(xp0, *weights, torch.from_numpy(h0), torch.from_numpy(c0))
+    for g in range(G):
+        ref = jax_lstm_apply_fused(_jax(p), jnp.asarray(x[g]),
+                                   (jnp.asarray(h0[g]), jnp.asarray(c0[g])),
+                                   layers, hidden, mode=mode)
+        _close((out[g], (h[g], c[g])), ref, ATOL_CARRIED)
+
+
+def test_cluster_wrappers_on_cpu_take_plain_versions():
+    rng = np.random.default_rng(6)
+    p = _torch(_params(rng, 9, 128, 3))
+    packed = lstm_fused.pack(p, 3, 128)
+    xp0 = torch.randn(2, 4, 512)
+    h0 = c0 = torch.zeros(2, 3, 128)
+    before = (lstm_fused.lstm_stacked_cluster.launches,
+              lstm_fused.lstm_wavefront_cluster.launches)
+    a = lstm_fused.lstm_stacked_cluster(xp0, packed.cluster, packed.bias, h0, c0)
+    b = lstm_fused.lstm_wavefront_cluster(xp0, packed.cluster, packed.bias, h0, c0)
+    ref = lstm_fused.lstm_stacked_plain(xp0, packed.whh_t, packed.wih_t, packed.bias, h0, c0)
+    assert (lstm_fused.lstm_stacked_cluster.launches,
+            lstm_fused.lstm_wavefront_cluster.launches) == before
+    for got in (a, b):
+        for u, v in zip(got, ref):
+            torch.testing.assert_close(u, v, atol=ATOL, rtol=0)
+
+
+def test_packed_weights_are_cached_until_a_parameter_changes():
+    gen = torch.Generator().manual_seed(0)
+    lstm = recurrent.LSTM(17, 128, 3, gen, torch.device("cpu"))
+    first = lstm.packed()
+    assert lstm.packed() is first  # reused across calls
+    ref = lstm_fused.pack({k: v.detach() for k, v in lstm.named_parameters()}, 3, 128)
+    for a, b in zip(first, ref):
+        assert torch.equal(a, b)
+
+    # load_state_dict copies into the parameters in place: a new pack
+    state = {k: torch.randn_like(v) for k, v in lstm.state_dict().items()}
+    lstm.load_state_dict(state)
+    second = lstm.packed()
+    assert second is not first
+    assert torch.equal(second.whh_t[:, :512], state["weight_hh_l0"].T)
+
+    # an in-place edit of one parameter: a new pack
+    with torch.no_grad():
+        lstm.weight_ih_l2.add_(1.0)
+    third = lstm.packed()
+    assert third is not second
+    assert torch.equal(third.wih_t[:, 512:], lstm.weight_ih_l2.detach().T)
+    assert lstm.packed() is third
+
+    # a replaced parameter tensor (a new data_ptr): a new pack
+    lstm.weight_hh_l1.data = lstm.weight_hh_l1.detach().clone() * 2
+    assert lstm.packed() is not third
+
+
+def test_packed_weights_are_rebuilt_after_load_params():
+    from evfly_tpu_torch.models.vitfly import LSTMNetVIT
+
+    model = LSTMNetVIT(device="cpu").eval()
+    first = model.lstm.packed()
+    assert model.lstm.packed() is first
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    state["lstm.weight_hh_l2"] = torch.randn_like(state["lstm.weight_hh_l2"])
+    model.load_params(state)
+    second = model.lstm.packed()
+    assert second is not first
+    assert torch.equal(second.whh_t[:, 1024:], state["lstm.weight_hh_l2"].T)
+    whh_t, wih_t = lstm_fused.unpack_cluster(second.cluster, 128, 3)
+    assert torch.equal(whh_t, second.whh_t) and torch.equal(wih_t, second.wih_t)
+
+
+def test_packed_cache_made_under_inference_mode_is_an_ordinary_tensor():
+    gen = torch.Generator().manual_seed(1)
+    lstm = recurrent.LSTM(17, 128, 3, gen, torch.device("cpu"))
+    with torch.inference_mode():
+        packed = lstm.packed()
+    assert not any(t.is_inference() for t in packed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["stacked", "wavefront"])
+@pytest.mark.parametrize("G,T", [(1, 256), (1, 2), (1, 1), (16, 1), (16, 256)])
+def test_cluster_kernels_match_plain_on_gpu(cuda_device, mode, G, T):
+    rng = np.random.default_rng(13)
+    hidden, layers = 128, 3
+    p = {k: v.to(cuda_device) for k, v in _torch(_params(rng, 517, hidden, layers)).items()}
+    packed = lstm_fused.pack(p, layers, hidden)
+    xp0 = torch.randn(G, T, 4 * hidden, device=cuda_device)
+    h0 = torch.randn(G, layers, hidden, device=cuda_device) * 0.5
+    c0 = torch.randn(G, layers, hidden, device=cuda_device) * 0.5
+    fn = {"stacked": lstm_fused.lstm_stacked_cluster,
+          "wavefront": lstm_fused.lstm_wavefront_cluster}[mode]
+    plain = {"stacked": lstm_fused.lstm_stacked_plain,
+             "wavefront": lstm_fused.lstm_wavefront_plain}[mode]
+    got = fn(xp0, packed.cluster, packed.bias, h0, c0)
+    ref = plain(xp0, packed.whh_t, packed.wih_t, packed.bias, h0, c0)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=ATOL_CARRIED, rtol=0)

@@ -29,7 +29,8 @@ def test_import_check_covers_every_module():
     for module in ("evfly_tpu_torch.stream", "evfly_tpu_torch.stream.pipeline",
                    "evfly_tpu_torch.models.origunet", "evfly_tpu_torch.models.composites",
                    "evfly_tpu_torch.models.recurrent", "evfly_tpu_torch.ops.lstm_fused",
-                   "evfly_tpu_torch.ops.voxelizer", "chip_smoke"):
+                   "evfly_tpu_torch.ops.voxelizer", "evfly_tpu_torch.precision",
+                   "chip_smoke"):
         assert module in MODULES
 
 

@@ -276,3 +276,78 @@ def test_k2_kernel_matches_plain_on_gpu(cuda_device):
     ref, qref = voxelizer.hist_scaled_plain(x, y, p, 260, 346)
     torch.testing.assert_close(out, ref, atol=K2_ATOL, rtol=0)
     assert torch.equal(q, qref)
+
+
+# ------------------------------------ more events per window than K2 and K3 take
+
+
+def test_scaled_route_by_shape():
+    """K2 and K3 pack two int16 counts per word and hold the frame and a
+    count table of N + 1 entries in one block; any other batch takes K1."""
+    assert voxelizer.scaled_route(5000, 260, 346) == "packed"
+    assert voxelizer.scaled_route(40000, 260, 346) == "k1"
+    assert voxelizer.scaled_route(20000, 260, 346) == "k1"  # the table passes 227 KB
+    assert voxelizer.scaled_route(32767, 64, 86) == "packed"
+    assert voxelizer.scaled_route(32768, 64, 86) == "k1"
+
+
+def _cap_events(seed, N, H, W, hot=1000):
+    """N events, ``hot`` of them on one pixel, so the quantile is not 0 and a
+    count passes what a window of uniform events reaches."""
+    x, y, p = _events(seed, 1, N, H, W)
+    x[0, :hot], y[0, :hot], p[0, :hot] = 5.5, 9.25, 1
+    return x, y, p
+
+
+def test_k1_route_above_the_cap_matches_jax():
+    """40,000 events in one window through both scaled entry points (the K1
+    route; on the CPU, K1's plain version) against the JAX functions."""
+    H, W, ho, wo, N = 64, 86, 20, 26, 40000
+    x, y, p = _cap_events(30, N, H, W)
+    frame = voxelizer.event_histogram_scaled(x[0], y[0], p[0], H, W, device="cpu")
+    small = voxelizer.event_histogram_scaled_resized(x, y, p, H, W, ho, wo, device="cpu")
+    jx, jy, jp = (jnp.asarray(a[0]) for a in (x, y, p))
+    ref = np.asarray(jvox.event_histogram_scaled(jx, jy, jp, H, W))
+    ref_small = np.asarray(jvox.event_histogram_scaled_resized(jx, jy, jp, H, W, ho, wo))
+    np.testing.assert_allclose(frame.numpy(), ref, atol=K2_ATOL)
+    np.testing.assert_allclose(small[0].numpy(), ref_small, atol=ATOL)
+
+
+def test_k1_route_quantile_equals_the_plain_version():
+    H, W, N = 64, 86, 40000
+    x, y, p = (torch.from_numpy(a) for a in _cap_events(31, N, H, W))
+    counts = voxelizer.hist_frame(x, y, p, H, W, 1.0, 1.0)
+    frame, q = voxelizer.scale_counts(counts)
+    ref, qref = voxelizer.hist_scaled_plain(x, y, p, H, W)
+    assert torch.equal(q, qref) and torch.equal(frame, ref)
+    assert torch.equal(voxelizer.hist_scaled_routed(x, y, p, H, W)[0], ref)
+    small, qs = voxelizer.hist_scaled_resized_routed(x, y, p, H, W, 20, 26)
+    ref_small, qs_ref = voxelizer.hist_scaled_resized_plain(x, y, p, H, W, 20, 26)
+    assert torch.equal(qs, qs_ref)
+    torch.testing.assert_close(small, ref_small, atol=ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+def test_scaled_entry_points_above_the_cap_on_gpu(cuda_device):
+    H, W, N = 260, 346, 40000
+    x, y, p = (torch.from_numpy(a).to(cuda_device) for a in _cap_events(32, N, H, W))
+    before = (voxelizer.hist_frame.launches, voxelizer.scale_counts.launches,
+              voxelizer.scale_counts_resized.launches)
+    frame, q = voxelizer.hist_scaled_routed(x, y, p, H, W)
+    small, qs = voxelizer.hist_scaled_resized_routed(x, y, p, H, W, 60, 90)
+    assert (voxelizer.hist_frame.launches, voxelizer.scale_counts.launches,
+            voxelizer.scale_counts_resized.launches) == (before[0] + 2, before[1] + 1,
+                                                         before[2] + 1)
+    ref, qref = voxelizer.hist_scaled_plain(x, y, p, H, W)
+    ref_small, qs_ref = voxelizer.hist_scaled_resized_plain(x, y, p, H, W, 60, 90)
+    assert torch.equal(q, qref) and torch.equal(qs, qs_ref)
+    torch.testing.assert_close(frame, ref, atol=K2_ATOL, rtol=0)
+    torch.testing.assert_close(small, ref_small, atol=ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+def test_k1_takes_more_windows_than_grid_y_on_gpu(cuda_device):
+    H, W = 64, 86
+    x, y, p = (torch.from_numpy(a).to(cuda_device) for a in _events(33, 70000, 16, H, W))
+    got = voxelizer.hist_frame(x, y, p, H, W)
+    assert torch.equal(got, voxelizer.hist_frame_plain(x, y, p, H, W))
