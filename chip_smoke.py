@@ -4,27 +4,33 @@
 
 Builds the port's CUDA kernels from ``evfly_tpu_torch/csrc`` (one ``nvcc``
 call, cached in ``build/``), holds each of K1-K5 against its plain PyTorch
-version on the card (K4 and K5 on both of their routes: one 8-CTA cluster
-per stream with the weights in shared memory, and one block per stream
-reading them from L2), times the two routes in turns, checks the port's
-repaired faults (precision under PyTorch's default flags, an eval-mode
-forward under autograd, more than 32,767 events per window through K2's and
-K3's entry points, more than 65,535 windows through K1), then drives the
+version on the card (K1 on both of its kernels: one thread-block cluster
+per window with the frame in the cluster's shared memory, and the band
+kernel of before, for the frames no cluster holds; K3 on its cluster
+kernel, with int16 and int32 counts; K4 and K5 on both of their routes: one
+8-CTA cluster per stream with the weights in shared memory, and one block
+per stream reading them from L2), times each pair in turns, old and new,
+beside an empty launch, checks the port's repaired
+faults (precision under PyTorch's default flags, an eval-mode forward under
+autograd, more events per window than K2's and K3's caps through their
+entry points, more than 65,535 windows through K1), then drives the
 port's paths through the entry points a user calls, each compared with its
 plain path on the card and each with the kernels' launch counts set to 0
 just before it and read just after:
 
 - serving: 256 windows x 5,000 raw events -> ``event_histogram_scaled_resized``
-  (K3) -> ``LSTMNetVIT`` with ``artifacts/pretrain_v_final.pth`` (its LSTM
+  (K3 on clusters) -> ``LSTMNetVIT`` with ``artifacts/pretrain_v_final.pth`` (its LSTM
   through K4 on the cluster route) -> velocity (256, 3), its rate timed
   against the L2 route in turns;
 - the fused rung of ``bench.py``: the same windows -> ``event_histogram_scaled``
   (K2) -> bilinear resize -> ``LSTMNetVIT`` (K4);
 - streaming: ``StreamingPipeline.step_events`` with the joint model
   ``OrigUNet_w_VITFLY_ViTLSTM`` and ``artifacts/policy_best.pth`` over 8
-  windows of 5,000 events, state carried: ``event_histogram`` (K1) ->
+  windows of 5,000 events, state carried: ``event_histogram`` (K1 on
+  clusters) ->
   97th-percentile scale -> OrigUNet with its ConvLSTM -> LSTMNetVIT through
-  K4 (mode "stacked") or K5 (mode "wavefront"), on each route;
+  K4 (mode "stacked") or K5 (mode "wavefront"), on each route, and once
+  with K1's band kernel;
 - batched streaming: ``BatchedStreamingPipeline`` with 16 streams over 4
   steps, some streams reset before the third, against 16 single streams.
 
@@ -58,7 +64,7 @@ from evfly_tpu_torch.models.port import load_state_dict
 from evfly_tpu_torch.models.recurrent import set_fused_lstm
 from evfly_tpu_torch.models.vitfly import LSTMNetVIT
 from evfly_tpu_torch.precision import get_precision, set_precision
-from evfly_tpu_torch.ops import _build, lstm_fused
+from evfly_tpu_torch.ops import _build, lstm_fused, voxelizer
 from evfly_tpu_torch.ops.imageops import interpolate_bilinear
 from evfly_tpu_torch.ops.lstm_fused import (
     choose_route,
@@ -75,23 +81,34 @@ from evfly_tpu_torch.ops.lstm_fused import (
     pack,
 )
 from evfly_tpu_torch.ops.voxelizer import (
+    K1_CLUSTER,
+    K3_CLUSTER,
+    _frame_cluster_launch,
+    _resized_cluster_launch,
     bin_events,
     event_histogram_scaled,
     event_histogram_scaled_resized,
+    frame_cluster_fits,
     hist_frame,
+    hist_frame_cluster,
     hist_frame_plain,
+    hist_frame_routed,
     hist_scaled,
     hist_scaled_plain,
     hist_scaled_resized,
     hist_scaled_resized_plain,
     hist_scaled_resized_routed,
     hist_scaled_routed,
+    resized_cluster_cap,
+    resized_cluster_smem,
+    resized_packed,
     scale_counts,
     scale_counts_plain,
     scale_counts_resized,
     scale_counts_resized_plain,
     scaled_route,
 )
+from evfly_tpu_torch.ops.voxelizer import cluster_occupancy as vox_cluster_occupancy
 from evfly_tpu_torch.stream import BatchedStreamingPipeline, StreamingPipeline
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -107,7 +124,15 @@ N_WINDOWS, N_EVENTS = 256, 5000         # the JAX benchmark's serving step
 SPARSE_EVENTS = 80                      # a window whose 97th percentile is 0
 T, L, HID, IN = N_WINDOWS, 3, 128, 517  # LSTMNetVIT's LSTM over the windows
 BIG_EVENTS, HOT_EVENTS = 100_000, 40_000  # K1's window past any int16 count
-CAP_EVENTS, HOT = 40_000, 33_000        # past K2's and K3's 32,767 per window; on one pixel
+CAP_EVENTS, HOT = 1_500_000, 33_000    # past K2's and K3's caps per window; on one pixel
+# windows K3 takes and its one-block kernel of before did not: uniform; a count
+# past int16 on one pixel; half the events on a 20x20 patch (400 counts past
+# K3's dense table of 64)
+WIDE_EVENTS, K3_HOT_EVENTS, PATCH_EVENTS = 20_000, 40_000, 100_000
+# the most events K3's cluster kernel packs as int16 counts, 32,000 of them
+# on one pixel (+ in one window, - in the other)
+PACKED_EVENTS, PACKED_HOT = 32_767, 32_000
+K1_SWEEP, K3_SWEEP = (4, 8, 16), (2, 4, 8)   # cluster sizes timed
 MANY_WINDOWS, FEW_EVENTS, SMALL_H, SMALL_W = 70_000, 16, 64, 86  # past grid.y's 65,535
 # (G, T) of the K4 and K5 checks; (G, T) of their timings, in turns
 LSTM_CHECKS = ((1, N_WINDOWS), (1, 2), (1, 1), (16, N_WINDOWS), (16, 2), (16, 1))
@@ -187,6 +212,15 @@ def time_ms(fn, flush: L2Flush, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def in_turns(fns: dict, order, flush: L2Flush, reps: int = 20) -> dict:
+    """time_ms of each of ``fns`` (name -> call) in the turns of ``order``,
+    e.g. old, new, new, old: name -> its times, one per turn."""
+    times = {name: [] for name in fns}
+    for name in order:
+        times[name].append(time_ms(fns[name], flush, reps))
+    return times
+
+
 def bound_ms(n_bytes: float, n_flops: float):
     """Least time for the work: bytes over HBM rate vs f32 ops over peak."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
@@ -219,14 +253,18 @@ def phase_device():
 def _kernel_label(mangled: str) -> str:
     """A readable name for a mangled kernel name of ptxas's log."""
     name = next((n for n in ("lstm_cluster_kernel", "lstm_stacked_kernel",
-                             "lstm_wavefront_kernel", "hist_scaled_resized_kernel",
-                             "hist_scaled_kernel", "hist_frame_kernel", "scale_counts_kernel")
+                             "lstm_wavefront_kernel", "hist_scaled_resized_cluster_kernel",
+                             "hist_scaled_resized_kernel", "hist_scaled_kernel",
+                             "hist_frame_cluster_kernel", "hist_frame_kernel",
+                             "scale_counts_kernel", "empty_kernel")
                  if n in mangled), mangled)
     m = re.search(r"ILi(\d+)ELb([01])E", mangled)
     if m:
         name += f"<H={m.group(1)}, {'wavefront' if m.group(2) == '1' else 'stacked'}>"
     elif (m := re.search(r"scale_counts_kernelILb([01])E", mangled)):
         name += "<resize>" if m.group(1) == "1" else "<frame>"
+    elif (m := re.search(r"hist_scaled_resized_cluster_kernelILb([01])E", mangled)):
+        name += "<packed>" if m.group(1) == "1" else "<int32>"
     return name
 
 
@@ -243,46 +281,126 @@ def phase_build():
             log(f"  nvcc (-Xptxas -v) {kernel}: {line.strip()}")
 
 
+def _route_rules():
+    """The CPU copies of K1's and K3's cluster rules (ops/voxelizer.py)
+    against the library's (csrc/voxelizer.cu), on a grid of shapes."""
+    lib = _build.library()
+    shapes = [(h, w) for h in (1, 7, 64, 260, 480, 720) for w in (1, 86, 346, 640, 1280)]
+    differ = []
+    for (h, w) in shapes:
+        for cluster in (1, 2, 4, 8, 16):
+            for two_pass in (False, True):
+                if frame_cluster_fits(h, w, two_pass, cluster) != bool(
+                        lib.evfly_hist_frame_cluster_fits(h, w, int(two_pass), cluster)):
+                    differ.append(("K1", h, w, two_pass, cluster))
+            for ho, wo in ((60, 90), (1, 1), (h, w)):
+                if resized_cluster_cap(h, w, ho, wo, cluster) != \
+                        lib.evfly_hist_resized_cluster_cap(h, w, ho, wo, cluster):
+                    differ.append(("K3", h, w, ho, wo, cluster))
+    n_cases = len(shapes) * 5 * 5
+    log(f"cluster route rules: Python and csrc/voxelizer.cu agree on "
+        f"{n_cases - len(differ)} of {n_cases} cases; K3's cap at {H}x{W} -> {H_OUT}x{W_OUT}: "
+        f"{resized_cluster_cap(H, W, H_OUT, W_OUT)} events per window on {K3_CLUSTER} CTAs")
+    require(not differ, f"the cluster rules disagree with csrc/voxelizer.cu at {differ[:5]}")
+
+
 def phase_k3(dev, flush):
+    """K3 against its plain version (within K3_ATOL, q exactly equal): the
+    serving shape, the zero-quantile windows, and windows the one-block
+    kernel of before refused: WIDE_EVENTS; PACKED_EVENTS, the most with
+    int16 counts, one of them at +-32,000; K3_HOT_EVENTS with a count past
+    int16 (int32 counts); PATCH_EVENTS with hundreds of counts past its
+    dense table.  Timed at the serving shape and at one window; the cluster
+    size swept."""
+    _route_rules()
     ex, ey, ep = make_events(0, N_WINDOWS, N_EVENTS, dev)
-    out, q = hist_scaled_resized(ex, ey, ep, H, W, H_OUT, W_OUT)
-    ref, qref = hist_scaled_resized_plain(ex, ey, ep, H, W, H_OUT, W_OUT)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    q_bad = int((q != qref).sum().item())
-    log(f"K3 {N_WINDOWS}x{N_EVENTS} events: max|diff| {err:.3e} (atol {K3_ATOL}), "
-        f"q mismatches {q_bad}, q range [{q.min().item()}, {q.max().item()}]")
-    require(out.shape == (N_WINDOWS, H_OUT, W_OUT), f"K3 output shape {tuple(out.shape)}")
-    require(bool(torch.isfinite(out).all()), "K3 output not finite")
-    require(err <= K3_ATOL and q_bad == 0, "K3 disagrees with its plain version")
-
     sx, sy, sp = make_events(1, 2, SPARSE_EVENTS, dev)
-    s_out, s_q = hist_scaled_resized(sx, sy, sp, H, W, H_OUT, W_OUT)
-    s_ref, s_qref = hist_scaled_resized_plain(sx, sy, sp, H, W, H_OUT, W_OUT)
-    torch.cuda.synchronize()
-    s_err = (s_out - s_ref).abs().max().item()
-    log(f"K3 sparse {SPARSE_EVENTS} events: q {s_q.tolist()} (plain {s_qref.tolist()}), "
-        f"max|diff| {s_err:.3e}")
-    require(bool((s_q == 0).all()) and bool((s_qref == 0).all()), "zero-quantile snap missed")
-    require(s_err <= K3_ATOL, "K3 sparse window disagrees with its plain version")
+    wx, wy, wp = make_events(15, 2, WIDE_EVENTS, dev)
+    hx, hy, hp = make_events(16, 2, K3_HOT_EVENTS, dev)
+    hx[0, :HOT], hy[0, :HOT], hp[0, :HOT] = 100.5, 130.5, 1
+    px, py, pp = make_events(18, 2, PATCH_EVENTS, dev)
+    half = PATCH_EVENTS // 2
+    px[:, :half] = 150.0 + px[:, :half] * (20.0 / W)
+    py[:, :half] = 25.0 + py[:, :half] * (20.0 / H)  # across a band edge
+    pp[:, :half] = 1
+    kx, ky, kp = make_events(19, 2, PACKED_EVENTS, dev)
+    kx[:, :PACKED_HOT], ky[:, :PACKED_HOT] = 200.5, 129.5  # the last row of band 0
+    kp[0, :PACKED_HOT], kp[1, :PACKED_HOT] = 1, -1
+    out_hw = (H_OUT, W_OUT)
+    require(scaled_route(WIDE_EVENTS, H, W) == "k1"
+            and all(scaled_route(n, H, W, out_hw) == "cluster"
+                    for n in (WIDE_EVENTS, K3_HOT_EVENTS, PATCH_EVENTS, PACKED_EVENTS))
+            and resized_packed(PACKED_EVENTS) and not resized_packed(K3_HOT_EVENTS),
+            "the routes of the wide windows")
+    cases = [(f"{N_WINDOWS}x{N_EVENTS} events", (ex, ey, ep)),
+             (f"sparse {SPARSE_EVENTS} events", (sx, sy, sp)),
+             (f"2x{WIDE_EVENTS:,} events (past the one-block kernel's cap)", (wx, wy, wp)),
+             (f"2x{PACKED_EVENTS:,} events, {PACKED_HOT:,} of +-1 on one pixel (int16 counts)",
+              (kx, ky, kp)),
+             (f"2x{K3_HOT_EVENTS:,} events, {HOT:,} on one pixel (int32 counts)", (hx, hy, hp)),
+             (f"2x{PATCH_EVENTS:,} events, half on a 20x20 patch", (px, py, pp))]
+    max_err = 0.0
+    for label, events in cases:
+        ref, qref = hist_scaled_resized_plain(*events, H, W, H_OUT, W_OUT)
+        out, q = hist_scaled_resized(*events, H, W, H_OUT, W_OUT)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        q_bad = int((q != qref).sum().item())
+        max_err = max(max_err, err)
+        log(f"K3 {label}: max|diff| {err:.3e} (atol {K3_ATOL}), q mismatches "
+            f"{q_bad}, q range [{q.min().item()}, {q.max().item()}]")
+        require(out.shape == ref.shape, f"K3 output shape {tuple(out.shape)}")
+        require(bool(torch.isfinite(out).all()), "K3 output not finite")
+        require(err <= K3_ATOL and q_bad == 0, f"K3 disagrees with its plain version ({label})")
+        if label.startswith("sparse"):
+            require(bool((q == 0).all()) and bool((qref == 0).all()), "zero-quantile snap missed")
 
-    ms = time_ms(lambda: hist_scaled_resized(ex, ey, ep, H, W, H_OUT, W_OUT), flush, 20)
+    # the serving shape, and one window (the latency of a single request),
+    # each in two turns
+    ox, oy, op = (t[:1] for t in (ex, ey, ep))
+    turns = [time_ms(lambda: hist_scaled_resized(ex, ey, ep, H, W, H_OUT, W_OUT), flush, 20)
+             for _ in range(2)]
+    one = [time_ms(lambda: hist_scaled_resized(ox, oy, op, H, W, H_OUT, W_OUT), flush, 20)
+           for _ in range(2)]
     plain_ms = time_ms(lambda: hist_scaled_resized_plain(ex, ey, ep, H, W, H_OUT, W_OUT),
                        flush, 5)
+    out, q = hist_scaled_resized(ex, ey, ep, H, W, H_OUT, W_OUT)
     n_bytes = sum(t.numel() * t.element_size() for t in (ex, ey, ep, out, q))
     valid_events = N_WINDOWS * N_EVENTS
     # one add per event, |count| and its table entry per cell, and per output
     # 4 scalings + 6 resize flops
     n_flops = valid_events + 2 * N_WINDOWS * H * W + N_WINDOWS * H_OUT * W_OUT * 10
     b_ms, b_by = bound_ms(n_bytes, n_flops)
-    log(f"K3 times: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+    log(f"K3 times {N_WINDOWS}x{N_EVENTS}: {turns[0]:.4f} / {turns[1]:.4f} ms; plain "
+        f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); 1x{N_EVENTS}: {one[0]:.4f} / "
+        f"{one[1]:.4f} ms")
+
+    # the cluster size: each size against the plain version, its time, its
+    # shared memory per CTA and its clusters resident at once
+    ref, qref = hist_scaled_resized_plain(ex, ey, ep, H, W, H_OUT, W_OUT)
+    for cluster in K3_SWEEP:
+        got, gq = _resized_cluster_launch(ex, ey, ep, H, W, H_OUT, W_OUT, 0.2, 0.97, 18, False,
+                                          cluster)
+        torch.cuda.synchronize()
+        require(torch.equal(gq, qref) and (got - ref).abs().max().item() <= K3_ATOL,
+                f"K3 on {cluster} CTAs disagrees with its plain version")
+        ms = time_ms(lambda: _resized_cluster_launch(ex, ey, ep, H, W, H_OUT, W_OUT, 0.2, 0.97,
+                                                     18, False, cluster), flush, 20)
+        smem = resized_cluster_smem(N_EVENTS, H, W, H_OUT, W_OUT, cluster)
+        resident = vox_cluster_occupancy("k3", H, W, N_EVENTS, out_hw, cluster)
+        log(f"K3 cluster of {cluster} CTAs{' (K3_CLUSTER)' if cluster == K3_CLUSTER else ''}:"
+            f" {ms:.4f} ms at {N_WINDOWS}x{N_EVENTS}; {smem} bytes of dynamic shared memory "
+            f"per CTA; {resident} clusters resident at once; cap "
+            f"{resized_cluster_cap(H, W, H_OUT, W_OUT, cluster)} events per window")
+    return dict(bound_ms=b_ms, bound_by=b_by, library_ms=None, plain_ms=plain_ms,
+                max_abs_err=max_err, ms=statistics.mean(turns))
 
 
 def phase_k1(dev, flush):
-    """K1 exactly equal to its plain version; times at the streaming
-    path's shape, one window of 5,000 events."""
+    """K1's cluster kernel and its band kernel exactly equal to their plain
+    version in every case; old and new timed in turns at the streaming
+    path's shape (1 x 5,000) and the batch shape (256 x 5,000), beside the
+    empty-launch floor; the cluster size swept."""
     cases = []
     ex, ey, ep = make_events(10, 1, N_EVENTS, dev)
     cases.append(("5,000 uniform events", (ex, ey, ep), (0.2, 0.2)))
@@ -292,32 +410,66 @@ def phase_k1(dev, flush):
     cases.append((f"{BIG_EVENTS:,} events, {HOT_EVENTS:,} on one pixel", (bx, by, bp),
                   (0.2, 0.2)))
     cases.append((f"{BIG_EVENTS:,} events, two-pass", (bx, by, bp), (0.2, 0.3)))
-    err = 0.0
+    mx, my, mp = make_events(14, N_WINDOWS, N_EVENTS, dev)
+    cases.append((f"{N_WINDOWS} windows x {N_EVENTS:,} events", (mx, my, mp), (0.2, 0.2)))
+    # a window of 4,999 events: the slices of the windows after the first
+    # start off 16-byte alignment
+    ox, oy, op = make_events(17, 3, N_EVENTS - 1, dev)
+    cases.append((f"3 windows x {N_EVENTS - 1:,} events, two-pass", (ox, oy, op), (0.2, 0.3)))
+    errs = {"cluster": 0.0, "band": 0.0}
     for label, events, thresholds in cases:
-        got = hist_frame(*events, H, W, *thresholds)
         ref = hist_frame_plain(*events, H, W, *thresholds)
-        torch.cuda.synchronize()
-        bad = int((got != ref).sum().item())
-        err = max(err, (got - ref).abs().max().item())
-        log(f"K1 {label}: {bad} cells differ of {got.numel()}, max|frame| "
-            f"{got.abs().max().item():.1f}")
-        require(got.shape == (1, H, W) and bool(torch.isfinite(got).all()), "K1 output")
-        require(bad == 0, f"K1 disagrees with its plain version ({label})")
+        bad = {}
+        for route, kernel in (("cluster", hist_frame_cluster), ("band", hist_frame)):
+            got = kernel(*events, H, W, *thresholds)
+            torch.cuda.synchronize()
+            bad[route] = int((got != ref).sum().item())
+            errs[route] = max(errs[route], (got - ref).abs().max().item())
+            require(got.shape == ref.shape and bool(torch.isfinite(got).all()), "K1 output")
+        log(f"K1 {label}: cells that differ from plain, of {ref.numel()}: {bad}; max|frame| "
+            f"{ref.abs().max().item():.1f}")
+        require(not any(bad.values()), f"K1 disagrees with its plain version ({label})")
+
+    lib, stream = _build.library(), _build.stream_of(dev)
+    empty = {c: time_ms(lambda: _build.check("evfly_empty", lib.evfly_empty(c, stream)), flush,
+                        20) for c in (1, K1_CLUSTER)}
+    log(f"empty kernel, the floor of one launch: {empty[1]:.4f} ms (1 block), "
+        f"{empty[K1_CLUSTER]:.4f} ms (a cluster of {K1_CLUSTER} CTAs)")
+    results = {}
+    kernels = {"band": hist_frame, "cluster": hist_frame_cluster}
+    for B, (x_, y_, p_) in ((1, (ex, ey, ep)), (N_WINDOWS, (mx, my, mp))):
+        fns = {route: (lambda k=k: k(x_, y_, p_, H, W)) for route, k in kernels.items()}
+        turns = in_turns(fns, ("band", "cluster", "cluster", "band"), flush)
+        # each event read once (12 bytes), the frame written once; one add per
+        # event and one multiply per cell
+        b_ms, b_by = bound_ms(B * (12 * N_EVENTS + 4 * H * W), B * (N_EVENTS + H * W))
+        sweep = {c: time_ms(lambda: _frame_cluster_launch(x_, y_, p_, H, W, 0.2, 0.2, c),
+                            flush, 20) for c in K1_SWEEP}
+        for c in K1_SWEEP:
+            require(torch.equal(_frame_cluster_launch(x_, y_, p_, H, W, 0.2, 0.2, c),
+                                hist_frame_plain(x_, y_, p_, H, W)),
+                    f"K1 on {c} CTAs disagrees with its plain version")
+        log(f"K1 times {B} x {N_EVENTS} events, in turns band, cluster, cluster, band: band "
+            f"{turns['band'][0]:.4f} / {turns['band'][1]:.4f} ms, cluster "
+            f"{turns['cluster'][0]:.4f} / {turns['cluster'][1]:.4f} ms; bound {b_ms:.6f} ms "
+            f"({b_by}); cluster sizes: "
+            + ", ".join(f"{c} CTAs {t:.4f} ms" for c, t in sweep.items()))
+        results[B] = dict(turns=turns, bound_ms=b_ms, bound_by=b_by)
+    for kind in ("k1", "k1_two_pass"):
+        log(f"K1 cluster kernel ({kind}): {vox_cluster_occupancy(kind, H, W)} clusters of "
+            f"{K1_CLUSTER} CTAs resident at once")
 
     xi, yi, sign = bin_events(ex, ey, ep, H, W)
     idx = (yi * W + xi)[0]
-    ms = time_ms(lambda: hist_frame(ex, ey, ep, H, W), flush, 20)
     plain_ms = time_ms(lambda: hist_frame_plain(ex, ey, ep, H, W), flush, 10)
     library_ms = time_ms(lambda: torch.bincount(idx, weights=sign[0], minlength=H * W),
                          flush, 10)
-    # each event read once (12 bytes), the frame written once; one add per
-    # event and one multiply per cell
-    n_bytes = 12 * N_EVENTS + 4 * H * W
-    b_ms, b_by = bound_ms(n_bytes, N_EVENTS + H * W)
-    log(f"K1 times (1 x {N_EVENTS} events): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.bincount {library_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms)
+    log(f"K1 at 1 x {N_EVENTS}: plain {plain_ms:.4f} ms, torch.bincount {library_ms:.4f} ms")
+    one = results[1]
+    return {route: dict(max_abs_err=errs[route], ms=statistics.mean(one["turns"][route]),
+                        plain_ms=plain_ms, bound_ms=one["bound_ms"], bound_by=one["bound_by"],
+                        library_ms=library_ms)
+            for route in kernels}
 
 
 def phase_k2(dev, flush):
@@ -369,6 +521,19 @@ def _route_weights(packed, route):
     if route == "cluster":
         return packed.cluster, packed.bias
     return packed.whh_t, packed.wih_t, packed.bias
+
+
+@contextlib.contextmanager
+def forced_voxel_routes():
+    """K1 takes its band kernel where the shape would pick its cluster
+    kernel, for driving a path through it in this script; the port itself
+    always routes by shape."""
+    k1 = voxelizer.k1_route
+    voxelizer.k1_route = lambda h, w, two_pass: "band"
+    try:
+        yield
+    finally:
+        voxelizer.k1_route = k1
 
 
 @contextlib.contextmanager
@@ -656,15 +821,16 @@ def phase_streaming(dev, model):
             pipe = StreamingPipeline(model, fast_percentile=fast, device=dev)
             plain = StreamingPipeline(model, fast_percentile=fast, device=dev)
             set_fused_lstm(True)
-            hist_frame.launches = 0
+            hist_frame.launches = hist_frame_cluster.launches = 0
             for k in kernels:
                 k.launches = 0
             with forced_route(route):
                 outs = [pipe.step_events(*w) for w in windows]
                 torch.cuda.synchronize()
-            counts = {"K1": hist_frame.launches, key: kernel.launches}
+            counts = {"K1 cluster": hist_frame_cluster.launches, key: kernel.launches}
             require(all(n > 0 for n in counts.values()),
                     f"a kernel of the streaming path ({mode}, {route}) never launched")
+            require(hist_frame.launches == 0, "K1 did not take its cluster kernel")
             require(sum(k.launches for k in kernels) == kernel.launches,
                     f"the streaming path ({mode}, {route}) ran another LSTM kernel")
             if not fast:
@@ -686,6 +852,26 @@ def phase_streaming(dev, model):
                         for v, d in outs), "streaming output not finite")
             require(max(verr, derr, herr, cerr) <= VEL_ATOL,
                     f"streaming path ({mode}, {route}, fast={fast}) disagrees with the plain path")
+    # once more with K1's band kernel: its launches, the outputs as the
+    # cluster kernel's (the frames are the same bit for bit)
+    lstm.mode = "stacked"
+    pipe = StreamingPipeline(model, fast_percentile=True, device=dev)
+    banded = StreamingPipeline(model, fast_percentile=True, device=dev)
+    hist_frame.launches = hist_frame_cluster.launches = 0
+    outs = [pipe.step_events(*w) for w in windows]
+    n_cluster = hist_frame_cluster.launches
+    with forced_voxel_routes():
+        outs_band = [banded.step_events(*w) for w in windows]
+    torch.cuda.synchronize()
+    launches["K1 band"] = hist_frame.launches
+    berr = max((a - b).abs().max().item()
+               for o, ob in zip(outs, outs_band) for a, b in zip(o, ob))
+    log(f"streaming with K1's band kernel: {hist_frame.launches} launches (cluster kernel "
+        f"{n_cluster} in the run beside it); velocity and depth max|diff| vs the cluster "
+        f"kernel's {berr:.3e}")
+    require(hist_frame.launches > 0 and n_cluster == hist_frame.launches,
+            "K1's band kernel did not run")
+    require(berr <= VEL_ATOL, "the streaming path through K1's band kernel disagrees")
     lstm.mode = None
     return launches, windows
 
@@ -800,7 +986,7 @@ def phase_card_numbers(dev, model, windows, smi):
     return numbers
 
 
-_SERVING_KERNELS = {"K3": "hist_scaled_resized_kernel", "K4": "lstm_cluster_kernel"}
+_SERVING_KERNELS = {"K3": "hist_scaled_resized_cluster_kernel", "K4": "lstm_cluster_kernel"}
 
 
 def phase_profile(step, kernel_names=_SERVING_KERNELS, label="main-path"):
@@ -946,11 +1132,14 @@ def phase_event_cap(dev, flush):
     ``scale_counts_resized``: the quantile equal to the plain version's,
     the frames within 2e-5 and 3e-5; each of the two kernels held against
     its plain version on K1's counts and timed."""
-    require(scaled_route(CAP_EVENTS, H, W) == "k1", "the route of CAP_EVENTS events")
+    require(scaled_route(CAP_EVENTS, H, W) == "k1"
+            and scaled_route(CAP_EVENTS, H, W, (H_OUT, W_OUT)) == "k1",
+            "the route of CAP_EVENTS events")
     ex, ey, ep = make_events(12, 2, CAP_EVENTS, dev)
     # window 1: a count past int16 on one pixel (and a zero quantile)
     ex[1, :HOT], ey[1, :HOT], ep[1, :HOT] = 100.5, 130.5, 1
-    kernels = (hist_frame, hist_scaled, hist_scaled_resized, scale_counts, scale_counts_resized)
+    kernels = (hist_frame_cluster, hist_frame, hist_scaled, hist_scaled_resized,
+               scale_counts, scale_counts_resized)
     for k in kernels:
         k.launches = 0
     frame, q = hist_scaled_routed(ex, ey, ep, H, W)
@@ -958,8 +1147,8 @@ def phase_event_cap(dev, flush):
     public = event_histogram_scaled(ex, ey, ep, H, W, device=dev)
     public_small = event_histogram_scaled_resized(ex, ey, ep, H, W, H_OUT, W_OUT, device=dev)
     torch.cuda.synchronize()
-    counts = dict(zip(("K1", "K2", "K3", "scale_counts", "scale_counts_resized"),
-                      (k.launches for k in kernels)))
+    counts = dict(zip(("K1 cluster", "K1 band", "K2", "K3", "scale_counts",
+                       "scale_counts_resized"), (k.launches for k in kernels)))
     ref, qref = hist_scaled_plain(ex, ey, ep, H, W)
     sref, qsref = hist_scaled_resized_plain(ex, ey, ep, H, W, H_OUT, W_OUT)
     torch.cuda.synchronize()
@@ -968,7 +1157,8 @@ def phase_event_cap(dev, flush):
     log(f"{CAP_EVENTS:,} events per window through event_histogram_scaled(_resized): "
         f"launches {counts}; q {q.tolist()} (plain {qref.tolist()}), {q_bad} mismatches; "
         f"frame max|diff| {err:.3e} (atol {K2_ATOL}), resized {serr:.3e} (atol {K3_ATOL})")
-    require(counts == {"K1": 4, "K2": 0, "K3": 0, "scale_counts": 2, "scale_counts_resized": 2},
+    require(counts == {"K1 cluster": 4, "K1 band": 0, "K2": 0, "K3": 0,
+                       "scale_counts": 2, "scale_counts_resized": 2},
             "the over-cap batches did not take K1 and the scale kernels")
     require(q_bad == 0 and err <= K2_ATOL and serr <= K3_ATOL,
             "the K1 route disagrees with the plain version")
@@ -976,7 +1166,7 @@ def phase_event_cap(dev, flush):
             "the entry points disagree with their routes")
 
     # each kernel on K1's counts against its plain version, and its times
-    cnt = hist_frame(ex, ey, ep, H, W, 1.0, 1.0)
+    cnt = hist_frame_routed(ex, ey, ep, H, W, 1.0, 1.0)
     B, HW, HWo = cnt.shape[0], H * W, H_OUT * W_OUT
     entries = {}
     for name, kernel, plain, atol, extra, n_out, per_out in (
@@ -1008,17 +1198,24 @@ def phase_event_cap(dev, flush):
 
 def phase_many_windows(dev):
     """Fault 4: K1 with MANY_WINDOWS windows, more than grid.y's 65,535,
-    of FEW_EVENTS events at SMALL_H x SMALL_W: exactly equal to plain."""
+    of FEW_EVENTS events at SMALL_H x SMALL_W, through the entry's route
+    (the cluster kernel, windows x 8 CTAs on grid.x) and the band kernel:
+    exactly equal to plain."""
     ex, ey, ep = make_events(13, MANY_WINDOWS, FEW_EVENTS, dev, SMALL_H, SMALL_W)
-    got = hist_frame(ex, ey, ep, SMALL_H, SMALL_W)
-    torch.cuda.synchronize()
     ref = hist_frame_plain(ex, ey, ep, SMALL_H, SMALL_W)
-    bad = int((got != ref).sum().item())
-    log(f"K1 with {MANY_WINDOWS:,} windows of {FEW_EVENTS} events at {SMALL_H}x{SMALL_W} "
-        f"({got.numel() * 4 / 1e9:.2f} GB of frames): {bad} cells differ from plain")
-    require(got.shape == (MANY_WINDOWS, SMALL_H, SMALL_W) and bad == 0,
-            "K1 disagrees with its plain version past 65,535 windows")
-    del got, ref
+    hist_frame_cluster.launches = 0
+    for name, kernel in (("routed", hist_frame_routed), ("band", hist_frame)):
+        got = kernel(ex, ey, ep, SMALL_H, SMALL_W)
+        torch.cuda.synchronize()
+        bad = int((got != ref).sum().item())
+        log(f"K1 ({name}) with {MANY_WINDOWS:,} windows of {FEW_EVENTS} events at "
+            f"{SMALL_H}x{SMALL_W} ({got.numel() * 4 / 1e9:.2f} GB of frames): {bad} cells "
+            f"differ from plain")
+        require(got.shape == (MANY_WINDOWS, SMALL_H, SMALL_W) and bad == 0,
+                f"K1 ({name}) disagrees with its plain version past 65,535 windows")
+        del got
+    require(hist_frame_cluster.launches == 1, "the routed K1 did not take its cluster kernel")
+    del ref
     torch.cuda.empty_cache()
 
 
@@ -1079,7 +1276,8 @@ def main() -> int:
     with Phase("streaming profile"):
         pipe = StreamingPipeline(model, fast_percentile=True, device=dev)
         phase_profile(lambda: pipe.step_events(*windows[0]),
-                      {"K1": "hist_frame_kernel", "K4": "lstm_cluster_kernel"}, "streaming")
+                      {"K1": "hist_frame_cluster_kernel", "K4": "lstm_cluster_kernel"},
+                      "streaming")
     with Phase(f"batched profile, {STREAMS} streams"):
         bpipe = BatchedStreamingPipeline(model, STREAMS, fast_percentile=True, device=dev)
         bframes = sparse_frames(6, (STREAMS, H, W), dev)
@@ -1105,12 +1303,14 @@ def main() -> int:
 
     vox, lstm_src = "evfly_tpu_torch/csrc/voxelizer.cu", "evfly_tpu_torch/csrc/lstm.cu"
     kernels = [
-        entry("hist_frame (K1)", vox, "evfly_tpu/ops/voxelizer.py:153",
-              stream_launches["K1"], **k1),
+        entry("hist_frame_cluster (K1, cluster kernel)", vox, "evfly_tpu/ops/voxelizer.py:153",
+              stream_launches["K1 cluster"], **k1["cluster"]),
+        entry("hist_frame (K1, band kernel)", vox, "evfly_tpu/ops/voxelizer.py:153",
+              stream_launches["K1 band"], **k1["band"]),
         entry("hist_scaled (K2)", vox, "evfly_tpu/ops/voxelizer.py:251", rung_launches["K2"],
               **k2),
-        entry("hist_scaled_resized (K3)", vox, "evfly_tpu/ops/voxelizer.py:405",
-              launches["K3"], **k3),
+        entry("hist_scaled_resized (K3, cluster kernel)", vox,
+              "evfly_tpu/ops/voxelizer.py:405", launches["K3"], **k3),
         entry("scale_counts (K2's function over K1's counts)", vox,
               "evfly_tpu/ops/voxelizer.py:251", cap_launches["scale_counts"],
               **cap["scale_counts"]),

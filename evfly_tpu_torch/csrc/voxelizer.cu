@@ -19,51 +19,110 @@
 // write the frame (K1, K2) or the small input (K3); the arithmetic is a few
 // operations per event and per frame cell.  The TPU kernels turned the
 // scatter into one-hot matmuls for the MXU; here the scatter is what the
-// hardware does well (shared-memory atomics).
+// hardware does well (shared-memory atomics).  At the repo's shapes a window
+// is a few microseconds of work, so what a design must avoid is serial
+// memory latency and one SM doing a window's work alone.
 //
-// K1 takes any number of events per window, so its counts are int32, and a
-// 260x346 int32 frame (352 KiB) is larger than the 227 KB a block may use.
-// The frame is cut into bands of rows: one block per (window, band), with
-// windows on grid.x (up to 2^31 - 1 of them; grid.y stops at 65,535) and
-// bands on grid.y.  Each block reads all of the window's events, counts
-// those that fall in its band in shared memory and writes its band.  For the streaming path's
-// single window this also puts a dozen SMs to work instead of one.  Counts
-// are exact integers; the thresholds are applied with round-to-nearest
-// multiplies and subtract (no FMA contraction), as the JAX package does in
-// f32, so the frame is bit for bit the JAX one.
+// The cluster kernels (K1 `hist_frame_cluster_kernel`, K3
+// `hist_scaled_resized_cluster_kernel`): one thread-block cluster of C
+// CTAs per window (the wrappers' K1_CLUSTER = 8, K3_CLUSTER = 2), windows x
+// C CTAs on grid.x.  The window's count frame is cut into C bands of
+// ceil(H / C) rows, CTA r holding rows [r * rows, (r + 1) * rows) in its
+// shared memory, so the cluster's distributed shared memory holds the whole
+// frame (352 KiB of int32 at 260x346).  Each CTA reads 1/C of the window's
+// events once, with 16-byte loads (its first group issued before it zeroes
+// its band), bins each with `bin_event` and adds its sign into the owning CTA's
+// band (a shared-memory atomic, or a reduction into the owner's shared
+// memory: the counts are integers, so any order gives the same frame).  A
+// cluster barrier before the events (every band zeroed) and one after them
+// (every event counted) order the adds.  Then:
 //
-// K2 and K3 need the whole frame in one block for the quantile:
+//   * K1 writes each band with 16-byte stores.  The band starts in shared
+//     memory at the word offset (`lead`) that its first cell has modulo 4 in
+//     the output, so an aligned group of four cells is one int4 in shared
+//     memory and one float4 in global memory.
+//   * K3 copies the next band's first row (the second tap row of its last
+//     output rows) through distributed shared memory, and scans its band
+//     for the count-of-counts of |count|: below kSmall from three sums per
+//     thread taken without a branch (#(|count| > 0), sum |count|, sum
+//     |count|^2; most cells are 0, 1 or 2, and the scan is bound by the SM's
+//     integer issue rate, so what counts is instructions per cell), below
+//     kTable, from kTable on into a list (at most N / kTable cells reach
+//     it), each added into every CTA's table and list, with its max, by
+//     atomics in distributed shared memory.  After a third barrier no CTA
+//     touches another's shared memory, so none waits for the others again:
+//     each prefix-sums its table and runs the 18-step bisection in one
+//     warp: #(|count| <= mid) == CDF[floor(mid)], and where the table's CDF
+//     reaches kth the test CDF[m] < kth is m < v for the least v whose CDF
+//     does, so no step reads memory; the quantile is the plain version's
+//     bit for bit.  It writes the output rows whose first tap row lies in
+//     its band, the taps' indices held as ints.  Up to kMaxPacked (32,767)
+//     events per window its band holds two int16 counts a word
+//     (`Band<true>`, 94 KB a CTA at 260x346 on 2 CTAs), so two CTAs of 512
+//     threads share an SM and twice as many windows run at once as with
+//     int32 counts (`Band<false>`, one CTA of 1,024 threads per SM), which
+//     take the windows above.  The cap
+//     is what the band, the taps, the row and the list leave of a block's
+//     shared memory (`resized_cluster_cap`: 763,135 events at 260x346 on 2
+//     CTAs).
+//
+// Frames that no cluster of K1 holds keep K1's band kernel
+// (`hist_frame_kernel`), chosen by the wrappers by shape.
+//
+// K1's band kernel: the frame cut into bands of rows of 32 KiB, one block
+// per (window, band), windows on grid.x (up to 2^31 - 1 of them; grid.y
+// stops at 65,535) and bands on grid.y.  Each block reads all of the
+// window's events, counts those that fall in its band in shared memory and
+// writes its band.  Counts are exact integers; the thresholds are applied
+// with round-to-nearest multiplies and subtract (no FMA contraction), as the
+// JAX package does in f32, so the frame is bit for bit the JAX one (in
+// both K1 kernels).
+//
+// K2 holds the whole frame in one block:
 //
 //   * one block per window; the full frame never leaves shared memory.  Two
 //     int16 counts share one int32 word.  atomicAdd on the word with +-1 or
 //     +-65536 keeps word == hi * 65536 + lo exactly while |hi|, |lo| <=
 //     32767, which the wrappers guarantee (events per window).
 //   * the quantile comes from a count-of-counts table over |count| in
-//     shared memory, prefix-summed once.  Because |count| is an integer,
-//     #(|count| <= mid) == CDF[floor(mid)], so each bisection step is O(1)
-//     and gives bit for bit the same result as the TPU's masked counts.
-//   * K2 writes the clipped frame; K3 reads its <= 2x2 resize taps straight
-//     from the packed frame.
+//     shared memory, prefix-summed once, with the same O(1) bisection.
+//   * it writes the clipped frame.
 //
-// A window that K2 and K3 cannot take (more than 32,767 events, or a frame
-// and count table past 227 KB) gets their function in two launches: K1's
-// counts (thresholds 1: exact integers in f32), then scale_counts_kernel,
-// one block per window, which reads the count frame from global memory
-// (L2) and runs the plain version's bisection on it: on [0, max |count|],
-// `iters` halvings, each counting #(|count| <= mid) over the whole frame,
-// and the same zero snap, so the quantile is the plain version's bit for
-// bit.  It then writes the clipped frame (K2's function) or the resized
-// input from K3's taps (K3's function).
+// A window that K2 and K3 cannot take (more than their caps) gets their
+// function in two launches: K1's counts (thresholds 1: exact integers in
+// f32), then scale_counts_kernel, one block per window, which reads the
+// count frame from global memory (L2) and runs the plain version's
+// bisection on it: on [0, max |count|], `iters` halvings, each counting
+// #(|count| <= mid) over the whole frame, and the same zero snap, so the
+// quantile is the plain version's bit for bit.  It then writes the clipped
+// frame (K2's function) or the resized input from K3's taps (K3's function).
 //
-// Each C entry point returns cudaGetLastError() after its launch.
+// Every kernel's shared-memory attributes are set once per device, for the
+// largest size a wrapper gives it.  Each C entry point returns
+// cudaGetLastError() after its launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreads = 1024;
 constexpr int kBandThreads = 512;
+constexpr int kFrameThreads = 512;     // K1's cluster kernel, a CTA
+constexpr int kResizedThreads = 1024;  // K3's, int32 counts (one CTA per SM)
+constexpr int kPackedThreads = 512;    // K3's, two int16 counts a word (two CTAs per SM)
+constexpr int kMaxPacked = 32767;      // K3 packs its counts up to this many events
+constexpr int kMaxCluster = 16;  // above 8 CTAs a cluster is non-portable
+constexpr int kSmall = 4;        // K3: |count| below this is counted in registers,
+constexpr int kTable = 64;       //     below this in a dense table, from it on in a list
+// a block may opt in to 227 KB (232,448 bytes) of shared memory; keep 1 KiB
+// for the kernels' static shared variables
+constexpr int kSmemLimit = 232448 - 1024;
 
 // np.histogram2d binning: the flat cell of an event, or -1 when it is
 // dropped (outside [0, W] x [0, H], NaN, or pol == 0); *sign gets +-1.
@@ -135,6 +194,12 @@ __device__ __forceinline__ int decode_count(const int* words, int idx) {
 __device__ __forceinline__ float scaled_count(const int* words, int idx, float scale) {
   return fminf(fmaxf(__fmul_rn(static_cast<float>(decode_count(words, idx)), scale), -1.f),
                1.f);
+}
+
+// c as a float, exactly, for |c| < 2^22 (every count of a window the
+// kernels take), by the FP32 pipe: 1.5 * 2^23 + c has ulp 1
+__device__ __forceinline__ float count_to_float(int c) {
+  return __fsub_rn(__int_as_float(0x4B400000 + c), 12582912.f);
 }
 
 __device__ __forceinline__ int warp_sum(int v) {
@@ -262,40 +327,6 @@ hist_scaled_kernel(const float* __restrict__ x, const float* __restrict__ y,
   for (int i = threadIdx.x; i < H * W; i += blockDim.x) ob[i] = scaled_count(words, i, scale);
 }
 
-__global__ void __launch_bounds__(kThreads)
-hist_scaled_resized_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                           const int* __restrict__ pol, const float* __restrict__ taps,
-                           float* __restrict__ out, float* __restrict__ qout,
-                           int N, int H, int W, int h_out, int w_out, int kth,
-                           float thresh, int iters, int table_len) {
-  extern __shared__ int smem[];
-  int* words = smem;
-  int* table = smem + (H * W + 1) / 2;
-  const int b = blockIdx.x;
-  const float scale = packed_frame_and_scale(x, y, pol, qout, words, table, b, N, H, W, kth,
-                                             thresh, iters, table_len);
-
-  // 5. bilinear resize from the <= 2x2 taps; taps rows are (i0, i1, w0, w1)
-  const float* th = taps;
-  const float* tw = taps + 4 * h_out;
-  float* ob = out + static_cast<size_t>(b) * h_out * w_out;
-  for (int o = threadIdx.x; o < h_out * w_out; o += blockDim.x) {
-    const int i = o / w_out, j = o - i * w_out;
-    const int h0 = static_cast<int>(th[4 * i]), h1 = static_cast<int>(th[4 * i + 1]);
-    const float a0 = th[4 * i + 2], a1 = th[4 * i + 3];
-    const int c0 = static_cast<int>(tw[4 * j]), c1 = static_cast<int>(tw[4 * j + 1]);
-    const float b0 = tw[4 * j + 2], b1 = tw[4 * j + 3];
-    const float s00 = scaled_count(words, h0 * W + c0, scale);
-    const float s10 = scaled_count(words, h1 * W + c0, scale);
-    const float s01 = scaled_count(words, h0 * W + c1, scale);
-    const float s11 = scaled_count(words, h1 * W + c1, scale);
-    // rows first, then columns: the order of the TPU kernel's two matmuls
-    const float t0 = a0 * s00 + a1 * s10;
-    const float t1 = a0 * s01 + a1 * s11;
-    ob[o] = t0 * b0 + t1 * b1;
-  }
-}
-
 // ------------------------------------------- K2 and K3 over K1's counts
 
 __device__ __forceinline__ float clip_scaled(float count, float scale) {
@@ -384,10 +415,585 @@ scale_counts_kernel(const float* __restrict__ counts, const float* __restrict__ 
   }
 }
 
+// ------------------------------------------------ K1 and K3 on clusters
+
+__host__ __device__ __forceinline__ int round_up4(int n) { return (n + 3) & ~3; }
+
+// rows of the frame in each CTA's band
+__host__ __device__ __forceinline__ int band_rows(int H, int cluster) {
+  return (H + cluster - 1) / cluster;
+}
+
+// ints of one band array: its cells, 3 words for K1's `lead`, whole int4s
+__host__ __device__ __forceinline__ int band_ints(int H, int W, int cluster) {
+  return round_up4(band_rows(H, cluster) * W + 3);
+}
+
+bool cluster_size_ok(int cluster) { return cluster >= 1 && cluster <= kMaxCluster; }
+
+size_t frame_cluster_smem(int H, int W, int two_pass, int cluster) {
+  return static_cast<size_t>((two_pass ? 2 : 1) * band_ints(H, W, cluster)) * sizeof(int);
+}
+
+// entries of a list of the |count| >= kTable of a window of N events: at
+// most N / kTable cells reach kTable
+__host__ __device__ __forceinline__ int large_capacity(int N) {
+  return round_up4(N / kTable + 1);
+}
+
+// K3's band holds two int16 counts in each word while a window has at most
+// kMaxPacked events (no count passes int16), else one int32 count a word
+__host__ __device__ __forceinline__ bool resized_packed(int N) { return N <= kMaxPacked; }
+
+// words of K3's band array (whole int4s) and of its copy of the next band's
+// first row
+__host__ __device__ __forceinline__ int resized_band_words(int H, int W, int cluster,
+                                                           bool packed) {
+  return packed ? round_up4((band_rows(H, cluster) * W + 1) / 2) : band_ints(H, W, cluster);
+}
+
+__host__ __device__ __forceinline__ int resized_halo_words(int W, bool packed) {
+  return packed ? (W + 1) / 2 : W;
+}
+
+// the band, the window's list of large |count|, the taps of an (h_out,
+// w_out) output and a copy of the next band's first row
+size_t resized_cluster_smem(int H, int W, int N, int h_out, int w_out, int cluster) {
+  const bool packed = resized_packed(N);
+  return static_cast<size_t>(resized_band_words(H, W, cluster, packed) + large_capacity(N) +
+                             4 * (h_out + w_out) + resized_halo_words(W, packed)) *
+         sizeof(int);
+}
+
+bool frame_cluster_fits(int H, int W, int two_pass, int cluster) {
+  return H >= 1 && W >= 1 && cluster_size_ok(cluster) &&
+         frame_cluster_smem(H, W, two_pass, cluster) <= static_cast<size_t>(kSmemLimit);
+}
+
+// K3's cap: the most events per window whose list fits beside the band,
+// the taps and the row, or -1 where not even a list of 4 does.  Up to
+// kMaxPacked events the band is packed, so the cap is the int32 band's
+// where that passes kMaxPacked, else the packed band's (at most kMaxPacked)
+int resized_cluster_cap(int H, int W, int h_out, int w_out, int cluster) {
+  if (H < 1 || W < 1 || h_out < 1 || w_out < 1 || !cluster_size_ok(cluster)) return -1;
+  auto cap_of = [&](bool packed) {
+    const int left = kSmemLimit / static_cast<int>(sizeof(int)) -
+                     resized_band_words(H, W, cluster, packed) - 4 * (h_out + w_out) -
+                     resized_halo_words(W, packed);
+    const int list = left & ~3;  // the list's entries; N / kTable + 1 <= list
+    return list >= 4 ? list * kTable - 1 : -1;
+  };
+  const int wide = cap_of(false);
+  if (wide > kMaxPacked) return wide;
+  const int narrow = cap_of(true);
+  return narrow < kMaxPacked ? narrow : kMaxPacked;
+}
+
+// CTA `rank`'s slice [e0, e1) of a window's N events, a multiple of 4
+// events long so that every slice has the alignment of the first, as the
+// block reads it: one by one up to v0, then `groups` groups of four as
+// 16-byte loads (wherever x, y and pol share their alignment), then one by
+// one to e1
+struct EventSlice {
+  int e0, e1, v0, groups;
+};
+
+__device__ __forceinline__ EventSlice event_slice(const float* x, const float* y,
+                                                  const int* pol, int N, int cluster,
+                                                  int rank) {
+  EventSlice s;
+  const int per = round_up4((N + cluster - 1) / cluster);
+  s.e0 = min(N, rank * per);
+  s.e1 = min(N, s.e0 + per);
+  const uintptr_t ax = reinterpret_cast<uintptr_t>(x + s.e0);
+  const uintptr_t ay = reinterpret_cast<uintptr_t>(y + s.e0);
+  const uintptr_t ap = reinterpret_cast<uintptr_t>(pol + s.e0);
+  int head = s.e1 - s.e0;  // all of them one by one, unless the three share alignment
+  if (((ax ^ ay) | (ax ^ ap)) % 16 == 0) {
+    head = min(head, static_cast<int>((16 - ax % 16) % 16 / 4));
+  }
+  s.v0 = s.e0 + head;
+  s.groups = (s.e1 - s.v0) / 4;
+  return s;
+}
+
+struct EventGroup {
+  float4 x, y;
+  int4 p;
+};
+
+__device__ __forceinline__ EventGroup load_group(const float* __restrict__ x,
+                                                 const float* __restrict__ y,
+                                                 const int* __restrict__ pol,
+                                                 const EventSlice& s, int g) {
+  EventGroup v;
+  v.x = __ldg(reinterpret_cast<const float4*>(x + s.v0) + g);
+  v.y = __ldg(reinterpret_cast<const float4*>(y + s.v0) + g);
+  v.p = __ldg(reinterpret_cast<const int4*>(pol + s.v0) + g);
+  return v;
+}
+
+// group g of the slice on its way to L2, for a load that comes later
+__device__ __forceinline__ void prefetch_group(const float* x, const float* y, const int* pol,
+                                               const EventSlice& s, int g) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(x + s.v0 + 4 * g));
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(y + s.v0 + 4 * g));
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(pol + s.v0 + 4 * g));
+}
+
+template <typename Fn>
+__device__ __forceinline__ void bin_group(const EventGroup& v, Fn& fn) {
+  fn(v.x.x, v.y.x, v.p.x);
+  fn(v.x.y, v.y.y, v.p.y);
+  fn(v.x.z, v.y.z, v.p.z);
+  fn(v.x.w, v.y.w, v.p.w);
+}
+
+// fn(x, y, pol) for every event of the slice, spread over the block;
+// `first` is group threadIdx.x, loaded by the caller ahead of time (the
+// kernels issue it before they zero shared memory and wait at the first
+// cluster barrier, so its latency overlaps both)
+template <typename Fn>
+__device__ __forceinline__ void for_each_event(const float* __restrict__ x,
+                                               const float* __restrict__ y,
+                                               const int* __restrict__ pol,
+                                               const EventSlice& s, const EventGroup& first,
+                                               Fn fn) {
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  for (int e = s.e0 + tid; e < s.v0; e += nthreads) fn(x[e], y[e], pol[e]);
+  if (tid < s.groups) bin_group(first, fn);
+  for (int g = tid + nthreads; g < s.groups; g += nthreads) {
+    const EventGroup v = load_group(x, y, pol, s, g);
+    bin_group(v, fn);
+  }
+  for (int e = s.v0 + 4 * s.groups + tid; e < s.e1; e += nthreads) fn(x[e], y[e], pol[e]);
+}
+
+// adds v to the int at `offset` of CTA `owner`'s shared array `base`: a
+// shared-memory atomic, in this CTA's shared memory or another's (ordered
+// by the next cluster barrier)
+__device__ __forceinline__ void add_to(int* base, int offset, int owner, int rank, int v) {
+  if (owner == rank) {
+    atomicAdd(base + offset, v);
+  } else {
+    atomicAdd(cg::this_cluster().map_shared_rank(base + offset, owner), v);
+  }
+}
+
+__global__ void __launch_bounds__(kFrameThreads)
+hist_frame_cluster_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                          const int* __restrict__ pol, float* __restrict__ out, int N, int H,
+                          int W, float pos_thresh, float neg_thresh, int two_pass) {
+  // one band array, or pos then neg counts; cell i of CTA r's band at
+  // lead(r) + i, lead(r) being the output's word offset of that cell mod 4
+  extern __shared__ int4 smem4[];
+  int* band = reinterpret_cast<int*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / C;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int rows = band_rows(H, C), stride = band_ints(H, W, C);
+  const int band_cells = rows * W;
+  const size_t frame0 = static_cast<size_t>(b) * H * W;
+  const size_t out_word = reinterpret_cast<uintptr_t>(out) / sizeof(float);
+  auto lead_of = [&](int r) {
+    return static_cast<int>((out_word + frame0 + static_cast<size_t>(r) * band_cells) & 3);
+  };
+
+  // 1. this thread's first group of events in flight; zero the band(s);
+  //    no event lands before every band is zero
+  const size_t ev0 = static_cast<size_t>(b) * N;
+  const EventSlice slice = event_slice(x + ev0, y + ev0, pol + ev0, N, C, rank);
+  EventGroup first = {};
+  if (tid < slice.groups) first = load_group(x + ev0, y + ev0, pol + ev0, slice, tid);
+  const int n4 = (two_pass ? 2 : 1) * stride / 4;
+  for (int i = tid; i < n4; i += nthreads) smem4[i] = make_int4(0, 0, 0, 0);
+  cluster.sync();
+
+  // 2. this CTA's slice of the events into their owners' bands
+  for_each_event(x + ev0, y + ev0, pol + ev0, slice, first, [&](float xf, float yf, int p) {
+    int s = 0;
+    const int idx = bin_event(xf, yf, p, H, W, &s);
+    if (idx < 0) return;
+    const int owner = idx / band_cells;
+    const int offset = lead_of(owner) + idx - owner * band_cells;
+    if (two_pass) {
+      add_to(band, s > 0 ? offset : stride + offset, owner, rank, 1);
+    } else {
+      add_to(band, offset, owner, rank, s);
+    }
+  });
+  cluster.sync();  // every event counted; no CTA adds into another's band after this
+
+  // 3. the band, thresholds applied, to out: word s of the band array is
+  //    word s of `dst`, which is 16-byte aligned
+  const int row0 = rank * rows;
+  const int cells = max(0, min(rows, H - row0)) * W;
+  const int lead = lead_of(rank);
+  float* dst = out + frame0 + static_cast<size_t>(row0) * W - lead;
+  auto value = [&](int s) {
+    if (two_pass) {
+      return __fsub_rn(__fmul_rn(pos_thresh, static_cast<float>(band[s])),
+                       __fmul_rn(neg_thresh, static_cast<float>(band[stride + s])));
+    }
+    return __fmul_rn(pos_thresh, static_cast<float>(band[s]));
+  };
+  const int end = lead + cells;
+  const int g0 = min((lead + 3) / 4, end / 4), g1 = end / 4;  // whole groups of 4
+  for (int s = lead + tid; s < min(4 * g0, end); s += nthreads) dst[s] = value(s);
+  float4* dst4 = reinterpret_cast<float4*>(dst);
+  for (int g = g0 + tid; g < g1; g += nthreads) {
+    const int4 v = smem4[g];
+    if (two_pass) {
+      const int4 n = smem4[stride / 4 + g];
+      dst4[g] = make_float4(
+          __fsub_rn(__fmul_rn(pos_thresh, static_cast<float>(v.x)),
+                    __fmul_rn(neg_thresh, static_cast<float>(n.x))),
+          __fsub_rn(__fmul_rn(pos_thresh, static_cast<float>(v.y)),
+                    __fmul_rn(neg_thresh, static_cast<float>(n.y))),
+          __fsub_rn(__fmul_rn(pos_thresh, static_cast<float>(v.z)),
+                    __fmul_rn(neg_thresh, static_cast<float>(n.z))),
+          __fsub_rn(__fmul_rn(pos_thresh, static_cast<float>(v.w)),
+                    __fmul_rn(neg_thresh, static_cast<float>(n.w))));
+    } else {
+      dst4[g] = make_float4(__fmul_rn(pos_thresh, static_cast<float>(v.x)),
+                            __fmul_rn(pos_thresh, static_cast<float>(v.y)),
+                            __fmul_rn(pos_thresh, static_cast<float>(v.z)),
+                            __fmul_rn(pos_thresh, static_cast<float>(v.w)));
+    }
+  }
+  for (int s = max(4 * g1, lead) + tid; s < end; s += nthreads) dst[s] = value(s);
+}
+
+// K3's band: cell i at word i (int32 counts), or two int16 counts a word,
+// cell i in the low (even i) or high (odd i) half of word i / 2; the signed
+// +-1 and +-65536 adds keep word == hi * 65536 + lo exactly while |hi|,
+// |lo| <= 32767, which kMaxPacked events per window guarantee
+template <bool kPacked>
+struct Band {
+  static constexpr int kThreads = kPacked ? kPackedThreads : kResizedThreads;
+  static constexpr int kCellsPerInt4 = kPacked ? 8 : 4;
+
+  __device__ __forceinline__ static void add(int* base, int cell, int owner, int rank, int s) {
+    if (kPacked) {
+      add_to(base, cell >> 1, owner, rank, (cell & 1) ? s * 65536 : s);
+    } else {
+      add_to(base, cell, owner, rank, s);
+    }
+  }
+
+  __device__ __forceinline__ static int at(const int* words, int cell) {
+    return kPacked ? decode_count(words, cell) : words[cell];
+  }
+
+  // fn(count) for the cells of one word
+  template <typename Fn>
+  __device__ __forceinline__ static void cells_of(int w, Fn&& fn) {
+    if (kPacked) {
+      const int lo = static_cast<int>(static_cast<int16_t>(w & 0xFFFF));
+      fn(lo);
+      fn((w - lo) >> 16);  // exact: w - lo is a multiple of 65536
+    } else {
+      fn(w);
+    }
+  }
+};
+
+template <bool kPacked>
+__global__ void __launch_bounds__(Band<kPacked>::kThreads, kPacked ? 2 : 1)
+hist_scaled_resized_cluster_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                                   const int* __restrict__ pol, const float* __restrict__ taps,
+                                   float* __restrict__ out, float* __restrict__ qout, int N,
+                                   int H, int W, int h_out, int w_out, int kth, float thresh,
+                                   int iters) {
+  // dynamic: the band (Band<kPacked>'s layout); the window's list of
+  // |count| >= kTable; the taps; the next band's first row
+  extern __shared__ int4 smem4[];
+  // the window's #(|count| == v) for v < kTable, then their CDF; its max
+  // |count|; the length of its list.  Every CTA adds its band's into every
+  // CTA's (this one's too) before the third cluster barrier.
+  __shared__ int s_cdf[kTable];
+  __shared__ int s_max, s_merged;
+  __shared__ float s_scale;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / C;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int rows = band_rows(H, C), stride = resized_band_words(H, W, C, kPacked);
+  const int band_cells = rows * W;
+  const int row0 = rank * rows;
+  const int row_end = min(row0 + rows, H);
+  const int cells = max(0, row_end - row0) * W;
+  const int n_taps = 4 * (h_out + w_out);
+  const int halo_words = resized_halo_words(W, kPacked);
+  const float inv_band_cells = 1.f / static_cast<float>(band_cells);
+  int* band = reinterpret_cast<int*>(smem4);
+  int* large = band + stride;
+  float* s_taps = reinterpret_cast<float*>(large + large_capacity(N));
+  int* halo = reinterpret_cast<int*>(s_taps + n_taps);
+  const int* next_row = row_end < H ? cluster.map_shared_rank(band, rank + 1) : nullptr;
+
+  // 1. this thread's first group of events and first taps in flight (the
+  //    taps land in shared memory after the events), its later groups on
+  //    their way to L2; zero the band and the counters; no event lands
+  //    before every band is zero
+  const size_t ev0 = static_cast<size_t>(b) * N;
+  const EventSlice slice = event_slice(x + ev0, y + ev0, pol + ev0, N, C, rank);
+  EventGroup first = {};
+  if (tid < slice.groups) first = load_group(x + ev0, y + ev0, pol + ev0, slice, tid);
+  for (int g = tid + nthreads; g < slice.groups; g += nthreads) {
+    prefetch_group(x + ev0, y + ev0, pol + ev0, slice, g);
+  }
+  const float tap = tid < n_taps ? __ldg(taps + tid) : 0.f;
+  for (int i = tid; i < stride / 4; i += nthreads) smem4[i] = make_int4(0, 0, 0, 0);
+  for (int i = tid; i < kTable; i += nthreads) s_cdf[i] = 0;
+  if (tid == 0) { s_max = 0; s_merged = 0; }
+  cluster.sync();
+
+  // 2. this CTA's slice of the events into their owners' bands
+  for_each_event(x + ev0, y + ev0, pol + ev0, slice, first, [&](float xf, float yf, int p) {
+    int s = 0;
+    const int idx = bin_event(xf, yf, p, H, W, &s);
+    if (idx < 0) return;
+    // idx / band_cells: the float estimate is off by at most one
+    int owner = __float2int_rz(static_cast<float>(idx) * inv_band_cells);
+    owner -= owner * band_cells > idx;
+    owner += (owner + 1) * band_cells <= idx;
+    Band<kPacked>::add(band, idx - owner * band_cells, owner, rank, s);
+  });
+  // the taps in shared memory, their two row or column indices as ints
+  auto put_tap = [&](int i, float t) {
+    s_taps[i] = (i & 3) < 2 ? __int_as_float(static_cast<int>(t)) : t;
+  };
+  if (tid < n_taps) put_tap(tid, tap);
+  for (int i = tid + nthreads; i < n_taps; i += nthreads) put_tap(i, __ldg(taps + i));
+  cluster.sync();  // every event counted
+
+  // 3. the next band's first row, the second tap row of this band's last
+  //    output rows, copied in (its first part in flight during the scan);
+  //    this band's count-of-counts: |count| < kSmall in registers (most
+  //    cells), up to kTable by shared atomics, larger ones into its list
+  const int4 halo_first = next_row != nullptr && tid < halo_words / 4
+                              ? reinterpret_cast<const int4*>(next_row)[tid]
+                              : make_int4(0, 0, 0, 0);
+  // every cell, without a branch: a = |count| into the max of its group
+  // (m) and into sums of [a > 0], a and a * a (mod 2^32), from which
+  // #(|count| == v) for v = 1, 2, 3 follow once the cells of a group whose
+  // max reaches kSmall (few) are taken out again, into every CTA's table
+  // or, from kTable on, every CTA's list
+  static_assert(kSmall == 4, "the sums give #(|count| == v) for v = 1, 2, 3");
+  // v added into word w of every CTA's shared memory
+  auto add_everywhere = [&](int* w, int v) {
+    for (int r = 0; r < C; ++r) atomicAdd(r == rank ? w : cluster.map_shared_rank(w, r), v);
+  };
+  constexpr int kPerInt4 = Band<kPacked>::kCellsPerInt4;
+  unsigned nz = 0, s1 = 0, s2 = 0;
+  int my_max = 0, n_rare = 0;
+  auto tally = [&](int c, int& m) {
+    const unsigned a = static_cast<unsigned>(abs(c));
+    m = max(m, static_cast<int>(a));
+    nz += min(a, 1u);
+    s1 += a;
+    s2 += a * a;
+  };
+  auto rare = [&](int c) {
+    const int a = abs(c);
+    if (a < kSmall) return;
+    nz -= 1u;
+    s1 -= static_cast<unsigned>(a);
+    s2 -= static_cast<unsigned>(a) * static_cast<unsigned>(a);
+    ++n_rare;
+    if (a < kTable) {
+      add_everywhere(&s_cdf[a], 1);
+      return;
+    }
+    for (int r = 0; r < C; ++r) {
+      int* len = r == rank ? &s_merged : cluster.map_shared_rank(&s_merged, r);
+      int* list = r == rank ? large : cluster.map_shared_rank(large, r);
+      list[atomicAdd(len, 1)] = a;
+    }
+  };
+  int cells_seen = 0;
+  for (int g = tid; g < cells / kPerInt4; g += nthreads) {
+    const int4 v = smem4[g];
+    int m = 0;
+    auto tally_m = [&](int c) { tally(c, m); };
+    Band<kPacked>::cells_of(v.x, tally_m);
+    Band<kPacked>::cells_of(v.y, tally_m);
+    Band<kPacked>::cells_of(v.z, tally_m);
+    Band<kPacked>::cells_of(v.w, tally_m);
+    if (m >= kSmall) {
+      Band<kPacked>::cells_of(v.x, rare);
+      Band<kPacked>::cells_of(v.y, rare);
+      Band<kPacked>::cells_of(v.z, rare);
+      Band<kPacked>::cells_of(v.w, rare);
+    }
+    my_max = max(my_max, m);
+    cells_seen += kPerInt4;
+  }
+  for (int i = cells / kPerInt4 * kPerInt4 + tid; i < cells; i += nthreads) {
+    const int c = Band<kPacked>::at(band, i);
+    tally(c, my_max);
+    rare(c);
+    ++cells_seen;
+  }
+  {
+    // n1 + n2 + n3 = nz, n1 + 2 n2 + 3 n3 = s1, n1 + 4 n2 + 9 n3 = s2
+    const unsigned n3 = (s2 - 3u * s1 + 2u * nz) / 2u;
+    const unsigned n2 = s1 - nz - 2u * n3;
+    const unsigned n1 = nz - n2 - n3;
+    const unsigned n0 = static_cast<unsigned>(cells_seen - n_rare) - nz;
+    const unsigned n[kSmall] = {n0, n1, n2, n3};
+#pragma unroll
+    for (int v = 0; v < kSmall; ++v) {
+      const unsigned t = __reduce_add_sync(0xffffffffu, n[v]);
+      if (lane == 0 && t > 0) add_everywhere(&s_cdf[v], static_cast<int>(t));
+    }
+  }
+  my_max = __reduce_max_sync(0xffffffffu, my_max);
+  if (lane == 0) {
+    for (int r = 0; r < C; ++r) {
+      atomicMax(r == rank ? &s_max : cluster.map_shared_rank(&s_max, r), my_max);
+    }
+  }
+  if (next_row != nullptr) {
+    int4* halo4 = reinterpret_cast<int4*>(halo);
+    if (tid < halo_words / 4) halo4[tid] = halo_first;
+    for (int g = tid + nthreads; g < halo_words / 4; g += nthreads) {
+      halo4[g] = reinterpret_cast<const int4*>(next_row)[g];
+    }
+    for (int c = halo_words / 4 * 4 + tid; c < halo_words; c += nthreads) {
+      halo[c] = next_row[c];
+    }
+  }
+  // every band's counts, max and list are in every CTA; no CTA reads or
+  // writes another's shared memory from here on, so none waits for the
+  // others again, not even to exit
+  cluster.sync();
+
+  // 4. the CDF of the table; the TPU kernel's bisection in one warp, its
+  //    scale shared
+  if (warp == 0) {  // kTable == 64: two entries per lane
+    const int a0 = s_cdf[2 * lane], a1 = s_cdf[2 * lane + 1];
+    const int incl = warp_inclusive_scan(a0 + a1);
+    const int cdf0 = incl - a1, cdf1 = incl;  // the CDF at 2 * lane, 2 * lane + 1
+    s_cdf[2 * lane] = cdf0;
+    s_cdf[2 * lane + 1] = cdf1;
+    __syncwarp();
+    const int maxv = s_max, n_large = s_merged;
+    // #(|count| <= m): the table's CDF below kTable, beyond it the CDF's
+    // last entry and the list's entries <= m (m is the same in every lane)
+    auto cdf_at = [&](int m) {
+      if (m < kTable) return s_cdf[m];
+      int n = 0;
+      for (int i = lane; i < n_large; i += 32) n += large[i] <= m;
+      return s_cdf[kTable - 1] + warp_sum(n);
+    };
+    // the CDF does not decrease, so the test cdf_at(m) < kth is m < v, v
+    // the least m whose CDF reaches kth; where v < kTable (the table's CDF
+    // reaches kth), v is the number of its entries below kth and no step
+    // reads memory
+    const bool in_table = s_cdf[kTable - 1] >= kth;
+    const int v = __popc(__ballot_sync(0xffffffffu, cdf0 < kth)) +
+                  __popc(__ballot_sync(0xffffffffu, cdf1 < kth));
+    float lo = 0.f, hi = static_cast<float>(maxv);
+    for (int it = 0; it < iters; ++it) {
+      const float mid = 0.5f * (lo + hi);
+      const int m = min(static_cast<int>(floorf(mid)), maxv);
+      if (in_table ? m < v : cdf_at(m) < kth) lo = mid; else hi = mid;
+    }
+    const float qv = v == 0 ? 0.f : hi;  // #(|count| == 0) reaches kth
+    // multiply by the reciprocal, as the TPU kernel rounds
+    if (lane == 0) s_scale = qv > 0.f ? 1.f / fmaxf(qv, 1e-30f) : thresh;
+    if (rank == 0 && lane == 0) qout[b] = qv;
+  }
+  __syncthreads();
+  const float scale = s_scale;
+
+  // 5. the output rows whose first tap row lies in this band, one warp
+  //    per row; a second tap row past the band is the next band's first,
+  //    in halo
+  auto scaled_at = [&](int row, int col) {
+    const int c = row < row_end ? Band<kPacked>::at(band, (row - row0) * W + col)
+                                : Band<kPacked>::at(halo, col);
+    return fminf(fmaxf(__fmul_rn(count_to_float(c), scale), -1.f), 1.f);
+  };
+  // (i0, i1, w0, w1) of an output row, then of an output column
+  const float4* th = reinterpret_cast<const float4*>(s_taps);
+  const float4* tw = th + h_out;
+  float* ob = out + static_cast<size_t>(b) * h_out * w_out;
+  for (int i = warp; i < h_out; i += nthreads >> 5) {
+    const float4 r = th[i];
+    const int h0 = __float_as_int(r.x), h1 = __float_as_int(r.y);
+    if (h0 < row0 || h0 >= row_end) continue;
+    for (int j = lane; j < w_out; j += 32) {
+      const float4 c = tw[j];
+      const int c0 = __float_as_int(c.x), c1 = __float_as_int(c.y);
+      const float s00 = scaled_at(h0, c0);
+      const float s10 = scaled_at(h1, c0);
+      const float s01 = scaled_at(h0, c1);
+      const float s11 = scaled_at(h1, c1);
+      // rows first, then columns: the order of the TPU kernel's two matmuls
+      const float t0 = r.z * s00 + r.w * s10;
+      const float t1 = r.z * s01 + r.w * s11;
+      ob[i * w_out + j] = t0 * c.z + t1 * c.w;
+    }
+  }
+}
+
+// Sets a kernel's shared-memory attributes on the current device once, for
+// the largest size its wrapper gives it (kSmemLimit); for a cluster kernel
+// also clusters of up to kMaxCluster CTAs and the largest shared-memory
+// carveout.  `done` holds one bit for each device already set.
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+cudaError_t prepare_once(Kernel kernel, std::atomic<uint64_t>* done, bool cluster) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (bit && (done->load() & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (err != cudaSuccess) return err;
+  if (cluster) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  }
+  done->fetch_or(bit);
+  return cudaSuccess;
+}
+
+cudaLaunchConfig_t cluster_config(int B, int cluster, int threads, size_t smem, void* stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B) * cluster, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+std::atomic<uint64_t> g_frame_done{0}, g_scaled_done{0};
+std::atomic<uint64_t> g_frame_cluster_done{0}, g_resized_cluster_done{0},
+    g_resized_packed_done{0};
+
+// K3's cluster kernel for windows of N events, its shared-memory attributes
+// set on the current device
+template <bool kPacked>
+cudaError_t prepare_resized_cluster() {
+  return prepare_once(hist_scaled_resized_cluster_kernel<kPacked>,
+                      kPacked ? &g_resized_packed_done : &g_resized_cluster_done, true);
 }
 
 size_t packed_smem(int H, int W, int table_len) {
@@ -402,7 +1008,8 @@ extern "C" int evfly_hist_frame(const void* x, const void* y, const void* pol, v
                                 void* stream) {
   const size_t smem =
       static_cast<size_t>((two_pass ? 2 : 1) * rows_per_band * W) * sizeof(int);
-  cudaError_t err = allow_smem(hist_frame_kernel, smem);
+  if (smem > static_cast<size_t>(kSmemLimit)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = prepare_once(hist_frame_kernel, &g_frame_done, false);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B > 0) {
     const dim3 grid(B, (H + rows_per_band - 1) / rows_per_band);
@@ -418,31 +1025,14 @@ extern "C" int evfly_hist_scaled(const void* x, const void* y, const void* pol, 
                                  void* qout, int B, int N, int H, int W, int kth,
                                  float thresh, int iters, int table_len, void* stream) {
   const size_t smem = packed_smem(H, W, table_len);
-  cudaError_t err = allow_smem(hist_scaled_kernel, smem);
+  if (smem > static_cast<size_t>(kSmemLimit)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = prepare_once(hist_scaled_kernel, &g_scaled_done, false);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B > 0) {
     hist_scaled_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(y),
         static_cast<const int*>(pol), static_cast<float*>(out), static_cast<float*>(qout), N,
         H, W, kth, thresh, iters, table_len);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int evfly_hist_scaled_resized(const void* x, const void* y, const void* pol,
-                                         const void* taps, void* out, void* qout,
-                                         int B, int N, int H, int W, int h_out, int w_out,
-                                         int kth, float thresh, int iters, int table_len,
-                                         void* stream) {
-  const size_t smem = packed_smem(H, W, table_len);
-  cudaError_t err = allow_smem(hist_scaled_resized_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (B > 0) {
-    hist_scaled_resized_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(y),
-        static_cast<const int*>(pol), static_cast<const float*>(taps),
-        static_cast<float*>(out), static_cast<float*>(qout), N, H, W, h_out, w_out, kth,
-        thresh, iters, table_len);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -459,5 +1049,101 @@ extern "C" int evfly_scale_counts(const void* counts, const void* taps, void* ou
         static_cast<float*>(out), static_cast<float*>(qout), H, W, h_out, w_out, kth, thresh,
         iters);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1 on clusters of `cluster` CTAs, one cluster per window
+extern "C" int evfly_hist_frame_cluster(const void* x, const void* y, const void* pol,
+                                        void* out, int B, int N, int H, int W, int cluster,
+                                        float pos_thresh, float neg_thresh, int two_pass,
+                                        void* stream) {
+  if (!frame_cluster_fits(H, W, two_pass, cluster)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = prepare_once(hist_frame_cluster_kernel, &g_frame_cluster_done, true);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B > 0) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(
+        B, cluster, kFrameThreads, frame_cluster_smem(H, W, two_pass, cluster), stream, &attr);
+    err = cudaLaunchKernelEx(&cfg, hist_frame_cluster_kernel, static_cast<const float*>(x),
+                             static_cast<const float*>(y), static_cast<const int*>(pol),
+                             static_cast<float*>(out), N, H, W, pos_thresh, neg_thresh,
+                             two_pass);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3 on clusters of `cluster` CTAs, one cluster per window, N events each
+// (at most resized_cluster_cap(H, W, h_out, w_out, cluster))
+extern "C" int evfly_hist_scaled_resized_cluster(const void* x, const void* y, const void* pol,
+                                                 const void* taps, void* out, void* qout,
+                                                 int B, int N, int H, int W, int h_out,
+                                                 int w_out, int cluster, int kth, float thresh,
+                                                 int iters, void* stream) {
+  if (N < 0 || N > resized_cluster_cap(H, W, h_out, w_out, cluster)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool packed = resized_packed(N);
+  cudaError_t err =
+      packed ? prepare_resized_cluster<true>() : prepare_resized_cluster<false>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B > 0) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        cluster_config(B, cluster, packed ? kPackedThreads : kResizedThreads,
+                       resized_cluster_smem(H, W, N, h_out, w_out, cluster), stream, &attr);
+    auto kernel = packed ? hist_scaled_resized_cluster_kernel<true>
+                         : hist_scaled_resized_cluster_kernel<false>;
+    err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(x),
+                             static_cast<const float*>(y), static_cast<const int*>(pol),
+                             static_cast<const float*>(taps), static_cast<float*>(out),
+                             static_cast<float*>(qout), N, H, W, h_out, w_out, kth, thresh,
+                             iters);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The rules by which the wrappers choose a route (ops/voxelizer.py holds a
+// copy for the CPU): 1 where K1's cluster kernel takes (H, W), else 0
+extern "C" int evfly_hist_frame_cluster_fits(int H, int W, int two_pass, int cluster) {
+  return frame_cluster_fits(H, W, two_pass, cluster) ? 1 : 0;
+}
+
+// K3's cluster kernel's cap on events per window at (H, W) -> (h_out,
+// w_out), or -1
+extern "C" int evfly_hist_resized_cluster_cap(int H, int W, int h_out, int w_out,
+                                              int cluster) {
+  return resized_cluster_cap(H, W, h_out, w_out, cluster);
+}
+
+// cudaOccupancyMaxActiveClusters into *clusters: K1's cluster kernel
+// (kind 0, one count array; kind 1, two) or K3's with N events and an
+// (h_out, w_out) output (kind 2)
+extern "C" int evfly_hist_cluster_occupancy(int kind, int H, int W, int N, int h_out,
+                                            int w_out, int cluster, int* clusters) {
+  const bool resized = kind == 2;
+  if (resized ? N < 0 || N > resized_cluster_cap(H, W, h_out, w_out, cluster)
+              : !frame_cluster_fits(H, W, kind, cluster)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool packed = resized && resized_packed(N);
+  cudaError_t err = !resized ? prepare_once(hist_frame_cluster_kernel, &g_frame_cluster_done, true)
+                    : packed ? prepare_resized_cluster<true>()
+                             : prepare_resized_cluster<false>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const size_t smem = resized ? resized_cluster_smem(H, W, N, h_out, w_out, cluster)
+                              : frame_cluster_smem(H, W, kind, cluster);
+  const int threads = !resized ? kFrameThreads : packed ? kPackedThreads : kResizedThreads;
+  const cudaLaunchConfig_t cfg = cluster_config(1, cluster, threads, smem, nullptr, &attr);
+  err = !resized ? cudaOccupancyMaxActiveClusters(clusters, hist_frame_cluster_kernel, &cfg)
+        : packed ? cudaOccupancyMaxActiveClusters(
+                       clusters, hist_scaled_resized_cluster_kernel<true>, &cfg)
+                 : cudaOccupancyMaxActiveClusters(
+                       clusters, hist_scaled_resized_cluster_kernel<false>, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,10 +40,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "evfly_hist_frame": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P],
     "evfly_hist_scaled": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
-    "evfly_hist_scaled_resized": (
-        [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P]
-    ),
     "evfly_scale_counts": [_P] * 4 + [_I] * 6 + [_F, _I, _I, _P],
+    "evfly_hist_frame_cluster": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P],
+    "evfly_hist_scaled_resized_cluster": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
+    "evfly_hist_frame_cluster_fits": [_I] * 4,
+    "evfly_hist_resized_cluster_cap": [_I] * 5,
+    "evfly_hist_cluster_occupancy": [_I] * 7 + [_P],
+    "evfly_empty": [_I, _P],
     "evfly_lstm_stacked": [_P] * 9 + [_I] * 4 + [_P],
     "evfly_lstm_wavefront": [_P] * 9 + [_I] * 4 + [_P],
     "evfly_lstm_cluster": [_P] * 8 + [_I] * 5 + [_P],

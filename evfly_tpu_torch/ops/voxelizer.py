@@ -7,25 +7,32 @@ with ``counts`` the signed event count frame under np.histogram2d binning:
 
 - ``event_histogram``: ``thresh * counts`` (two passes,
   ``pos * pos_counts - neg * neg_counts``, when the thresholds differ),
-  through kernel K1 (``hist_frame``);
+  through kernel K1 (``hist_frame_routed``);
 - ``event_histogram_scaled``: ``clip(counts / quantile(|counts|, 0.97),
-  +-1)``, through kernel K2 (``hist_scaled``);
+  +-1)``, through kernel K2 (``hist_scaled_routed``);
 - ``event_histogram_scaled_resized``: the same frame resized bilinearly to
-  (h_out, w_out), through kernel K3 (``hist_scaled_resized``).
+  (h_out, w_out), through kernel K3 (``hist_scaled_resized_routed``).
 
 The kernels are in ``csrc/voxelizer.cu``.  Each wrapper ``hist_*`` has a
 plain PyTorch version ``hist_*_plain``, which CPU tensors take and against
-which the kernel is held.  K2 and K3 pack two int16 counts per word and take
-at most 32,767 events per window; the two entry points over them take any
-number, routing a batch by its shape (``scaled_route``) where K2 and K3
-cannot take it through K1's counts and ``scale_counts`` or
-``scale_counts_resized``, K2's and K3's function over a count frame in a
-kernel of their own.  The TPU layout knobs of the JAX functions
-(``chunk``, ``subchunks``, ``int8_mm``, ``interpret``) have no counterpart.
+which the kernel is held, and counts its own launches.  K1 and K3 run one
+thread-block cluster per window with the window's count frame in the
+cluster's distributed shared memory (``hist_frame_cluster``,
+``hist_scaled_resized``); K1 keeps its kernel of before (``hist_frame``,
+one block per band of rows) for the frames no cluster holds, chosen by
+shape before launch (``k1_route``).  K2 packs two int16 counts per word in
+one block and takes at most 32,767 events per window; K3 takes up to
+``resized_cluster_cap`` events.  The entry points take any number, routing
+a batch by its shape (``scaled_route``) where K2 and K3 cannot take it
+through K1's counts and ``scale_counts`` or ``scale_counts_resized``, K2's
+and K3's function over a count frame in a kernel of their own.  The TPU
+layout knobs of the JAX functions (``chunk``, ``subchunks``, ``int8_mm``,
+``interpret``) have no counterpart.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
@@ -41,10 +48,20 @@ from .percentile import bisect_abs_quantile
 # a block may opt in to 227 KB (232,448 bytes) of shared memory; keep 1 KiB
 # for the kernel's static shared variables
 _SMEM_LIMIT = 232448 - 1024
-# two int16 counts share one int32 word in K2's and K3's shared frame
+# two int16 counts share one int32 word in K2's frame and in K3's bands up to
+# this many events per window
 _MAX_EVENTS = 32767
-# K1 counts a band of rows of the frame per block in int32: 32 KiB a band
+# K1's band kernel counts a band of rows of the frame per block in int32:
+# 32 KiB a band
 _BAND_INTS = 8192
+# CTAs per window of K1's and K3's cluster kernels (measured on the H100,
+# PERF.md section 6); the library takes up to 16
+K1_CLUSTER = 8
+K3_CLUSTER = 2
+_MAX_CLUSTER = 16
+# K3's cluster kernel keeps a dense table of |count| below this and a list
+# of the cells at or above it (at most N / _K_TABLE of them)
+_K_TABLE = 64
 
 
 def bin_events(
@@ -200,22 +217,114 @@ def _packed_smem(N: int, H: int, W: int) -> int:
     return ((H * W + 1) // 2 + N + 1) * 4
 
 
-def scaled_route(N: int, H: int, W: int) -> str:
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def band_rows(H: int, cluster: int) -> int:
+    """Rows of the frame in each CTA's band on a cluster of ``cluster``
+    CTAs: CTA r holds rows [r * rows, (r + 1) * rows) (``csrc/voxelizer.cu``,
+    ``band_rows``)."""
+    return -(-H // cluster)
+
+
+def _band_ints(H: int, W: int, cluster: int) -> int:
+    # a band array's cells, 3 words for K1's output alignment, whole int4s
+    return _round4(band_rows(H, cluster) * W + 3)
+
+
+def frame_cluster_fits(H: int, W: int, two_pass: bool, cluster: int = K1_CLUSTER) -> bool:
+    """Whether K1's cluster kernel takes an H x W frame: its band (two
+    count arrays when the thresholds differ) within a block's shared
+    memory.  The rule of ``csrc/voxelizer.cu``'s ``frame_cluster_fits``,
+    stated here for the CPU where the library is not built (its entry point
+    ``evfly_hist_frame_cluster_fits`` gives the library's)."""
+    return (H >= 1 and W >= 1 and 1 <= cluster <= _MAX_CLUSTER
+            and (2 if two_pass else 1) * _band_ints(H, W, cluster) * 4 <= _SMEM_LIMIT)
+
+
+def resized_packed(N: int) -> bool:
+    """Whether K3's cluster kernel keeps two int16 counts in each word of
+    its band for windows of N events (no count can pass int16; two CTAs of
+    512 threads per SM), rather than one int32 count (one CTA of 1,024)."""
+    return N <= _MAX_EVENTS
+
+
+def _resized_band_words(H: int, W: int, cluster: int, packed: bool) -> int:
+    # K3's band array, whole int4s
+    if packed:
+        return _round4((band_rows(H, cluster) * W + 1) // 2)
+    return _band_ints(H, W, cluster)
+
+
+def _resized_halo_words(W: int, packed: bool) -> int:
+    # K3's copy of the next band's first row
+    return (W + 1) // 2 if packed else W
+
+
+def resized_cluster_cap(H: int, W: int, h_out: int, w_out: int,
+                        cluster: int = K3_CLUSTER) -> int:
+    """The most events per window K3's cluster kernel takes at H x W ->
+    h_out x w_out: what the band, the taps and a row leave of a block's
+    shared memory for the list of the cells with |count| >= 64 (at most
+    N / 64); -1 where not even a list of 4 fits.  Up to 32,767 events
+    the band is packed, so the cap is the int32 band's where that passes
+    32,767, else the packed band's, at most 32,767.  The rule of
+    ``csrc/voxelizer.cu``'s ``resized_cluster_cap`` (its entry point
+    ``evfly_hist_resized_cluster_cap``)."""
+    if min(H, W, h_out, w_out) < 1 or not 1 <= cluster <= _MAX_CLUSTER:
+        return -1
+
+    def cap_of(packed: bool) -> int:
+        left = (_SMEM_LIMIT // 4 - _resized_band_words(H, W, cluster, packed)
+                - 4 * (h_out + w_out) - _resized_halo_words(W, packed))
+        n_list = left // 4 * 4  # C's left & ~3
+        return n_list * _K_TABLE - 1 if n_list >= 4 else -1
+
+    wide = cap_of(False)
+    return wide if wide > _MAX_EVENTS else min(_MAX_EVENTS, cap_of(True))
+
+
+def _large_capacity(N: int) -> int:
+    return _round4(N // _K_TABLE + 1)
+
+
+def resized_cluster_smem(N: int, H: int, W: int, h_out: int, w_out: int,
+                         cluster: int = K3_CLUSTER) -> int:
+    """Dynamic shared memory of one CTA of K3's cluster kernel, bytes: the
+    band (packed up to 32,767 events), the window's list, the taps and the
+    next band's first row."""
+    packed = resized_packed(N)
+    return (_resized_band_words(H, W, cluster, packed) + _large_capacity(N)
+            + 4 * (h_out + w_out) + _resized_halo_words(W, packed)) * 4
+
+
+def k1_route(H: int, W: int, two_pass: bool) -> str:
+    """K1's kernel for an H x W frame: "cluster" (``hist_frame_cluster``)
+    where the band fits, else "band" (``hist_frame``).  Decided by shape
+    alone, before any launch."""
+    return "cluster" if frame_cluster_fits(H, W, two_pass) else "band"
+
+
+def scaled_route(N: int, H: int, W: int, resize: Optional[Tuple[int, int]] = None) -> str:
     """The route of a batch of N events per window at H x W through the
-    scaled entry points: "packed" (K2, K3) where a count fits int16 and the
-    packed frame fits one block, else "k1" (K1's counts, then
-    ``scale_counts`` or ``scale_counts_resized``).  Decided by shape alone,
-    before any launch."""
+    scaled entry points.  K2 (``resize`` None): "packed" where a count fits
+    int16 and the packed frame fits one block, else "k1" (K1's counts, then
+    ``scale_counts``).  K3 (``resize`` its (h_out, w_out)): "cluster" up to
+    ``resized_cluster_cap``, else "k1" (then ``scale_counts_resized``).
+    Decided by shape alone, before any launch."""
+    if resize is not None:
+        return "cluster" if N <= resized_cluster_cap(H, W, *resize) else "k1"
     fits = N <= _MAX_EVENTS and _packed_smem(N, H, W) <= _SMEM_LIMIT
     return "packed" if fits else "k1"
 
 
 def _packed_table_len(name: str, N: int, H: int, W: int) -> int:
-    """K2's and K3's count-of-counts table length; raises when the packed
-    frame and the table do not fit one block or a count could pass int16."""
+    """K2's count-of-counts table length; raises when the packed frame and
+    the table do not fit one block or a count could pass int16."""
     table_len = N + 1  # |count| <= events per window
     smem = _packed_smem(N, H, W)
-    if scaled_route(N, H, W) != "packed":
+    if N > _MAX_EVENTS or smem > _SMEM_LIMIT:
         raise ValueError(
             f"{name}: {N} events per window at {H}x{W} need {smem} bytes of shared "
             f"memory (limit {_SMEM_LIMIT}) or exceed {_MAX_EVENTS} events: the kernel "
@@ -229,8 +338,10 @@ def hist_frame(
     x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, H: int, W: int,
     pos_thresh: float = 0.2, neg_thresh: float = 0.2,
 ) -> torch.Tensor:
-    """K1: (B, N) events, any N -> (B, H, W) frame ``thresh * counts``
-    (``pos * pos_counts - neg * neg_counts`` when the thresholds differ).
+    """K1's band kernel, the route of frames no cluster holds: (B, N)
+    events, any N -> (B, H, W) frame ``thresh * counts`` (``pos *
+    pos_counts - neg * neg_counts`` when the thresholds differ); one block
+    per (window, band of rows).
 
     CPU tensors take ``hist_frame_plain``; CUDA tensors launch the kernel or
     raise.  ``hist_frame.launches`` counts the launches.
@@ -257,6 +368,60 @@ def hist_frame(
 
 
 hist_frame.launches = 0
+
+
+def _frame_cluster_launch(x, y, pol, H: int, W: int, pos_thresh: float, neg_thresh: float,
+                          cluster: int) -> torch.Tensor:
+    """Launch K1's cluster kernel on clusters of ``cluster`` CTAs; raises
+    where they do not hold the frame."""
+    xc, yc, pc = _kernel_events("hist_frame_cluster", x, y, pol)
+    B, N = xc.shape
+    two_pass = pos_thresh != neg_thresh
+    if not frame_cluster_fits(H, W, two_pass, cluster):
+        raise ValueError(f"hist_frame_cluster: {cluster} CTAs do not hold a {H}x{W} frame "
+                         f"(two_pass={two_pass}); hist_frame takes it")
+    if B * cluster >= 2 ** 31:
+        raise ValueError(f"hist_frame_cluster: {B} windows x {cluster} CTAs pass grid.x")
+    out = torch.empty(B, H, W, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        status = _build.library().evfly_hist_frame_cluster(
+            xc.data_ptr(), yc.data_ptr(), pc.data_ptr(), out.data_ptr(), B, N, H, W, cluster,
+            pos_thresh, neg_thresh, int(two_pass), _build.stream_of(x.device),
+        )
+    _build.check("evfly_hist_frame_cluster", status)
+    return out
+
+
+def hist_frame_cluster(
+    x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, H: int, W: int,
+    pos_thresh: float = 0.2, neg_thresh: float = 0.2,
+) -> torch.Tensor:
+    """K1's cluster kernel: ``hist_frame``'s function with one cluster of
+    ``K1_CLUSTER`` CTAs per window, the frame in row bands across their
+    shared memory (``frame_cluster_fits``).
+
+    CPU tensors take ``hist_frame_plain``; CUDA tensors launch the kernel or
+    raise.  ``hist_frame_cluster.launches`` counts the launches.
+    """
+    if x.device.type == "cpu":
+        return hist_frame_plain(x, y, pol, H, W, pos_thresh, neg_thresh)
+    out = _frame_cluster_launch(x, y, pol, H, W, pos_thresh, neg_thresh, K1_CLUSTER)
+    hist_frame_cluster.launches += 1
+    return out
+
+
+hist_frame_cluster.launches = 0
+
+
+def hist_frame_routed(
+    x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, H: int, W: int,
+    pos_thresh: float = 0.2, neg_thresh: float = 0.2,
+) -> torch.Tensor:
+    """K1 for (B, N) events: ``hist_frame_cluster`` or, where ``k1_route``
+    says "band", ``hist_frame``."""
+    if k1_route(H, W, pos_thresh != neg_thresh) == "cluster":
+        return hist_frame_cluster(x, y, pol, H, W, pos_thresh, neg_thresh)
+    return hist_frame(x, y, pol, H, W, pos_thresh, neg_thresh)
 
 
 def hist_scaled(
@@ -290,13 +455,43 @@ def hist_scaled(
 hist_scaled.launches = 0
 
 
+def _resized_cluster_launch(x, y, pol, H: int, W: int, h_out: int, w_out: int, thresh: float,
+                            q: float, iters: int, align_corners: bool, cluster: int):
+    """Launch K3's cluster kernel on clusters of ``cluster`` CTAs; raises
+    above its cap.  Returns (out, q)."""
+    xc, yc, pc = _kernel_events("hist_scaled_resized", x, y, pol)
+    B, N = xc.shape
+    cap = resized_cluster_cap(H, W, h_out, w_out, cluster)
+    if N > cap:
+        raise ValueError(
+            f"hist_scaled_resized: {N} events per window at {H}x{W} -> "
+            f"{h_out}x{w_out} exceed the cap of {cap} on {cluster} CTAs; "
+            f"event_histogram_scaled_resized takes any number")
+    if B * cluster >= 2 ** 31:
+        raise ValueError(f"hist_scaled_resized: {B} windows x {cluster} CTAs pass grid.x")
+    taps, _, _ = _resize_operators(H, W, h_out, w_out, align_corners, x.device)
+    out = torch.empty(B, h_out, w_out, dtype=torch.float32, device=x.device)
+    qout = torch.empty(B, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        status = _build.library().evfly_hist_scaled_resized_cluster(
+            xc.data_ptr(), yc.data_ptr(), pc.data_ptr(), taps.data_ptr(), out.data_ptr(),
+            qout.data_ptr(), B, N, H, W, h_out, w_out, cluster, _kth(q, H * W), thresh, iters,
+            _build.stream_of(x.device),
+        )
+    _build.check("evfly_hist_scaled_resized_cluster", status)
+    return out, qout
+
+
 def hist_scaled_resized(
     x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, H: int, W: int,
     h_out: int, w_out: int, thresh: float = 0.2, q: float = 0.97, iters: int = 18,
     align_corners: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3: (B, N) events, N <= 32,767 -> ((B, h_out, w_out) input, (B,)
-    quantile).
+    """K3: (B, N) events, N <= ``resized_cluster_cap(H, W, h_out, w_out)``
+    -> ((B, h_out, w_out) input, (B,) quantile), one cluster of
+    ``K3_CLUSTER`` CTAs per window with the count frame in row bands across
+    their shared memory (two int16 counts a word up to 32,767 events,
+    ``resized_packed``; int32 above).
 
     CPU tensors take ``hist_scaled_resized_plain``; CUDA tensors launch the
     kernel or raise.  ``hist_scaled_resized.launches`` counts the launches.
@@ -305,25 +500,29 @@ def hist_scaled_resized(
         return hist_scaled_resized_plain(
             x, y, pol, H, W, h_out, w_out, thresh, q, iters, align_corners
         )
-    xc, yc, pc = _kernel_events("hist_scaled_resized", x, y, pol)
-    B, N = xc.shape
-    table_len = _packed_table_len("hist_scaled_resized", N, H, W)
-    taps, _, _ = _resize_operators(H, W, h_out, w_out, align_corners, x.device)
-    out = torch.empty(B, h_out, w_out, dtype=torch.float32, device=x.device)
-    qout = torch.empty(B, dtype=torch.float32, device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        status = lib.evfly_hist_scaled_resized(
-            xc.data_ptr(), yc.data_ptr(), pc.data_ptr(), taps.data_ptr(),
-            out.data_ptr(), qout.data_ptr(), B, N, H, W, h_out, w_out,
-            _kth(q, H * W), thresh, iters, table_len, _build.stream_of(x.device),
-        )
-    _build.check("evfly_hist_scaled_resized", status)
+    res = _resized_cluster_launch(x, y, pol, H, W, h_out, w_out, thresh, q, iters,
+                                  align_corners, K3_CLUSTER)
     hist_scaled_resized.launches += 1
-    return out, qout
+    return res
 
 
 hist_scaled_resized.launches = 0
+
+
+def cluster_occupancy(kernel: str, H: int, W: int, N: int = 0,
+                      out_hw: Tuple[int, int] = (1, 1), cluster: Optional[int] = None) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of a cluster kernel on the current
+    device: ``kernel`` "k1" (one count array), "k1_two_pass" or "k3" (with N
+    events per window and an ``out_hw`` output); ``cluster`` CTAs each (the
+    kernel's own by default)."""
+    kind = {"k1": 0, "k1_two_pass": 1, "k3": 2}[kernel]
+    if cluster is None:
+        cluster = K3_CLUSTER if kind == 2 else K1_CLUSTER
+    n = ctypes.c_int(0)
+    status = _build.library().evfly_hist_cluster_occupancy(kind, H, W, N, *out_hw, cluster,
+                                                           ctypes.byref(n))
+    _build.check("evfly_hist_cluster_occupancy", status)
+    return n.value
 
 
 def _scale_launch(name: str, counts: torch.Tensor, thresh: float, q: float, iters: int,
@@ -402,7 +601,7 @@ def hist_scaled_routed(
     and ``scale_counts``."""
     if scaled_route(x.shape[1], H, W) == "packed":
         return hist_scaled(x, y, pol, H, W, thresh, q, iters)
-    return scale_counts(hist_frame(x, y, pol, H, W, 1.0, 1.0), thresh, q, iters)
+    return scale_counts(hist_frame_routed(x, y, pol, H, W, 1.0, 1.0), thresh, q, iters)
 
 
 def hist_scaled_resized_routed(
@@ -411,13 +610,13 @@ def hist_scaled_resized_routed(
     align_corners: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(input, quantile) of ``event_histogram_scaled_resized`` for (B, N)
-    events: K3 (``hist_scaled_resized``) or, where ``scaled_route`` says
-    "k1", K1's counts and ``scale_counts_resized``."""
-    if scaled_route(x.shape[1], H, W) == "packed":
+    events, by ``scaled_route(N, H, W, (h_out, w_out))``: K3
+    (``hist_scaled_resized``), or K1's counts and ``scale_counts_resized``."""
+    if scaled_route(x.shape[1], H, W, (h_out, w_out)) == "cluster":
         return hist_scaled_resized(x, y, pol, H, W, h_out, w_out, thresh, q, iters,
                                    align_corners)
-    return scale_counts_resized(hist_frame(x, y, pol, H, W, 1.0, 1.0), h_out, w_out, thresh,
-                                q, iters, align_corners)
+    return scale_counts_resized(hist_frame_routed(x, y, pol, H, W, 1.0, 1.0), h_out, w_out,
+                                thresh, q, iters, align_corners)
 
 
 def _device_events(x, y, pol, device: DeviceLike):
@@ -445,10 +644,11 @@ def event_histogram(
     neg_counts`` when the thresholds differ (the reference's
     ``pos_th*hist2d(pos).T - neg_th*hist2d(neg).T``).  pol's sign is the
     polarity; 0 is ignored.  Any number of events.  Runs on ``device``
-    (CUDA unless the caller names another), through kernel K1 on CUDA.
+    (CUDA unless the caller names another), through kernel K1 on CUDA
+    (``hist_frame_routed``).
     """
     x, y, pol, single = _device_events(x, y, pol, device)
-    frame = hist_frame(x, y, pol, H, W, pos_thresh, neg_thresh)
+    frame = hist_frame_routed(x, y, pol, H, W, pos_thresh, neg_thresh)
     return frame[0] if single else frame
 
 

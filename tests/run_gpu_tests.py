@@ -1,0 +1,63 @@
+"""Runs the port's ``gpu``-marked voxelizer tests on a machine with a CUDA
+card and without JAX (the GPU machine):
+
+    python3 tests/run_gpu_tests.py [REPO]
+
+The test files import ``jax`` and the JAX package at module level, for
+their CPU cases; no ``gpu`` test calls them.  So for collection alone both
+are replaced here by inert modules (any call raises), ``tests/conftest.py``
+(which configures JAX) is skipped, and pytest runs ``-m gpu``.  REPO is the
+checkout to test, by default the one holding this file.
+"""
+
+import importlib.abc
+import importlib.machinery
+import os
+import sys
+import types
+
+REPO = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
+                       os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+FILES = ("tests/test_torch_voxelizer.py", "tests/test_torch_voxelizer_cluster.py")
+
+
+class _Inert(types.ModuleType):
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        return _Inert(f"{self.__name__}.{name}")
+
+    def __call__(self, *args, **kwargs):
+        raise RuntimeError(f"{self.__name__}: JAX is not installed here")
+
+
+class _InertFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """``jax`` and ``evfly_tpu`` (not ``evfly_tpu_torch``) and their
+    submodules as inert modules."""
+
+    def find_spec(self, name, path, target=None):
+        if any(name == top or name.startswith(top + ".") for top in ("jax", "evfly_tpu")):
+            return importlib.machinery.ModuleSpec(name, self, is_package=True)
+        return None
+
+    def create_module(self, spec):
+        module = _Inert(spec.name)
+        module.__path__ = []
+        return module
+
+    def exec_module(self, module):
+        pass
+
+
+def main() -> int:
+    import pytest
+
+    sys.path.insert(0, REPO)
+    sys.meta_path.insert(0, _InertFinder())
+    os.chdir(REPO)
+    return pytest.main(["-p", "no:cacheprovider", "--noconftest", "-m", "gpu", "-rA", "-q",
+                        *FILES])
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -61,6 +61,7 @@ def _jax_windows(x, y, p, H, W, ho, wo):
         (64, 86, 20, 26, 1, 0),
         (64, 86, 20, 26, 3, 37),
         (64, 86, 20, 26, 2, 5000),
+        (64, 86, 20, 26, 1, 20000),  # more than the one-block kernel of before took
         (260, 346, 60, 90, 2, 5000),
     ],
 )
@@ -329,13 +330,14 @@ def test_k1_route_quantile_equals_the_plain_version():
 
 @pytest.mark.gpu
 def test_scaled_entry_points_above_the_cap_on_gpu(cuda_device):
-    H, W, N = 260, 346, 40000
+    H, W = 260, 346
+    N = voxelizer.resized_cluster_cap(H, W, 60, 90) + 1  # past K2's cap and K3's
     x, y, p = (torch.from_numpy(a).to(cuda_device) for a in _cap_events(32, N, H, W))
-    before = (voxelizer.hist_frame.launches, voxelizer.scale_counts.launches,
+    before = (voxelizer.hist_frame_cluster.launches, voxelizer.scale_counts.launches,
               voxelizer.scale_counts_resized.launches)
     frame, q = voxelizer.hist_scaled_routed(x, y, p, H, W)
     small, qs = voxelizer.hist_scaled_resized_routed(x, y, p, H, W, 60, 90)
-    assert (voxelizer.hist_frame.launches, voxelizer.scale_counts.launches,
+    assert (voxelizer.hist_frame_cluster.launches, voxelizer.scale_counts.launches,
             voxelizer.scale_counts_resized.launches) == (before[0] + 2, before[1] + 1,
                                                          before[2] + 1)
     ref, qref = voxelizer.hist_scaled_plain(x, y, p, H, W)
