@@ -6,14 +6,15 @@ Builds the port's CUDA kernels from ``evfly_tpu_torch/csrc`` (one ``nvcc``
 call, cached in ``build/``), holds each of K1-K5 against its plain PyTorch
 version on the card (K1 on both of its kernels: one thread-block cluster
 per window with the frame in the cluster's shared memory, and the band
-kernel of before, for the frames no cluster holds; K3 on its cluster
-kernel, with int16 and int32 counts; K4 and K5 on both of their routes: one
-8-CTA cluster per stream with the weights in shared memory, and one block
-per stream reading them from L2), times each pair in turns, old and new,
-beside an empty launch, checks the port's repaired
-faults (precision under PyTorch's default flags, an eval-mode forward under
-autograd, more events per window than K2's and K3's caps through their
-entry points, more than 65,535 windows through K1), then drives the
+kernel of before, for the frames no cluster holds; K2 and K3 on their
+cluster kernel, with int16 and int32 counts; K4 and K5 on both of their
+routes: one 8-CTA cluster per stream with the weights in shared memory, and
+one block per stream reading them from L2), times each pair in turns, old
+and new, beside an empty launch, sweeps the cluster sizes, checks the
+port's repaired faults (precision under PyTorch's default flags, an
+eval-mode forward under autograd, more events per window than K2's and
+K3's caps through their entry points and ``scale_counts``' cluster kernels,
+more than 65,535 windows through K1), then drives the
 port's paths through the entry points a user calls, each compared with its
 plain path on the card and each with the kernels' launch counts set to 0
 just before it and read just after:
@@ -23,7 +24,7 @@ just before it and read just after:
   through K4 on the cluster route) -> velocity (256, 3), its rate timed
   against the L2 route in turns;
 - the fused rung of ``bench.py``: the same windows -> ``event_histogram_scaled``
-  (K2) -> bilinear resize -> ``LSTMNetVIT`` (K4);
+  (K2 on clusters) -> bilinear resize -> ``LSTMNetVIT`` (K4);
 - streaming: ``StreamingPipeline.step_events`` with the joint model
   ``OrigUNet_w_VITFLY_ViTLSTM`` and ``artifacts/policy_best.pth`` over 8
   windows of 5,000 events, state carried: ``event_histogram`` (K1 on
@@ -82,9 +83,13 @@ from evfly_tpu_torch.ops.lstm_fused import (
 )
 from evfly_tpu_torch.ops.voxelizer import (
     K1_CLUSTER,
+    K2_CLUSTER,
     K3_CLUSTER,
+    SCALE_CLUSTER,
     _frame_cluster_launch,
     _resized_cluster_launch,
+    _scale_launch,
+    _scaled_cluster_launch,
     bin_events,
     event_histogram_scaled,
     event_histogram_scaled_resized,
@@ -103,6 +108,9 @@ from evfly_tpu_torch.ops.voxelizer import (
     resized_cluster_smem,
     resized_packed,
     scale_counts,
+    scale_slice_cached,
+    scaled_cluster_cap,
+    scaled_cluster_smem,
     scale_counts_plain,
     scale_counts_resized,
     scale_counts_resized_plain,
@@ -125,14 +133,15 @@ SPARSE_EVENTS = 80                      # a window whose 97th percentile is 0
 T, L, HID, IN = N_WINDOWS, 3, 128, 517  # LSTMNetVIT's LSTM over the windows
 BIG_EVENTS, HOT_EVENTS = 100_000, 40_000  # K1's window past any int16 count
 CAP_EVENTS, HOT = 1_500_000, 33_000    # past K2's and K3's caps per window; on one pixel
-# windows K3 takes and its one-block kernel of before did not: uniform; a count
-# past int16 on one pixel; half the events on a 20x20 patch (400 counts past
-# K3's dense table of 64)
+# windows K2 and K3 take and their one-block kernels of before did not:
+# uniform; a count past int16 on one pixel; half the events on a 20x20 patch
+# (400 counts past the dense table of 64)
 WIDE_EVENTS, K3_HOT_EVENTS, PATCH_EVENTS = 20_000, 40_000, 100_000
-# the most events K3's cluster kernel packs as int16 counts, 32,000 of them
-# on one pixel (+ in one window, - in the other)
+# the most events K2's and K3's cluster kernels pack as int16 counts, 32,000
+# of them on one pixel (+ in one window, - in the other)
 PACKED_EVENTS, PACKED_HOT = 32_767, 32_000
-K1_SWEEP, K3_SWEEP = (4, 8, 16), (2, 4, 8)   # cluster sizes timed
+# cluster sizes timed
+K1_SWEEP, K2_SWEEP, K3_SWEEP, SCALE_SWEEP = (4, 8, 16), (2, 4, 8), (2, 4, 8), (4, 8, 16)
 MANY_WINDOWS, FEW_EVENTS, SMALL_H, SMALL_W = 70_000, 16, 64, 86  # past grid.y's 65,535
 # (G, T) of the K4 and K5 checks; (G, T) of their timings, in turns
 LSTM_CHECKS = ((1, N_WINDOWS), (1, 2), (1, 1), (16, N_WINDOWS), (16, 2), (16, 1))
@@ -253,18 +262,18 @@ def phase_device():
 def _kernel_label(mangled: str) -> str:
     """A readable name for a mangled kernel name of ptxas's log."""
     name = next((n for n in ("lstm_cluster_kernel", "lstm_stacked_kernel",
-                             "lstm_wavefront_kernel", "hist_scaled_resized_cluster_kernel",
-                             "hist_scaled_resized_kernel", "hist_scaled_kernel",
+                             "lstm_wavefront_kernel", "hist_scaled_cluster_kernel",
                              "hist_frame_cluster_kernel", "hist_frame_kernel",
-                             "scale_counts_kernel", "empty_kernel")
+                             "scale_counts_cluster_kernel", "empty_kernel")
                  if n in mangled), mangled)
     m = re.search(r"ILi(\d+)ELb([01])E", mangled)
     if m:
         name += f"<H={m.group(1)}, {'wavefront' if m.group(2) == '1' else 'stacked'}>"
-    elif (m := re.search(r"scale_counts_kernelILb([01])E", mangled)):
+    elif (m := re.search(r"scale_counts_cluster_kernelILb([01])E", mangled)):
         name += "<resize>" if m.group(1) == "1" else "<frame>"
-    elif (m := re.search(r"hist_scaled_resized_cluster_kernelILb([01])E", mangled)):
-        name += "<packed>" if m.group(1) == "1" else "<int32>"
+    elif (m := re.search(r"hist_scaled_cluster_kernelILb([01])ELb([01])E", mangled)):
+        name += (f"<{'packed' if m.group(1) == '1' else 'int32'}, "
+                 f"{'K3' if m.group(2) == '1' else 'K2'}>")
     return name
 
 
@@ -282,7 +291,7 @@ def phase_build():
 
 
 def _route_rules():
-    """The CPU copies of K1's and K3's cluster rules (ops/voxelizer.py)
+    """The CPU copies of K1's, K2's and K3's cluster rules (ops/voxelizer.py)
     against the library's (csrc/voxelizer.cu), on a grid of shapes."""
     lib = _build.library()
     shapes = [(h, w) for h in (1, 7, 64, 260, 480, 720) for w in (1, 86, 346, 640, 1280)]
@@ -297,22 +306,23 @@ def _route_rules():
                 if resized_cluster_cap(h, w, ho, wo, cluster) != \
                         lib.evfly_hist_resized_cluster_cap(h, w, ho, wo, cluster):
                     differ.append(("K3", h, w, ho, wo, cluster))
-    n_cases = len(shapes) * 5 * 5
+            if scaled_cluster_cap(h, w, cluster) != \
+                    lib.evfly_hist_scaled_cluster_cap(h, w, cluster):
+                differ.append(("K2", h, w, cluster))
+    n_cases = len(shapes) * 5 * 6
     log(f"cluster route rules: Python and csrc/voxelizer.cu agree on "
         f"{n_cases - len(differ)} of {n_cases} cases; K3's cap at {H}x{W} -> {H_OUT}x{W_OUT}: "
-        f"{resized_cluster_cap(H, W, H_OUT, W_OUT)} events per window on {K3_CLUSTER} CTAs")
+        f"{resized_cluster_cap(H, W, H_OUT, W_OUT)} events per window on {K3_CLUSTER} CTAs; "
+        f"K2's at {H}x{W}: {scaled_cluster_cap(H, W)} on {K2_CLUSTER} CTAs")
     require(not differ, f"the cluster rules disagree with csrc/voxelizer.cu at {differ[:5]}")
 
 
-def phase_k3(dev, flush):
-    """K3 against its plain version (within K3_ATOL, q exactly equal): the
-    serving shape, the zero-quantile windows, and windows the one-block
-    kernel of before refused: WIDE_EVENTS; PACKED_EVENTS, the most with
-    int16 counts, one of them at +-32,000; K3_HOT_EVENTS with a count past
-    int16 (int32 counts); PATCH_EVENTS with hundreds of counts past its
-    dense table.  Timed at the serving shape and at one window; the cluster
-    size swept."""
-    _route_rules()
+def scaled_cases(dev):
+    """(label, events) of the windows K2 and K3 are checked on: the serving
+    shape, the zero-quantile windows, and windows the one-block kernels of
+    before refused: WIDE_EVENTS; PACKED_EVENTS, the most with int16 counts,
+    one of them at +-32,000; K3_HOT_EVENTS with a count past int16 (int32
+    counts); PATCH_EVENTS with hundreds of counts past the dense table."""
     ex, ey, ep = make_events(0, N_WINDOWS, N_EVENTS, dev)
     sx, sy, sp = make_events(1, 2, SPARSE_EVENTS, dev)
     wx, wy, wp = make_events(15, 2, WIDE_EVENTS, dev)
@@ -326,19 +336,30 @@ def phase_k3(dev, flush):
     kx, ky, kp = make_events(19, 2, PACKED_EVENTS, dev)
     kx[:, :PACKED_HOT], ky[:, :PACKED_HOT] = 200.5, 129.5  # the last row of band 0
     kp[0, :PACKED_HOT], kp[1, :PACKED_HOT] = 1, -1
+    for resize in (None, (H_OUT, W_OUT)):
+        require(all(scaled_route(n, H, W, resize) == "cluster"
+                    for n in (N_EVENTS, WIDE_EVENTS, K3_HOT_EVENTS, PATCH_EVENTS,
+                              PACKED_EVENTS)),
+                f"the routes of the wide windows (resize {resize})")
+    require(resized_packed(PACKED_EVENTS) and not resized_packed(K3_HOT_EVENTS),
+            "the layouts of the wide windows")
+    return [(f"{N_WINDOWS}x{N_EVENTS} events", (ex, ey, ep)),
+            (f"sparse {SPARSE_EVENTS} events", (sx, sy, sp)),
+            (f"2x{WIDE_EVENTS:,} events (past the one-block kernels' caps)", (wx, wy, wp)),
+            (f"2x{PACKED_EVENTS:,} events, {PACKED_HOT:,} of +-1 on one pixel (int16 counts)",
+             (kx, ky, kp)),
+            (f"2x{K3_HOT_EVENTS:,} events, {HOT:,} on one pixel (int32 counts)", (hx, hy, hp)),
+            (f"2x{PATCH_EVENTS:,} events, half on a 20x20 patch", (px, py, pp))]
+
+
+def phase_k3(dev, flush):
+    """K3 against its plain version (within K3_ATOL, q exactly equal) on
+    ``scaled_cases``.  Timed at the serving shape and at one window; the
+    cluster size swept."""
+    _route_rules()
+    cases = scaled_cases(dev)
+    ex, ey, ep = cases[0][1]
     out_hw = (H_OUT, W_OUT)
-    require(scaled_route(WIDE_EVENTS, H, W) == "k1"
-            and all(scaled_route(n, H, W, out_hw) == "cluster"
-                    for n in (WIDE_EVENTS, K3_HOT_EVENTS, PATCH_EVENTS, PACKED_EVENTS))
-            and resized_packed(PACKED_EVENTS) and not resized_packed(K3_HOT_EVENTS),
-            "the routes of the wide windows")
-    cases = [(f"{N_WINDOWS}x{N_EVENTS} events", (ex, ey, ep)),
-             (f"sparse {SPARSE_EVENTS} events", (sx, sy, sp)),
-             (f"2x{WIDE_EVENTS:,} events (past the one-block kernel's cap)", (wx, wy, wp)),
-             (f"2x{PACKED_EVENTS:,} events, {PACKED_HOT:,} of +-1 on one pixel (int16 counts)",
-              (kx, ky, kp)),
-             (f"2x{K3_HOT_EVENTS:,} events, {HOT:,} on one pixel (int32 counts)", (hx, hy, hp)),
-             (f"2x{PATCH_EVENTS:,} events, half on a 20x20 patch", (px, py, pp))]
     max_err = 0.0
     for label, events in cases:
         ref, qref = hist_scaled_resized_plain(*events, H, W, H_OUT, W_OUT)
@@ -473,37 +494,56 @@ def phase_k1(dev, flush):
 
 
 def phase_k2(dev, flush):
-    ex, ey, ep = make_events(0, N_WINDOWS, N_EVENTS, dev)
-    out, q = hist_scaled(ex, ey, ep, H, W)
-    ref, qref = hist_scaled_plain(ex, ey, ep, H, W)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    q_bad = int((q != qref).sum().item())
-    log(f"K2 {N_WINDOWS}x{N_EVENTS} events: max|diff| {err:.3e} (atol {K2_ATOL}), "
-        f"q mismatches {q_bad}")
-    require(out.shape == (N_WINDOWS, H, W) and bool(torch.isfinite(out).all()), "K2 output")
-    require(err <= K2_ATOL and q_bad == 0, "K2 disagrees with its plain version")
+    """K2's cluster kernel against its plain version (within K2_ATOL, q
+    exactly equal) on ``scaled_cases``; timed at the serving shape (the
+    fused rung's) and at one window; the cluster size swept."""
+    cases = scaled_cases(dev)
+    ex, ey, ep = cases[0][1]
+    max_err = 0.0
+    for label, events in cases:
+        ref, qref = hist_scaled_plain(*events, H, W)
+        out, q = hist_scaled(*events, H, W)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        q_bad = int((q != qref).sum().item())
+        max_err = max(max_err, err)
+        log(f"K2 {label}: max|diff| {err:.3e} (atol {K2_ATOL}), q mismatches {q_bad}, "
+            f"q range [{q.min().item()}, {q.max().item()}]")
+        require(out.shape == ref.shape and bool(torch.isfinite(out).all()), "K2 output")
+        require(err <= K2_ATOL and q_bad == 0, f"K2 disagrees with its plain version ({label})")
+        if label.startswith("sparse"):
+            require(bool((q == 0).all()) and bool((qref == 0).all()), "zero-quantile snap missed")
 
-    sx, sy, sp = make_events(1, 2, SPARSE_EVENTS, dev)
-    s_out, s_q = hist_scaled(sx, sy, sp, H, W)
-    s_ref, s_qref = hist_scaled_plain(sx, sy, sp, H, W)
-    torch.cuda.synchronize()
-    s_err = (s_out - s_ref).abs().max().item()
-    log(f"K2 sparse {SPARSE_EVENTS} events: q {s_q.tolist()} (plain {s_qref.tolist()}), "
-        f"max|diff| {s_err:.3e}")
-    require(bool((s_q == 0).all()) and bool((s_qref == 0).all()), "zero-quantile snap missed")
-    require(s_err <= K2_ATOL, "K2 sparse window disagrees with its plain version")
-
-    ms = time_ms(lambda: hist_scaled(ex, ey, ep, H, W), flush, 20)
+    ox, oy, op = (t[:1] for t in (ex, ey, ep))
+    turns = [time_ms(lambda: hist_scaled(ex, ey, ep, H, W), flush, 20) for _ in range(2)]
+    one = [time_ms(lambda: hist_scaled(ox, oy, op, H, W), flush, 20) for _ in range(2)]
     plain_ms = time_ms(lambda: hist_scaled_plain(ex, ey, ep, H, W), flush, 5)
+    out, q = hist_scaled(ex, ey, ep, H, W)
     n_bytes = sum(t.numel() * t.element_size() for t in (ex, ey, ep, out, q))
     # one add per event, |count| and its table entry per cell, scale and
     # clip per cell
     n_flops = N_WINDOWS * N_EVENTS + 4 * N_WINDOWS * H * W
     b_ms, b_by = bound_ms(n_bytes, n_flops)
-    log(f"K2 times: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+    log(f"K2 times {N_WINDOWS}x{N_EVENTS}: {turns[0]:.4f} / {turns[1]:.4f} ms; plain "
+        f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); 1x{N_EVENTS}: {one[0]:.4f} / "
+        f"{one[1]:.4f} ms")
+
+    ref, qref = hist_scaled_plain(ex, ey, ep, H, W)
+    for cluster in K2_SWEEP:
+        got, gq = _scaled_cluster_launch(ex, ey, ep, H, W, 0.2, 0.97, 18, cluster)
+        torch.cuda.synchronize()
+        require(torch.equal(gq, qref) and (got - ref).abs().max().item() <= K2_ATOL,
+                f"K2 on {cluster} CTAs disagrees with its plain version")
+        ms = time_ms(lambda: _scaled_cluster_launch(ex, ey, ep, H, W, 0.2, 0.97, 18, cluster),
+                     flush, 20)
+        smem = scaled_cluster_smem(N_EVENTS, H, W, cluster)
+        resident = vox_cluster_occupancy("k2", H, W, N_EVENTS, cluster=cluster)
+        log(f"K2 cluster of {cluster} CTAs{' (K2_CLUSTER)' if cluster == K2_CLUSTER else ''}:"
+            f" {ms:.4f} ms at {N_WINDOWS}x{N_EVENTS}; {smem} bytes of dynamic shared memory "
+            f"per CTA; {resident} clusters resident at once; cap "
+            f"{scaled_cluster_cap(H, W, cluster)} events per window")
+    return dict(max_abs_err=max_err, ms=statistics.mean(turns), plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 # (mode, route) -> (label, kernel wrapper, its plain version)
@@ -986,7 +1026,7 @@ def phase_card_numbers(dev, model, windows, smi):
     return numbers
 
 
-_SERVING_KERNELS = {"K3": "hist_scaled_resized_cluster_kernel", "K4": "lstm_cluster_kernel"}
+_SERVING_KERNELS = {"K3": "hist_scaled_cluster_kernel", "K4": "lstm_cluster_kernel"}
 
 
 def phase_profile(step, kernel_names=_SERVING_KERNELS, label="main-path"):
@@ -1131,7 +1171,7 @@ def phase_event_cap(dev, flush):
     points, routed by shape through K1's counts and ``scale_counts`` /
     ``scale_counts_resized``: the quantile equal to the plain version's,
     the frames within 2e-5 and 3e-5; each of the two kernels held against
-    its plain version on K1's counts and timed."""
+    its plain version on K1's counts and timed, the cluster size swept."""
     require(scaled_route(CAP_EVENTS, H, W) == "k1"
             and scaled_route(CAP_EVENTS, H, W, (H_OUT, W_OUT)) == "k1",
             "the route of CAP_EVENTS events")
@@ -1165,32 +1205,50 @@ def phase_event_cap(dev, flush):
     require(torch.equal(public, frame) and torch.equal(public_small, small),
             "the entry points disagree with their routes")
 
-    # each kernel on K1's counts against its plain version, and its times
+    # each kernel on K1's counts against its plain version, and its times;
+    # a window of counts whose 97th percentile passes the dense table (the
+    # search over the lists), against its plain version
     cnt = hist_frame_routed(ex, ey, ep, H, W, 1.0, 1.0)
     B, HW, HWo = cnt.shape[0], H * W, H_OUT * W_OUT
+    rng = np.random.default_rng(21)
+    deep = torch.tensor(rng.integers(-400, 401, (1, H, W)), dtype=torch.float32, device=dev)
     entries = {}
-    for name, kernel, plain, atol, extra, n_out, per_out in (
-            ("scale_counts", scale_counts, scale_counts_plain, K2_ATOL, (), HW, 3),
+    for name, kernel, plain, atol, extra, resize, n_out, per_out in (
+            ("scale_counts", scale_counts, scale_counts_plain, K2_ATOL, (), None, HW, 3),
             ("scale_counts_resized", scale_counts_resized, scale_counts_resized_plain, K3_ATOL,
-             (H_OUT, W_OUT), HWo, 4 * 3 + 6)):
-        got, gq = kernel(cnt, *extra)
-        want, wq = plain(cnt, *extra)
-        torch.cuda.synchronize()
-        kerr = (got - want).abs().max().item()
-        require(bool(torch.isfinite(got).all()) and torch.equal(gq, wq) and kerr <= atol,
-                f"{name} disagrees with its plain version")
+             (H_OUT, W_OUT), (H_OUT, W_OUT, False), HWo, 4 * 3 + 6)):
+        kerr = 0.0
+        for label, c in (("K1's counts", cnt), ("counts up to +-400", deep)):
+            got, gq = kernel(c, *extra)
+            want, wq = plain(c, *extra)
+            torch.cuda.synchronize()
+            kerr = max(kerr, (got - want).abs().max().item())
+            log(f"{name} on {label} ({c.shape[0]} x {H}x{W}, max |count| "
+                f"{c.abs().max().item():.0f}): max|diff| {kerr:.3e} (atol {atol}), q "
+                f"{gq.tolist()} (plain {wq.tolist()})")
+            require(bool(torch.isfinite(got).all()) and torch.equal(gq, wq) and kerr <= atol,
+                    f"{name} disagrees with its plain version on {label}")
         ms = time_ms(lambda: kernel(cnt, *extra), flush, 20)
         plain_ms = time_ms(lambda: plain(cnt, *extra), flush, 5)
-        # the counts read once, the output and q written once; |count|,
-        # the max and the zero count per cell, a compare and an add per cell
-        # on each of the 18 bisection steps, then per output its scalings
-        # (and the resize's taps)
+        sweep = {}
+        for cluster in SCALE_SWEEP:
+            got, gq = _scale_launch(name, cnt, 0.2, 0.97, 18, resize, cluster)
+            want, wq = plain(cnt, *extra)
+            torch.cuda.synchronize()
+            require(torch.equal(gq, wq) and (got - want).abs().max().item() <= atol,
+                    f"{name} on {cluster} CTAs disagrees with its plain version")
+            sweep[cluster] = time_ms(lambda: _scale_launch(name, cnt, 0.2, 0.97, 18, resize,
+                                                           cluster), flush, 20)
+        # the counts read once, the output and q written once; per cell
+        # |count| and its table entry, then per output its scalings (and the
+        # resize's taps)
         n_bytes = 4 * (B * HW + B * n_out + B)
-        n_flops = B * HW * (3 + 2 * 18) + B * n_out * per_out
+        n_flops = B * HW * 3 + B * n_out * per_out
         b_ms, b_by = bound_ms(n_bytes, n_flops)
-        log(f"{name} ({B} x {H}x{W} counts, max |count| {cnt.abs().max().item():.0f}): "
-            f"max|diff| {kerr:.3e} (atol {atol}), q equal; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        log(f"{name} ({B} x {H}x{W} counts of K1): kernel {ms:.4f} ms on {SCALE_CLUSTER} "
+            f"CTAs, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); cluster sizes: "
+            + ", ".join(f"{c} CTAs {t:.4f} ms" for c, t in sweep.items())
+            + f"; slice kept in shared memory: {resize is None and scale_slice_cached(HW)}")
         entries[name] = dict(max_abs_err=kerr, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by, library_ms=None)
     return counts, entries
@@ -1307,14 +1365,14 @@ def main() -> int:
               stream_launches["K1 cluster"], **k1["cluster"]),
         entry("hist_frame (K1, band kernel)", vox, "evfly_tpu/ops/voxelizer.py:153",
               stream_launches["K1 band"], **k1["band"]),
-        entry("hist_scaled (K2)", vox, "evfly_tpu/ops/voxelizer.py:251", rung_launches["K2"],
-              **k2),
+        entry("hist_scaled (K2, cluster kernel)", vox, "evfly_tpu/ops/voxelizer.py:251",
+              rung_launches["K2"], **k2),
         entry("hist_scaled_resized (K3, cluster kernel)", vox,
               "evfly_tpu/ops/voxelizer.py:405", launches["K3"], **k3),
-        entry("scale_counts (K2's function over K1's counts)", vox,
+        entry("scale_counts (K2's function over K1's counts, cluster kernel)", vox,
               "evfly_tpu/ops/voxelizer.py:251", cap_launches["scale_counts"],
               **cap["scale_counts"]),
-        entry("scale_counts_resized (K3's function over K1's counts)", vox,
+        entry("scale_counts_resized (K3's function over K1's counts, cluster kernel)", vox,
               "evfly_tpu/ops/voxelizer.py:405", cap_launches["scale_counts_resized"],
               **cap["scale_counts_resized"]),
         lstm_entry("stacked", "cluster", launches["K4 cluster"]),

@@ -23,48 +23,49 @@
 // is a few microseconds of work, so what a design must avoid is serial
 // memory latency and one SM doing a window's work alone.
 //
-// The cluster kernels (K1 `hist_frame_cluster_kernel`, K3
-// `hist_scaled_resized_cluster_kernel`): one thread-block cluster of C
-// CTAs per window (the wrappers' K1_CLUSTER = 8, K3_CLUSTER = 2), windows x
-// C CTAs on grid.x.  The window's count frame is cut into C bands of
-// ceil(H / C) rows, CTA r holding rows [r * rows, (r + 1) * rows) in its
-// shared memory, so the cluster's distributed shared memory holds the whole
-// frame (352 KiB of int32 at 260x346).  Each CTA reads 1/C of the window's
-// events once, with 16-byte loads (its first group issued before it zeroes
-// its band), bins each with `bin_event` and adds its sign into the owning CTA's
-// band (a shared-memory atomic, or a reduction into the owner's shared
-// memory: the counts are integers, so any order gives the same frame).  A
-// cluster barrier before the events (every band zeroed) and one after them
+// The cluster kernels (K1 `hist_frame_cluster_kernel`, K2 and K3
+// `hist_scaled_cluster_kernel<kPacked, kResize>`): one thread-block cluster
+// of C CTAs per window (the wrappers' K1_CLUSTER = 8, K2_CLUSTER =
+// K3_CLUSTER = 2), windows x C CTAs on grid.x.  The window's count frame is
+// cut into C bands of ceil(H / C) rows, CTA r holding rows [r * rows, (r +
+// 1) * rows) in its shared memory, so the cluster's distributed shared memory
+// holds the whole frame (352 KiB of int32 at 260x346).  Each CTA reads 1/C of
+// the window's events once, with 16-byte loads (its first group issued before
+// it zeroes its band), bins each with `bin_event` and adds its sign into the
+// owning CTA's band (a shared-memory atomic, or a reduction into the owner's
+// shared memory: the counts are integers, so any order gives the same frame).
+// A cluster barrier before the events (every band zeroed) and one after them
 // (every event counted) order the adds.  Then:
 //
 //   * K1 writes each band with 16-byte stores.  The band starts in shared
 //     memory at the word offset (`lead`) that its first cell has modulo 4 in
 //     the output, so an aligned group of four cells is one int4 in shared
 //     memory and one float4 in global memory.
-//   * K3 copies the next band's first row (the second tap row of its last
-//     output rows) through distributed shared memory, and scans its band
-//     for the count-of-counts of |count|: below kSmall from three sums per
-//     thread taken without a branch (#(|count| > 0), sum |count|, sum
-//     |count|^2; most cells are 0, 1 or 2, and the scan is bound by the SM's
-//     integer issue rate, so what counts is instructions per cell), below
-//     kTable, from kTable on into a list (at most N / kTable cells reach
-//     it), each added into every CTA's table and list, with its max, by
-//     atomics in distributed shared memory.  After a third barrier no CTA
-//     touches another's shared memory, so none waits for the others again:
-//     each prefix-sums its table and runs the 18-step bisection in one
-//     warp: #(|count| <= mid) == CDF[floor(mid)], and where the table's CDF
-//     reaches kth the test CDF[m] < kth is m < v for the least v whose CDF
-//     does, so no step reads memory; the quantile is the plain version's
-//     bit for bit.  It writes the output rows whose first tap row lies in
-//     its band, the taps' indices held as ints.  Up to kMaxPacked (32,767)
-//     events per window its band holds two int16 counts a word
-//     (`Band<true>`, 94 KB a CTA at 260x346 on 2 CTAs), so two CTAs of 512
-//     threads share an SM and twice as many windows run at once as with
-//     int32 counts (`Band<false>`, one CTA of 1,024 threads per SM), which
-//     take the windows above.  The cap
-//     is what the band, the taps, the row and the list leave of a block's
-//     shared memory (`resized_cluster_cap`: 763,135 events at 260x346 on 2
-//     CTAs).
+//   * K2 and K3 scan their band for the count-of-counts of |count|
+//     (`SmallCounts`): below kSmall from three sums per thread taken without
+//     a branch (#(|count| > 0), sum |count|, sum |count|^2; most cells are 0,
+//     1 or 2, and the scan is bound by the SM's integer issue rate, so what
+//     counts is instructions per cell), below kTable, from kTable on into a
+//     list (at most N / kTable cells reach it), each added into every CTA's
+//     table and list, with its max, by atomics in distributed shared memory.
+//     K3 also copies the next band's first row (the second tap row of its
+//     last output rows) through distributed shared memory.  After a third
+//     barrier no CTA touches another's shared memory, so none waits for the
+//     others again: each prefix-sums its table and runs the 18-step
+//     bisection in one warp: #(|count| <= mid) == CDF[floor(mid)], and where
+//     the table's CDF reaches kth the test CDF[m] < kth is m < v for the
+//     least v whose CDF does, so no step reads memory; the quantile is the
+//     plain version's bit for bit.  K3 writes the output rows whose first tap
+//     row lies in its band, the taps' indices held as ints; K2 writes its
+//     band of the clipped frame with 16-byte stores, its band laid out at
+//     K1's `lead`.  Up to kMaxPacked (32,767) events per window a band holds
+//     two int16 counts a word (`Band<true>`, 94 KB a CTA at 260x346 on 2
+//     CTAs), so two CTAs of 512 threads share an SM and twice as many windows
+//     run at once as with int32 counts (`Band<false>`, one CTA of 1,024
+//     threads per SM), which take the windows above.  The caps are what the
+//     band, the list (and K3's taps and row) leave of a block's shared memory
+//     (`scaled_cluster_cap`: 823,807 events at 260x346 on 2 CTAs;
+//     `resized_cluster_cap`: 763,135).
 //
 // Frames that no cluster of K1 holds keep K1's band kernel
 // (`hist_frame_kernel`), chosen by the wrappers by shape.
@@ -78,24 +79,23 @@
 // JAX package does in f32, so the frame is bit for bit the JAX one (in
 // both K1 kernels).
 //
-// K2 holds the whole frame in one block:
-//
-//   * one block per window; the full frame never leaves shared memory.  Two
-//     int16 counts share one int32 word.  atomicAdd on the word with +-1 or
-//     +-65536 keeps word == hi * 65536 + lo exactly while |hi|, |lo| <=
-//     32767, which the wrappers guarantee (events per window).
-//   * the quantile comes from a count-of-counts table over |count| in
-//     shared memory, prefix-summed once, with the same O(1) bisection.
-//   * it writes the clipped frame.
-//
-// A window that K2 and K3 cannot take (more than their caps) gets their
-// function in two launches: K1's counts (thresholds 1: exact integers in
-// f32), then scale_counts_kernel, one block per window, which reads the
-// count frame from global memory (L2) and runs the plain version's
-// bisection on it: on [0, max |count|], `iters` halvings, each counting
-// #(|count| <= mid) over the whole frame, and the same zero snap, so the
-// quantile is the plain version's bit for bit.  It then writes the clipped
-// frame (K2's function) or the resized input from K3's taps (K3's function).
+// A window that K2 and K3 cannot take (more events than their caps, or a
+// frame no band holds) gets their function in two launches: K1's counts
+// (thresholds 1: exact integers in f32), then `scale_counts_cluster_kernel`,
+// one cluster of C CTAs per window (the wrappers' SCALE_CLUSTER = 16).  Each
+// CTA reads 1/C of the window's counts once with 16-byte loads (keeping them
+// in shared memory for the frame where they fit) and tallies their |count|
+// as K2 and K3 do, the list in global scratch (no count is bounded, so no
+// list of shared memory could hold every cell past kTable); each CTA writes
+// its table, max and list length into a slot of every CTA's shared memory,
+// and one cluster barrier ends the exchange.  The bisection depends only on
+// v_k, the k-th smallest |count|: #(|count| <= mid) >= kth exactly when v_k
+// <= mid, so its 18 steps run in one thread as comparisons with v_k, and
+// the zero snap is v_k == 0.  v_k is read off the merged table's CDF, or,
+// where that stays below kth, found by a search over the lists.  Each CTA
+// then writes its slice of the clipped frame with 16-byte stores (K2's
+// function), or a share of the resized rows from K3's taps (K3's function),
+// reading the taps' counts from L2.
 //
 // Every kernel's shared-memory attributes are set once per device, for the
 // largest size a wrapper gives it.  Each C entry point returns
@@ -111,18 +111,46 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kThreads = 1024;
 constexpr int kBandThreads = 512;
 constexpr int kFrameThreads = 512;     // K1's cluster kernel, a CTA
-constexpr int kResizedThreads = 1024;  // K3's, int32 counts (one CTA per SM)
-constexpr int kPackedThreads = 512;    // K3's, two int16 counts a word (two CTAs per SM)
-constexpr int kMaxPacked = 32767;      // K3 packs its counts up to this many events
+constexpr int kResizedThreads = 1024;  // K2's and K3's, int32 counts (one CTA per SM)
+constexpr int kPackedThreads = 512;    // K2's and K3's, two int16 counts a word (two CTAs per SM)
+constexpr int kMaxPacked = 32767;      // K2 and K3 pack their counts up to this many events
+constexpr int kScaleThreads = 512;     // scale_counts' cluster kernel, a CTA
+constexpr int kScaleBatch = 8;         //   its 16-byte loads in flight per thread
 constexpr int kMaxCluster = 16;  // above 8 CTAs a cluster is non-portable
-constexpr int kSmall = 4;        // K3: |count| below this is counted in registers,
-constexpr int kTable = 64;       //     below this in a dense table, from it on in a list
+constexpr int kSmall = 4;        // K2, K3, scale_counts: |count| below this is counted
+constexpr int kTable = 64;       //   in registers, below this in a dense table, from
+                                 //   it on in a list
 // a block may opt in to 227 KB (232,448 bytes) of shared memory; keep 1 KiB
-// for the kernels' static shared variables
+// for the kernels' static shared variables (8 KiB for scale_counts', which
+// hold every CTA's table)
 constexpr int kSmemLimit = 232448 - 1024;
+constexpr int kScaleSmemLimit = 232448 - 8192;
+
+// Phase stamps for probes (tools/k2_phase_stamps.py builds the library with
+// -DEVFLY_PHASE_STAMPS): thread 0 of CTA i of K2's cluster kernel writes
+// %globaltimer at the end of phase k to g_stamps[i * kStampsPerCta + k] and
+// its SM's id to the last slot.  Without the macro the stamps compile away.
+constexpr int kStampsPerCta = 8;
+#ifdef EVFLY_PHASE_STAMPS
+constexpr int kStampCtas = 8192;
+__device__ unsigned long long g_stamps[kStampCtas * kStampsPerCta];
+
+template <bool kOn>
+__device__ __forceinline__ void phase_stamp(int k) {
+  if (!kOn || threadIdx.x != 0 || blockIdx.x >= kStampCtas) return;
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  unsigned smid;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+  g_stamps[blockIdx.x * kStampsPerCta + k] = t;
+  g_stamps[blockIdx.x * kStampsPerCta + kStampsPerCta - 1] = smid;
+}
+#define EVFLY_STAMP(on, k) phase_stamp<on>(k)
+#else
+#define EVFLY_STAMP(on, k)
+#endif
 
 // np.histogram2d binning: the flat cell of an event, or -1 when it is
 // dropped (outside [0, W] x [0, H], NaN, or pol == 0); *sign gets +-1.
@@ -191,24 +219,18 @@ __device__ __forceinline__ int decode_count(const int* words, int idx) {
   return (w - lo) / 65536;  // exact: w - lo is a multiple of 65536
 }
 
-__device__ __forceinline__ float scaled_count(const int* words, int idx, float scale) {
-  return fminf(fmaxf(__fmul_rn(static_cast<float>(decode_count(words, idx)), scale), -1.f),
-               1.f);
-}
-
 // c as a float, exactly, for |c| < 2^22 (every count of a window the
 // kernels take), by the FP32 pipe: 1.5 * 2^23 + c has ulp 1
 __device__ __forceinline__ float count_to_float(int c) {
   return __fsub_rn(__int_as_float(0x4B400000 + c), 12582912.f);
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ float clip_scaled(float count, float scale) {
+  return fminf(fmaxf(__fmul_rn(count, scale), -1.f), 1.f);
 }
 
-__device__ __forceinline__ int warp_max(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
@@ -219,118 +241,6 @@ __device__ __forceinline__ int warp_inclusive_scan(int v) {
     if (lane >= o) v += u;
   }
   return v;
-}
-
-// Steps 1-4 of K2 and K3 for window b: the packed count frame in
-// words[(H*W+1)/2] and the scale in the return value; q goes to qout[b].
-__device__ float packed_frame_and_scale(const float* __restrict__ x,
-                                        const float* __restrict__ y,
-                                        const int* __restrict__ pol, float* __restrict__ qout,
-                                        int* words, int* table, int b, int N, int H, int W,
-                                        int kth, float thresh, int iters, int table_len) {
-  __shared__ int s_zero, s_max;
-  __shared__ int s_warp[kThreads / 32];
-  __shared__ float s_scale;
-
-  const int HW = H * W;
-  const int nwords = (HW + 1) / 2;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
-
-  for (int i = tid; i < nwords; i += nthreads) words[i] = 0;
-  for (int i = tid; i < table_len; i += nthreads) table[i] = 0;
-  if (tid == 0) { s_zero = 0; s_max = 0; }
-  __syncthreads();
-
-  // 1. bin with np.histogram2d edge rules and accumulate signed counts
-  const float* xb = x + static_cast<size_t>(b) * N;
-  const float* yb = y + static_cast<size_t>(b) * N;
-  const int* pb = pol + static_cast<size_t>(b) * N;
-  for (int e = tid; e < N; e += nthreads) {
-    int s = 0;
-    const int idx = bin_event(xb[e], yb[e], pb[e], H, W, &s);
-    if (idx < 0) continue;
-    atomicAdd(&words[idx >> 1], (idx & 1) ? s * 65536 : s);
-  }
-  __syncthreads();
-
-  // 2. count-of-counts table of |count|; zeros are counted in registers
-  //    (most cells of a window are empty, one shared counter would serialise)
-  int my_zero = 0, my_max = 0;
-  for (int i = tid; i < HW; i += nthreads) {
-    const int a = abs(decode_count(words, i));
-    if (a == 0) {
-      ++my_zero;
-    } else {
-      atomicAdd(&table[a], 1);
-      my_max = max(my_max, a);
-    }
-  }
-  my_zero = warp_sum(my_zero);
-  my_max = warp_max(my_max);
-  if (lane == 0) { atomicAdd(&s_zero, my_zero); atomicMax(&s_max, my_max); }
-  __syncthreads();
-  if (tid == 0) table[0] = s_zero;
-  __syncthreads();
-
-  // 3. inclusive prefix sum of table[0..max] -> CDF
-  const int maxv = s_max;
-  const int len = maxv + 1;
-  const int per = (len + nthreads - 1) / nthreads;
-  const int start = min(tid * per, len), stop = min(start + per, len);
-  int part = 0;
-  for (int i = start; i < stop; ++i) part += table[i];
-  const int incl = warp_inclusive_scan(part);
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int v = lane < nwarps ? s_warp[lane] : 0;
-    v = warp_inclusive_scan(v);
-    s_warp[lane] = v;
-  }
-  __syncthreads();
-  int run = (warp > 0 ? s_warp[warp - 1] : 0) + incl - part;
-  for (int i = start; i < stop; ++i) { run += table[i]; table[i] = run; }
-  __syncthreads();
-
-  // 4. the TPU kernel's bisection, with O(1) counts
-  if (tid == 0) {
-    float lo = 0.f, hi = static_cast<float>(maxv);
-    for (int it = 0; it < iters; ++it) {
-      const float mid = 0.5f * (lo + hi);
-      const int m = min(static_cast<int>(floorf(mid)), maxv);
-      if (table[m] < kth) lo = mid; else hi = mid;
-    }
-    const float qv = table[0] >= kth ? 0.f : hi;
-    // multiply by the reciprocal, as the TPU kernel rounds
-    s_scale = qv > 0.f ? 1.f / fmaxf(qv, 1e-30f) : thresh;
-    qout[b] = qv;
-  }
-  __syncthreads();
-  return s_scale;
-}
-
-__global__ void __launch_bounds__(kThreads)
-hist_scaled_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                   const int* __restrict__ pol, float* __restrict__ out,
-                   float* __restrict__ qout, int N, int H, int W, int kth, float thresh,
-                   int iters, int table_len) {
-  extern __shared__ int smem[];
-  int* words = smem;
-  int* table = smem + (H * W + 1) / 2;  // table[v] = #(|count| == v), then the CDF
-  const int b = blockIdx.x;
-  const float scale = packed_frame_and_scale(x, y, pol, qout, words, table, b, N, H, W, kth,
-                                             thresh, iters, table_len);
-  // 5. the clipped frame
-  float* ob = out + static_cast<size_t>(b) * H * W;
-  for (int i = threadIdx.x; i < H * W; i += blockDim.x) ob[i] = scaled_count(words, i, scale);
-}
-
-// ------------------------------------------- K2 and K3 over K1's counts
-
-__device__ __forceinline__ float clip_scaled(float count, float scale) {
-  return fminf(fmaxf(__fmul_rn(count, scale), -1.f), 1.f);
 }
 
 // the sum over the block of every thread's v, in every thread
@@ -344,78 +254,47 @@ __device__ int block_sum(int v, int* s_warp) {
   return total;
 }
 
-// the max over the block of every thread's v >= 0, in every thread
-__device__ float block_max(float v, float* s_warp) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float m = 0.f;
-  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) m = fmaxf(m, s_warp[w]);
-  return m;
-}
+// One thread's part of the count-of-counts of |count| that K2, K3 and
+// scale_counts take: every cell, without a branch, into the max of its group
+// (m) and into sums of [a > 0], a and a * a (mod 2^32), a = |count|, from
+// which #(|count| == v) for v = 1, 2, 3 follow once the cells of a group
+// whose max reaches kSmall (few) are taken out again for the caller's table
+// or list.  The caller adds the cells it scans to `seen` (per group, so that
+// a cell costs no instruction for it).
+static_assert(kSmall == 4, "the sums give #(|count| == v) for v = 1, 2, 3");
+struct SmallCounts {
+  unsigned nz = 0, s1 = 0, s2 = 0;
+  int seen = 0, taken = 0;
 
-// counts (B, H, W) -> q[b] and, kResize false, the clipped frame (B, H, W);
-// kResize true, the resized input (B, h_out, w_out) from K3's taps
-template <bool kResize>
-__global__ void __launch_bounds__(kThreads)
-scale_counts_kernel(const float* __restrict__ counts, const float* __restrict__ taps,
-                    float* __restrict__ out, float* __restrict__ qout, int H, int W,
-                    int h_out, int w_out, int kth, float thresh, int iters) {
-  __shared__ int s_int[kThreads / 32];
-  __shared__ float s_flt[kThreads / 32];
-  const int HW = H * W;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const float* cb = counts + static_cast<size_t>(b) * HW;
-
-  // 1. max |count| and the number of zeros
-  float my_max = 0.f;
-  int my_zero = 0;
-  for (int i = tid; i < HW; i += nthreads) {
-    const float a = fabsf(cb[i]);
-    my_max = fmaxf(my_max, a);
-    my_zero += a <= 0.f;
+  __device__ __forceinline__ void add(int c, int& m) {
+    const unsigned a = static_cast<unsigned>(abs(c));
+    m = max(m, static_cast<int>(a));
+    nz += min(a, 1u);
+    s1 += a;
+    s2 += a * a;
   }
-  const float maxv = block_max(my_max, s_flt);
-  const int zeros = block_sum(my_zero, s_int);
 
-  // 2. the plain version's bisection (ops/percentile.bisect_abs_quantile)
-  float lo = 0.f, hi = maxv;
-  for (int it = 0; it < iters; ++it) {
-    const float mid = 0.5f * (lo + hi);
-    int n = 0;
-    for (int i = tid; i < HW; i += nthreads) n += fabsf(cb[i]) <= mid;
-    if (block_sum(n, s_int) < kth) lo = mid; else hi = mid;
+  // takes a cell of |count| = a >= kSmall out of the sums
+  __device__ __forceinline__ void take(unsigned a) {
+    nz -= 1u;
+    s1 -= a;
+    s2 -= a * a;
+    ++taken;
   }
-  const float qv = zeros >= kth ? 0.f : hi;
-  const float scale = qv > 0.f ? 1.f / fmaxf(qv, 1e-30f) : thresh;
-  if (tid == 0) qout[b] = qv;
 
-  // 3. the clipped frame, or the bilinear resize of it from the taps
-  if (!kResize) {
-    float* ob = out + static_cast<size_t>(b) * HW;
-    for (int i = tid; i < HW; i += nthreads) ob[i] = clip_scaled(cb[i], scale);
-    return;
+  // #(|count| == v), v < kSmall, of the cells seen and not taken
+  __device__ __forceinline__ void counts(unsigned n[4]) const {
+    // n1 + n2 + n3 = nz, n1 + 2 n2 + 3 n3 = s1, n1 + 4 n2 + 9 n3 = s2
+    const unsigned n3 = (s2 - 3u * s1 + 2u * nz) / 2u;
+    const unsigned n2 = s1 - nz - 2u * n3;
+    n[0] = static_cast<unsigned>(seen - taken) - nz;
+    n[1] = nz - n2 - n3;
+    n[2] = n2;
+    n[3] = n3;
   }
-  const float* th = taps;
-  const float* tw = taps + 4 * h_out;
-  float* ob = out + static_cast<size_t>(b) * h_out * w_out;
-  for (int o = tid; o < h_out * w_out; o += nthreads) {
-    const int i = o / w_out, j = o - i * w_out;
-    const int h0 = static_cast<int>(th[4 * i]), h1 = static_cast<int>(th[4 * i + 1]);
-    const float a0 = th[4 * i + 2], a1 = th[4 * i + 3];
-    const int c0 = static_cast<int>(tw[4 * j]), c1 = static_cast<int>(tw[4 * j + 1]);
-    const float b0 = tw[4 * j + 2], b1 = tw[4 * j + 3];
-    const float t0 = a0 * clip_scaled(cb[h0 * W + c0], scale) +
-                     a1 * clip_scaled(cb[h1 * W + c0], scale);
-    const float t1 = a0 * clip_scaled(cb[h0 * W + c1], scale) +
-                     a1 * clip_scaled(cb[h1 * W + c1], scale);
-    ob[o] = t0 * b0 + t1 * b1;
-  }
-}
+};
 
-// ------------------------------------------------ K1 and K3 on clusters
+// -------------------------------------------- K1, K2 and K3 on clusters
 
 __host__ __device__ __forceinline__ int round_up4(int n) { return (n + 3) & ~3; }
 
@@ -441,8 +320,9 @@ __host__ __device__ __forceinline__ int large_capacity(int N) {
   return round_up4(N / kTable + 1);
 }
 
-// K3's band holds two int16 counts in each word while a window has at most
-// kMaxPacked events (no count passes int16), else one int32 count a word
+// K2's and K3's bands hold two int16 counts in each word while a window has
+// at most kMaxPacked events (no count passes int16), else one int32 count a
+// word
 __host__ __device__ __forceinline__ bool resized_packed(int N) { return N <= kMaxPacked; }
 
 // words of K3's band array (whole int4s) and of its copy of the next band's
@@ -450,6 +330,43 @@ __host__ __device__ __forceinline__ bool resized_packed(int N) { return N <= kMa
 __host__ __device__ __forceinline__ int resized_band_words(int H, int W, int cluster,
                                                            bool packed) {
   return packed ? round_up4((band_rows(H, cluster) * W + 1) / 2) : band_ints(H, W, cluster);
+}
+
+// words of K2's band array: its cells from K1's `lead` (up to 3 slots) on,
+// whole int4s
+__host__ __device__ __forceinline__ int scaled_band_words(int H, int W, int cluster,
+                                                          bool packed) {
+  return packed ? round_up4((band_rows(H, cluster) * W + 4) / 2) : band_ints(H, W, cluster);
+}
+
+// the band and the window's list of large |count|
+size_t scaled_cluster_smem(int H, int W, int N, int cluster) {
+  return static_cast<size_t>(scaled_band_words(H, W, cluster, resized_packed(N)) +
+                             large_capacity(N)) *
+         sizeof(int);
+}
+
+// the most events per window whose list fits beside `band_words(packed)`
+// words of a block's shared memory, or -1 where not even a list of 4 does.
+// Up to kMaxPacked events the band is packed, so the cap is the int32 band's
+// where that passes kMaxPacked, else the packed band's (at most kMaxPacked)
+template <typename BandWords>
+int events_cap(BandWords band_words) {
+  auto cap_of = [&](bool packed) {
+    const int left = kSmemLimit / static_cast<int>(sizeof(int)) - band_words(packed);
+    const int list = left & ~3;  // the list's entries; N / kTable + 1 <= list
+    return list >= 4 ? list * kTable - 1 : -1;
+  };
+  const int wide = cap_of(false);
+  if (wide > kMaxPacked) return wide;
+  const int narrow = cap_of(true);
+  return narrow < kMaxPacked ? narrow : kMaxPacked;
+}
+
+// K2's cap at (H, W) on `cluster` CTAs
+int scaled_cluster_cap(int H, int W, int cluster) {
+  if (H < 1 || W < 1 || !cluster_size_ok(cluster)) return -1;
+  return events_cap([&](bool packed) { return scaled_band_words(H, W, cluster, packed); });
 }
 
 __host__ __device__ __forceinline__ int resized_halo_words(int W, bool packed) {
@@ -471,22 +388,13 @@ bool frame_cluster_fits(int H, int W, int two_pass, int cluster) {
 }
 
 // K3's cap: the most events per window whose list fits beside the band,
-// the taps and the row, or -1 where not even a list of 4 does.  Up to
-// kMaxPacked events the band is packed, so the cap is the int32 band's
-// where that passes kMaxPacked, else the packed band's (at most kMaxPacked)
+// the taps and the row (`events_cap`)
 int resized_cluster_cap(int H, int W, int h_out, int w_out, int cluster) {
   if (H < 1 || W < 1 || h_out < 1 || w_out < 1 || !cluster_size_ok(cluster)) return -1;
-  auto cap_of = [&](bool packed) {
-    const int left = kSmemLimit / static_cast<int>(sizeof(int)) -
-                     resized_band_words(H, W, cluster, packed) - 4 * (h_out + w_out) -
-                     resized_halo_words(W, packed);
-    const int list = left & ~3;  // the list's entries; N / kTable + 1 <= list
-    return list >= 4 ? list * kTable - 1 : -1;
-  };
-  const int wide = cap_of(false);
-  if (wide > kMaxPacked) return wide;
-  const int narrow = cap_of(true);
-  return narrow < kMaxPacked ? narrow : kMaxPacked;
+  return events_cap([&](bool packed) {
+    return resized_band_words(H, W, cluster, packed) + 4 * (h_out + w_out) +
+           resized_halo_words(W, packed);
+  });
 }
 
 // CTA `rank`'s slice [e0, e1) of a window's N events, a multiple of 4
@@ -700,15 +608,16 @@ struct Band {
   }
 };
 
-template <bool kPacked>
+// K2 (kResize false) and K3 (kResize true) on one cluster per window
+template <bool kPacked, bool kResize>
 __global__ void __launch_bounds__(Band<kPacked>::kThreads, kPacked ? 2 : 1)
-hist_scaled_resized_cluster_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                                   const int* __restrict__ pol, const float* __restrict__ taps,
-                                   float* __restrict__ out, float* __restrict__ qout, int N,
-                                   int H, int W, int h_out, int w_out, int kth, float thresh,
-                                   int iters) {
-  // dynamic: the band (Band<kPacked>'s layout); the window's list of
-  // |count| >= kTable; the taps; the next band's first row
+hist_scaled_cluster_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                           const int* __restrict__ pol, const float* __restrict__ taps,
+                           float* __restrict__ out, float* __restrict__ qout, int N, int H,
+                           int W, int h_out, int w_out, int kth, float thresh, int iters) {
+  // dynamic: the band (Band<kPacked>'s layout; K2's from its `lead` on);
+  // the window's list of |count| >= kTable; K3's taps and the next band's
+  // first row
   extern __shared__ int4 smem4[];
   // the window's #(|count| == v) for v < kTable, then their CDF; its max
   // |count|; the length of its list.  Every CTA adds its band's into every
@@ -722,19 +631,34 @@ hist_scaled_resized_cluster_kernel(const float* __restrict__ x, const float* __r
   const int b = blockIdx.x / C;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int rows = band_rows(H, C), stride = resized_band_words(H, W, C, kPacked);
+  const int rows = band_rows(H, C);
+  const int stride = kResize ? resized_band_words(H, W, C, kPacked)
+                             : scaled_band_words(H, W, C, kPacked);
   const int band_cells = rows * W;
   const int row0 = rank * rows;
   const int row_end = min(row0 + rows, H);
   const int cells = max(0, row_end - row0) * W;
-  const int n_taps = 4 * (h_out + w_out);
+  const int n_taps = kResize ? 4 * (h_out + w_out) : 0;
   const int halo_words = resized_halo_words(W, kPacked);
   const float inv_band_cells = 1.f / static_cast<float>(band_cells);
   int* band = reinterpret_cast<int*>(smem4);
   int* large = band + stride;
   float* s_taps = reinterpret_cast<float*>(large + large_capacity(N));
   int* halo = reinterpret_cast<int*>(s_taps + n_taps);
-  const int* next_row = row_end < H ? cluster.map_shared_rank(band, rank + 1) : nullptr;
+  const int* next_row =
+      kResize && row_end < H ? cluster.map_shared_rank(band, rank + 1) : nullptr;
+  // K2: cell i of CTA r's band at slot lead(r) + i, lead(r) being the
+  // output's word offset of that cell mod 4 (K1's layout); K3: at slot i
+  const size_t frame0 = static_cast<size_t>(b) * H * W;
+  const size_t out_word = reinterpret_cast<uintptr_t>(out) / sizeof(float);
+  auto lead_of = [&](int r) {
+    return kResize ? 0
+                   : static_cast<int>((out_word + frame0 + static_cast<size_t>(r) * band_cells) &
+                                      3);
+  };
+  const int lead = lead_of(rank);
+  const int slots = lead + cells;
+  EVFLY_STAMP(!kResize, 0);
 
   // 1. this thread's first group of events and first taps in flight (the
   //    taps land in shared memory after the events), its later groups on
@@ -752,6 +676,7 @@ hist_scaled_resized_cluster_kernel(const float* __restrict__ x, const float* __r
   for (int i = tid; i < kTable; i += nthreads) s_cdf[i] = 0;
   if (tid == 0) { s_max = 0; s_merged = 0; }
   cluster.sync();
+  EVFLY_STAMP(!kResize, 1);
 
   // 2. this CTA's slice of the events into their owners' bands
   for_each_event(x + ev0, y + ev0, pol + ev0, slice, first, [&](float xf, float yf, int p) {
@@ -762,7 +687,7 @@ hist_scaled_resized_cluster_kernel(const float* __restrict__ x, const float* __r
     int owner = __float2int_rz(static_cast<float>(idx) * inv_band_cells);
     owner -= owner * band_cells > idx;
     owner += (owner + 1) * band_cells <= idx;
-    Band<kPacked>::add(band, idx - owner * band_cells, owner, rank, s);
+    Band<kPacked>::add(band, lead_of(owner) + idx - owner * band_cells, owner, rank, s);
   });
   // the taps in shared memory, their two row or column indices as ints
   auto put_tap = [&](int i, float t) {
@@ -771,41 +696,27 @@ hist_scaled_resized_cluster_kernel(const float* __restrict__ x, const float* __r
   if (tid < n_taps) put_tap(tid, tap);
   for (int i = tid + nthreads; i < n_taps; i += nthreads) put_tap(i, __ldg(taps + i));
   cluster.sync();  // every event counted
+  EVFLY_STAMP(!kResize, 2);
 
-  // 3. the next band's first row, the second tap row of this band's last
-  //    output rows, copied in (its first part in flight during the scan);
-  //    this band's count-of-counts: |count| < kSmall in registers (most
-  //    cells), up to kTable by shared atomics, larger ones into its list
+  // 3. K3: the next band's first row, the second tap row of this band's
+  //    last output rows, copied in (its first part in flight during the
+  //    scan).  This band's count-of-counts (`SmallCounts`): |count| < kSmall
+  //    in registers (most cells), up to kTable and from kTable on (into the
+  //    list) taken out again and added into every CTA's table or list
   const int4 halo_first = next_row != nullptr && tid < halo_words / 4
                               ? reinterpret_cast<const int4*>(next_row)[tid]
                               : make_int4(0, 0, 0, 0);
-  // every cell, without a branch: a = |count| into the max of its group
-  // (m) and into sums of [a > 0], a and a * a (mod 2^32), from which
-  // #(|count| == v) for v = 1, 2, 3 follow once the cells of a group whose
-  // max reaches kSmall (few) are taken out again, into every CTA's table
-  // or, from kTable on, every CTA's list
-  static_assert(kSmall == 4, "the sums give #(|count| == v) for v = 1, 2, 3");
   // v added into word w of every CTA's shared memory
   auto add_everywhere = [&](int* w, int v) {
     for (int r = 0; r < C; ++r) atomicAdd(r == rank ? w : cluster.map_shared_rank(w, r), v);
   };
   constexpr int kPerInt4 = Band<kPacked>::kCellsPerInt4;
-  unsigned nz = 0, s1 = 0, s2 = 0;
-  int my_max = 0, n_rare = 0;
-  auto tally = [&](int c, int& m) {
-    const unsigned a = static_cast<unsigned>(abs(c));
-    m = max(m, static_cast<int>(a));
-    nz += min(a, 1u);
-    s1 += a;
-    s2 += a * a;
-  };
+  SmallCounts small;
+  int my_max = 0;
   auto rare = [&](int c) {
     const int a = abs(c);
     if (a < kSmall) return;
-    nz -= 1u;
-    s1 -= static_cast<unsigned>(a);
-    s2 -= static_cast<unsigned>(a) * static_cast<unsigned>(a);
-    ++n_rare;
+    small.take(static_cast<unsigned>(a));
     if (a < kTable) {
       add_everywhere(&s_cdf[a], 1);
       return;
@@ -816,11 +727,12 @@ hist_scaled_resized_cluster_kernel(const float* __restrict__ x, const float* __r
       list[atomicAdd(len, 1)] = a;
     }
   };
-  int cells_seen = 0;
-  for (int g = tid; g < cells / kPerInt4; g += nthreads) {
+  // the slots [0, lead) before K2's first cell are zero and not cells
+  if (tid == 0) small.seen = -lead;
+  for (int g = tid; g < slots / kPerInt4; g += nthreads) {
     const int4 v = smem4[g];
     int m = 0;
-    auto tally_m = [&](int c) { tally(c, m); };
+    auto tally_m = [&](int c) { small.add(c, m); };
     Band<kPacked>::cells_of(v.x, tally_m);
     Band<kPacked>::cells_of(v.y, tally_m);
     Band<kPacked>::cells_of(v.z, tally_m);
@@ -832,21 +744,17 @@ hist_scaled_resized_cluster_kernel(const float* __restrict__ x, const float* __r
       Band<kPacked>::cells_of(v.w, rare);
     }
     my_max = max(my_max, m);
-    cells_seen += kPerInt4;
+    small.seen += kPerInt4;
   }
-  for (int i = cells / kPerInt4 * kPerInt4 + tid; i < cells; i += nthreads) {
+  for (int i = slots / kPerInt4 * kPerInt4 + tid; i < slots; i += nthreads) {
     const int c = Band<kPacked>::at(band, i);
-    tally(c, my_max);
+    small.add(c, my_max);
     rare(c);
-    ++cells_seen;
+    ++small.seen;
   }
   {
-    // n1 + n2 + n3 = nz, n1 + 2 n2 + 3 n3 = s1, n1 + 4 n2 + 9 n3 = s2
-    const unsigned n3 = (s2 - 3u * s1 + 2u * nz) / 2u;
-    const unsigned n2 = s1 - nz - 2u * n3;
-    const unsigned n1 = nz - n2 - n3;
-    const unsigned n0 = static_cast<unsigned>(cells_seen - n_rare) - nz;
-    const unsigned n[kSmall] = {n0, n1, n2, n3};
+    unsigned n[kSmall];
+    small.counts(n);
 #pragma unroll
     for (int v = 0; v < kSmall; ++v) {
       const unsigned t = __reduce_add_sync(0xffffffffu, n[v]);
@@ -873,6 +781,7 @@ hist_scaled_resized_cluster_kernel(const float* __restrict__ x, const float* __r
   // writes another's shared memory from here on, so none waits for the
   // others again, not even to exit
   cluster.sync();
+  EVFLY_STAMP(!kResize, 3);
 
   // 4. the CDF of the table; the TPU kernel's bisection in one warp, its
   //    scale shared
@@ -912,50 +821,336 @@ hist_scaled_resized_cluster_kernel(const float* __restrict__ x, const float* __r
   }
   __syncthreads();
   const float scale = s_scale;
+  EVFLY_STAMP(!kResize, 4);
 
-  // 5. the output rows whose first tap row lies in this band, one warp
-  //    per row; a second tap row past the band is the next band's first,
-  //    in halo
-  auto scaled_at = [&](int row, int col) {
-    const int c = row < row_end ? Band<kPacked>::at(band, (row - row0) * W + col)
-                                : Band<kPacked>::at(halo, col);
-    return fminf(fmaxf(__fmul_rn(count_to_float(c), scale), -1.f), 1.f);
+  if constexpr (!kResize) {
+    // 5. K2: the band's cells, clipped, to out with 16-byte stores: slot s
+    //    of the band is word s of `dst`, which is 16-byte aligned
+    float* dst = out + frame0 + static_cast<size_t>(row0) * W - lead;
+    auto value = [&](int s) {
+      return clip_scaled(count_to_float(Band<kPacked>::at(band, s)), scale);
+    };
+    const int g0 = min((lead + 3) / 4, slots / 4), g1 = slots / 4;  // whole groups of 4
+    for (int s = lead + tid; s < min(4 * g0, slots); s += nthreads) dst[s] = value(s);
+    float4* dst4 = reinterpret_cast<float4*>(dst);
+    for (int g = g0 + tid; g < g1; g += nthreads) {
+      int c[4];
+      if (kPacked) {  // four slots, two words
+        const int2 w = reinterpret_cast<const int2*>(band)[g];
+        int k = 0;
+        auto put = [&](int count) { c[k++] = count; };
+        Band<kPacked>::cells_of(w.x, put);
+        Band<kPacked>::cells_of(w.y, put);
+      } else {
+        const int4 w = smem4[g];
+        c[0] = w.x, c[1] = w.y, c[2] = w.z, c[3] = w.w;
+      }
+      dst4[g] = make_float4(clip_scaled(count_to_float(c[0]), scale),
+                            clip_scaled(count_to_float(c[1]), scale),
+                            clip_scaled(count_to_float(c[2]), scale),
+                            clip_scaled(count_to_float(c[3]), scale));
+    }
+    for (int s = max(4 * g1, lead) + tid; s < slots; s += nthreads) dst[s] = value(s);
+#ifdef EVFLY_PHASE_STAMPS
+    __syncthreads();  // every thread's stores issued
+#endif
+    EVFLY_STAMP(true, 5);
+  } else {
+    // 5. K3: the output rows whose first tap row lies in this band, one
+    //    warp per row; a second tap row past the band is the next band's
+    //    first, in halo
+    auto scaled_at = [&](int row, int col) {
+      const int c = row < row_end ? Band<kPacked>::at(band, (row - row0) * W + col)
+                                  : Band<kPacked>::at(halo, col);
+      return clip_scaled(count_to_float(c), scale);
+    };
+    // (i0, i1, w0, w1) of an output row, then of an output column
+    const float4* th = reinterpret_cast<const float4*>(s_taps);
+    const float4* tw = th + h_out;
+    float* ob = out + static_cast<size_t>(b) * h_out * w_out;
+    for (int i = warp; i < h_out; i += nthreads >> 5) {
+      const float4 r = th[i];
+      const int h0 = __float_as_int(r.x), h1 = __float_as_int(r.y);
+      if (h0 < row0 || h0 >= row_end) continue;
+      for (int j = lane; j < w_out; j += 32) {
+        const float4 c = tw[j];
+        const int c0 = __float_as_int(c.x), c1 = __float_as_int(c.y);
+        const float s00 = scaled_at(h0, c0);
+        const float s10 = scaled_at(h1, c0);
+        const float s01 = scaled_at(h0, c1);
+        const float s11 = scaled_at(h1, c1);
+        // rows first, then columns: the order of the TPU kernel's two matmuls
+        const float t0 = r.z * s00 + r.w * s10;
+        const float t1 = r.z * s01 + r.w * s11;
+        ob[i * w_out + j] = t0 * c.z + t1 * c.w;
+      }
+    }
+  }
+}
+
+// ---------------------------------------- K2 and K3 over K1's counts
+
+// Cell i of a window of scale_counts is at slot lead + i, lead being the word
+// offset of the window's first cell mod 4 in the counts and in the output
+// (both 16-byte aligned), so slot group g is one float4 of either.  CTA r
+// takes slots [r * per, (r + 1) * per) of [lead, lead + H * W): a multiple of
+// 4 slots each, so every slice but the first starts a group.
+__host__ __device__ __forceinline__ int scale_slice_slots(int HW, int cluster) {
+  return round_up4((HW + 3 + cluster - 1) / cluster);
+}
+
+// whether a CTA's slice of the frame, as float4s, fits its shared memory
+__host__ __device__ __forceinline__ bool scale_slice_cached(int HW, int cluster) {
+  return static_cast<size_t>(scale_slice_slots(HW, cluster)) * sizeof(float) <=
+         static_cast<size_t>(kScaleSmemLimit);
+}
+
+// the two halves of a cluster barrier: arrive without ordering memory (this
+// CTA has started; nothing it wrote need be seen), and wait for every CTA's
+// arrival
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// a CTA's part of the window's count-of-counts: #(|count| == v) for v <
+// kTable, then its max |count| and the length of its list
+constexpr int kScaleSlot = kTable + 2;
+
+// counts (B, H, W) of exact integers -> q[b] and, kResize false, the clipped
+// frame (B, H, W); kResize true, the resized input (B, h_out, w_out) from
+// K3's taps.  `lists` (B, H, W) ints of scratch: each CTA's list of |count|
+// >= kTable at the offset of its first cell.  `cached`: the frame kernel
+// keeps its slice in shared memory (scale_slice_cached).
+template <bool kResize>
+__global__ void __launch_bounds__(kScaleThreads)
+scale_counts_cluster_kernel(const float* __restrict__ counts, const float* __restrict__ taps,
+                            float* __restrict__ out, float* __restrict__ qout, int* lists,
+                            int H, int W, int h_out, int w_out, int kth, float thresh,
+                            int iters, int cached) {
+  extern __shared__ float4 s_slice[];  // the frame kernel's slice, cached
+  // slot r: CTA r's part (kScaleSlot), written there by CTA r
+  __shared__ int s_parts[kMaxCluster][kScaleSlot];
+  __shared__ int s_local[kScaleSlot];
+  __shared__ int s_warp[kScaleThreads / 32];
+  __shared__ int s_vk, s_rank, s_maxv;
+  __shared__ float s_scale;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / C;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int HW = H * W;
+  const size_t frame0 = static_cast<size_t>(b) * HW;
+  const int lead = static_cast<int>(frame0 & 3);
+  const int per = scale_slice_slots(HW, C);
+  auto slice_start = [&](int r) { return max(lead, r * per); };  // in slots
+  const int s0 = slice_start(rank);
+  const int s1 = max(s0, min(lead + HW, (rank + 1) * per));
+  const int g0 = min((s0 + 3) / 4, s1 / 4), g1 = s1 / 4;  // whole groups of 4
+  const float* src = counts + frame0 - lead;  // slot s at src[s]
+  const float4* src4 = reinterpret_cast<const float4*>(src);
+  int* list = lists + frame0 + (s0 - lead);   // this CTA's list, s1 - s0 entries at most
+
+  // 1. this CTA has started (the slots of its s_parts may be written from
+  //    step 3 on); its first batch of counts in flight; its part zeroed
+  cluster_arrive_relaxed();
+  float4 v[kScaleBatch];
+  auto load_batch = [&](int base) {
+#pragma unroll
+    for (int k = 0; k < kScaleBatch; ++k) {
+      const int g = base + k * nthreads;
+      v[k] = g < g1 ? __ldg(src4 + g) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   };
-  // (i0, i1, w0, w1) of an output row, then of an output column
-  const float4* th = reinterpret_cast<const float4*>(s_taps);
-  const float4* tw = th + h_out;
-  float* ob = out + static_cast<size_t>(b) * h_out * w_out;
-  for (int i = warp; i < h_out; i += nthreads >> 5) {
-    const float4 r = th[i];
-    const int h0 = __float_as_int(r.x), h1 = __float_as_int(r.y);
-    if (h0 < row0 || h0 >= row_end) continue;
-    for (int j = lane; j < w_out; j += 32) {
-      const float4 c = tw[j];
-      const int c0 = __float_as_int(c.x), c1 = __float_as_int(c.y);
-      const float s00 = scaled_at(h0, c0);
-      const float s10 = scaled_at(h1, c0);
-      const float s01 = scaled_at(h0, c1);
-      const float s11 = scaled_at(h1, c1);
-      // rows first, then columns: the order of the TPU kernel's two matmuls
-      const float t0 = r.z * s00 + r.w * s10;
-      const float t1 = r.z * s01 + r.w * s11;
-      ob[i * w_out + j] = t0 * c.z + t1 * c.w;
+  load_batch(g0 + tid);
+  for (int i = tid; i < kScaleSlot; i += nthreads) s_local[i] = 0;
+  __syncthreads();
+
+  // 2. the slice's count-of-counts (`SmallCounts`), |count| >= kSmall taken
+  //    out again into this CTA's table or list
+  SmallCounts small;
+  int my_max = 0;
+  auto rare = [&](int c) {
+    const int a = abs(c);
+    if (a < kSmall) return;
+    small.take(static_cast<unsigned>(a));
+    if (a < kTable) {
+      atomicAdd(&s_local[a], 1);
+    } else {
+      list[atomicAdd(&s_local[kTable + 1], 1)] = a;
+    }
+  };
+  auto tally = [&](float f, int& m) { small.add(__float2int_rz(f), m); };
+  auto tally_rare = [&](float f) { rare(__float2int_rz(f)); };
+  for (int base = g0 + tid; base < g1; base += kScaleBatch * nthreads) {
+    if (base != g0 + tid) load_batch(base);
+#pragma unroll
+    for (int k = 0; k < kScaleBatch; ++k) {
+      const int g = base + k * nthreads;
+      if (g >= g1) break;
+      if (!kResize && cached) s_slice[g - g0] = v[k];
+      int m = 0;
+      tally(v[k].x, m);
+      tally(v[k].y, m);
+      tally(v[k].z, m);
+      tally(v[k].w, m);
+      if (m >= kSmall) {
+        tally_rare(v[k].x);
+        tally_rare(v[k].y);
+        tally_rare(v[k].z);
+        tally_rare(v[k].w);
+      }
+      my_max = max(my_max, m);
+      small.seen += 4;
+    }
+  }
+  // the slots before the first whole group and after the last, one by one
+  auto one = [&](int s) {
+    const float f = __ldg(src + s);
+    tally(f, my_max);
+    tally_rare(f);
+    ++small.seen;
+  };
+  for (int s = s0 + tid; s < min(4 * g0, s1); s += nthreads) one(s);
+  for (int s = max(4 * g1, s0) + tid; s < s1; s += nthreads) one(s);
+  {
+    unsigned n[kSmall];
+    small.counts(n);
+#pragma unroll
+    for (int k = 0; k < kSmall; ++k) {
+      const unsigned t = __reduce_add_sync(0xffffffffu, n[k]);
+      if (lane == 0 && t > 0) atomicAdd(&s_local[k], static_cast<int>(t));
+    }
+  }
+  my_max = __reduce_max_sync(0xffffffffu, my_max);
+  if (lane == 0) atomicMax(&s_local[kTable], my_max);
+  __syncthreads();
+
+  // 3. every CTA has started: this CTA's part into its slot of every CTA's
+  //    s_parts; one cluster barrier ends the exchange (and orders the lists'
+  //    stores before the reads of step 4)
+  cluster_wait();
+  for (int i = tid; i < C * kScaleSlot; i += nthreads) {
+    const int r = i / kScaleSlot, j = i - r * kScaleSlot;
+    int* slot = &s_parts[rank][j];
+    *(r == rank ? slot : cluster.map_shared_rank(slot, r)) = s_local[j];
+  }
+  cluster.sync();  // no CTA touches another's shared memory from here on
+
+  // 4. v_k, the kth smallest |count|: from the CDF of the merged table in
+  //    one warp (its entries below kth, where the CDF reaches kth), else
+  //    the rank-th smallest entry of the lists, all >= kTable
+  if (warp == 0) {  // kTable == 64: two entries per lane
+    int a0 = 0, a1 = 0, maxv = 0;
+    for (int r = 0; r < C; ++r) {
+      a0 += s_parts[r][2 * lane];
+      a1 += s_parts[r][2 * lane + 1];
+      maxv = max(maxv, s_parts[r][kTable]);
+    }
+    const int incl = warp_inclusive_scan(a0 + a1);
+    const int cdf0 = incl - a1, cdf1 = incl;  // the CDF at 2 * lane, 2 * lane + 1
+    const int v_table = __popc(__ballot_sync(0xffffffffu, cdf0 < kth)) +
+                        __popc(__ballot_sync(0xffffffffu, cdf1 < kth));
+    const int below = __shfl_sync(0xffffffffu, cdf1, 31);  // #(|count| < kTable)
+    if (lane == 0) {
+      s_vk = below >= kth ? v_table : -1;
+      s_rank = kth - below;
+      s_maxv = maxv;
+    }
+  }
+  __syncthreads();
+  int vk = s_vk;
+  if (vk < 0) {
+    // the least v in [kTable, max] with #(list entries <= v) >= s_rank: a
+    // search by halving over the lists (in global memory, stored by every
+    // CTA before the barrier), the whole block counting each step
+    int lo = kTable, hi = s_maxv;
+    while (lo < hi) {
+      const int mid = lo + (hi - lo) / 2;
+      int n = 0;
+      for (int r = 0; r < C; ++r) {
+        const int* seg = lists + frame0 + (slice_start(r) - lead);
+        const int len = s_parts[r][kTable + 1];
+        for (int i = tid; i < len; i += nthreads) n += __ldcg(seg + i) <= mid;
+      }
+      if (block_sum(n, s_warp) >= s_rank) hi = mid; else lo = mid + 1;
+    }
+    vk = lo;
+  }
+
+  // 5. the plain version's 18-step bisection (ops/percentile.py): its test
+  //    #(|count| <= mid) < kth is mid < v_k, and its zero snap
+  //    #(|count| == 0) >= kth is v_k == 0
+  if (tid == 0) {
+    const float v_f = static_cast<float>(vk);
+    float lo = 0.f, hi = static_cast<float>(s_maxv);
+    for (int it = 0; it < iters; ++it) {
+      const float mid = 0.5f * (lo + hi);
+      if (mid < v_f) lo = mid; else hi = mid;
+    }
+    const float qv = vk == 0 ? 0.f : hi;
+    // multiply by the reciprocal, as the TPU kernel rounds
+    s_scale = qv > 0.f ? 1.f / fmaxf(qv, 1e-30f) : thresh;
+    if (rank == 0) qout[b] = qv;
+  }
+  __syncthreads();
+  const float scale = s_scale;
+
+  if constexpr (!kResize) {
+    // 6. the slice of the clipped frame, whole groups as 16-byte stores
+    float* dst = out + frame0 - lead;
+    float4* dst4 = reinterpret_cast<float4*>(dst);
+    for (int g = g0 + tid; g < g1; g += nthreads) {
+      const float4 c = cached ? s_slice[g - g0] : __ldg(src4 + g);
+      dst4[g] = make_float4(clip_scaled(c.x, scale), clip_scaled(c.y, scale),
+                            clip_scaled(c.z, scale), clip_scaled(c.w, scale));
+    }
+    for (int s = s0 + tid; s < min(4 * g0, s1); s += nthreads) {
+      dst[s] = clip_scaled(__ldg(src + s), scale);
+    }
+    for (int s = max(4 * g1, s0) + tid; s < s1; s += nthreads) {
+      dst[s] = clip_scaled(__ldg(src + s), scale);
+    }
+  } else {
+    // 6. this CTA's share of the bilinear resize from the taps, the taps'
+    //    counts read from L2
+    const float* cb = counts + frame0;
+    const float* th = taps;
+    const float* tw = taps + 4 * h_out;
+    float* ob = out + static_cast<size_t>(b) * h_out * w_out;
+    for (int o = rank * nthreads + tid; o < h_out * w_out; o += C * nthreads) {
+      const int i = o / w_out, j = o - i * w_out;
+      const int h0 = static_cast<int>(__ldg(th + 4 * i)), h1 = static_cast<int>(__ldg(th + 4 * i + 1));
+      const float a0 = __ldg(th + 4 * i + 2), a1 = __ldg(th + 4 * i + 3);
+      const int c0 = static_cast<int>(__ldg(tw + 4 * j)), c1 = static_cast<int>(__ldg(tw + 4 * j + 1));
+      const float b0 = __ldg(tw + 4 * j + 2), b1 = __ldg(tw + 4 * j + 3);
+      const float t0 = a0 * clip_scaled(__ldg(cb + h0 * W + c0), scale) +
+                       a1 * clip_scaled(__ldg(cb + h1 * W + c0), scale);
+      const float t1 = a0 * clip_scaled(__ldg(cb + h0 * W + c1), scale) +
+                       a1 * clip_scaled(__ldg(cb + h1 * W + c1), scale);
+      ob[o] = t0 * b0 + t1 * b1;
     }
   }
 }
 
 // Sets a kernel's shared-memory attributes on the current device once, for
-// the largest size its wrapper gives it (kSmemLimit); for a cluster kernel
-// also clusters of up to kMaxCluster CTAs and the largest shared-memory
-// carveout.  `done` holds one bit for each device already set.
+// the largest size its wrapper gives it (`smem`); for a cluster kernel also
+// clusters of up to kMaxCluster CTAs and the largest shared-memory carveout.
+// `done` holds one bit for each device already set.
 template <typename Kernel>
-cudaError_t prepare_once(Kernel kernel, std::atomic<uint64_t>* done, bool cluster) {
+cudaError_t prepare_once(Kernel kernel, std::atomic<uint64_t>* done, bool cluster,
+                         int smem = kSmemLimit) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
   if (bit && (done->load() & bit)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   if (cluster) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -984,20 +1179,54 @@ cudaLaunchConfig_t cluster_config(int B, int cluster, int threads, size_t smem, 
   return cfg;
 }
 
-std::atomic<uint64_t> g_frame_done{0}, g_scaled_done{0};
-std::atomic<uint64_t> g_frame_cluster_done{0}, g_resized_cluster_done{0},
-    g_resized_packed_done{0};
+std::atomic<uint64_t> g_frame_done{0}, g_frame_cluster_done{0};
+// hist_scaled_cluster_kernel<kPacked, kResize>, by 2 * kResize + kPacked;
+// scale_counts_cluster_kernel<kResize>, by kResize
+std::atomic<uint64_t> g_scaled_done[4] = {}, g_scale_counts_done[2] = {};
 
-// K3's cluster kernel for windows of N events, its shared-memory attributes
-// set on the current device
-template <bool kPacked>
-cudaError_t prepare_resized_cluster() {
-  return prepare_once(hist_scaled_resized_cluster_kernel<kPacked>,
-                      kPacked ? &g_resized_packed_done : &g_resized_cluster_done, true);
+// K2's (kResize false) or K3's cluster kernel for windows of N events
+// (packed where resized_packed(N)), its shared-memory attributes set on the
+// current device
+template <bool kResize>
+cudaError_t scaled_cluster_kernel(int N, void (**kernel)(const float*, const float*,
+                                                          const int*, const float*, float*,
+                                                          float*, int, int, int, int, int, int,
+                                                          float, int)) {
+  const bool packed = resized_packed(N);
+  *kernel = packed ? hist_scaled_cluster_kernel<true, kResize>
+                   : hist_scaled_cluster_kernel<false, kResize>;
+  return prepare_once(*kernel, &g_scaled_done[2 * kResize + packed], true);
 }
 
-size_t packed_smem(int H, int W, int table_len) {
-  return static_cast<size_t>((H * W + 1) / 2 + table_len) * sizeof(int);
+// K2 or K3 on clusters of `cluster` CTAs, one cluster per window, N events
+// each (at most the kernel's cap); taps are read only by K3
+template <bool kResize>
+int launch_scaled_cluster(const void* x, const void* y, const void* pol, const void* taps,
+                          void* out, void* qout, int B, int N, int H, int W, int h_out,
+                          int w_out, int cluster, int kth, float thresh, int iters,
+                          void* stream) {
+  const int cap = kResize ? resized_cluster_cap(H, W, h_out, w_out, cluster)
+                          : scaled_cluster_cap(H, W, cluster);
+  if (N < 0 || N > cap) return static_cast<int>(cudaErrorInvalidValue);
+  void (*kernel)(const float*, const float*, const int*, const float*, float*, float*, int,
+                 int, int, int, int, int, float, int) = nullptr;
+  cudaError_t err = scaled_cluster_kernel<kResize>(N, &kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B > 0) {
+    const bool packed = resized_packed(N);
+    const size_t smem = kResize ? resized_cluster_smem(H, W, N, h_out, w_out, cluster)
+                                : scaled_cluster_smem(H, W, N, cluster);
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(
+        B, cluster, packed ? kPackedThreads : kResizedThreads, smem, stream, &attr);
+    err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(x),
+                             static_cast<const float*>(y), static_cast<const int*>(pol),
+                             static_cast<const float*>(taps), static_cast<float*>(out),
+                             static_cast<float*>(qout), N, H, W, h_out, w_out, kth, thresh,
+                             iters);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1021,33 +1250,33 @@ extern "C" int evfly_hist_frame(const void* x, const void* y, const void* pol, v
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int evfly_hist_scaled(const void* x, const void* y, const void* pol, void* out,
-                                 void* qout, int B, int N, int H, int W, int kth,
-                                 float thresh, int iters, int table_len, void* stream) {
-  const size_t smem = packed_smem(H, W, table_len);
-  if (smem > static_cast<size_t>(kSmemLimit)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = prepare_once(hist_scaled_kernel, &g_scaled_done, false);
+// K2's (resize == 0) or K3's (resize != 0) function over K1's counts (B, H,
+// W) of exact integers, on clusters of `cluster` CTAs; `lists` is (B, H, W)
+// ints of scratch; taps are read only when resize != 0.  counts and out
+// must be 16-byte aligned.
+extern "C" int evfly_scale_counts(const void* counts, const void* taps, void* out, void* qout,
+                                  void* lists, int B, int H, int W, int h_out, int w_out,
+                                  int cluster, int kth, float thresh, int iters, int resize,
+                                  void* stream) {
+  if (H < 1 || W < 1 || !cluster_size_ok(cluster) ||
+      (reinterpret_cast<uintptr_t>(counts) | reinterpret_cast<uintptr_t>(out)) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = resize ? scale_counts_cluster_kernel<true> : scale_counts_cluster_kernel<false>;
+  cudaError_t err =
+      prepare_once(kernel, &g_scale_counts_done[resize ? 1 : 0], true, kScaleSmemLimit);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B > 0) {
-    hist_scaled_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(y),
-        static_cast<const int*>(pol), static_cast<float*>(out), static_cast<float*>(qout), N,
-        H, W, kth, thresh, iters, table_len);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K2's (resize == 0) or K3's (resize != 0) function over K1's counts
-// (B, H, W); taps are read only when resize != 0
-extern "C" int evfly_scale_counts(const void* counts, const void* taps, void* out, void* qout,
-                                  int B, int H, int W, int h_out, int w_out, int kth,
-                                  float thresh, int iters, int resize, void* stream) {
-  if (B > 0) {
-    auto kernel = resize ? scale_counts_kernel<true> : scale_counts_kernel<false>;
-    kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(counts), static_cast<const float*>(taps),
-        static_cast<float*>(out), static_cast<float*>(qout), H, W, h_out, w_out, kth, thresh,
-        iters);
+    const int cached = !resize && scale_slice_cached(H * W, cluster);
+    const size_t smem =
+        cached ? static_cast<size_t>(scale_slice_slots(H * W, cluster)) * sizeof(float) : 0;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(B, cluster, kScaleThreads, smem, stream, &attr);
+    err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(counts),
+                             static_cast<const float*>(taps), static_cast<float*>(out),
+                             static_cast<float*>(qout), static_cast<int*>(lists), H, W, h_out,
+                             w_out, kth, thresh, iters, cached);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1075,6 +1304,16 @@ extern "C" int evfly_hist_frame_cluster(const void* x, const void* y, const void
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2 on clusters of `cluster` CTAs, one cluster per window, N events each
+// (at most scaled_cluster_cap(H, W, cluster))
+extern "C" int evfly_hist_scaled_cluster(const void* x, const void* y, const void* pol,
+                                         void* out, void* qout, int B, int N, int H, int W,
+                                         int cluster, int kth, float thresh, int iters,
+                                         void* stream) {
+  return launch_scaled_cluster<false>(x, y, pol, nullptr, out, qout, B, N, H, W, 0, 0,
+                                      cluster, kth, thresh, iters, stream);
+}
+
 // K3 on clusters of `cluster` CTAs, one cluster per window, N events each
 // (at most resized_cluster_cap(H, W, h_out, w_out, cluster))
 extern "C" int evfly_hist_scaled_resized_cluster(const void* x, const void* y, const void* pol,
@@ -1082,34 +1321,19 @@ extern "C" int evfly_hist_scaled_resized_cluster(const void* x, const void* y, c
                                                  int B, int N, int H, int W, int h_out,
                                                  int w_out, int cluster, int kth, float thresh,
                                                  int iters, void* stream) {
-  if (N < 0 || N > resized_cluster_cap(H, W, h_out, w_out, cluster)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const bool packed = resized_packed(N);
-  cudaError_t err =
-      packed ? prepare_resized_cluster<true>() : prepare_resized_cluster<false>();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (B > 0) {
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg =
-        cluster_config(B, cluster, packed ? kPackedThreads : kResizedThreads,
-                       resized_cluster_smem(H, W, N, h_out, w_out, cluster), stream, &attr);
-    auto kernel = packed ? hist_scaled_resized_cluster_kernel<true>
-                         : hist_scaled_resized_cluster_kernel<false>;
-    err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(x),
-                             static_cast<const float*>(y), static_cast<const int*>(pol),
-                             static_cast<const float*>(taps), static_cast<float*>(out),
-                             static_cast<float*>(qout), N, H, W, h_out, w_out, kth, thresh,
-                             iters);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_scaled_cluster<true>(x, y, pol, taps, out, qout, B, N, H, W, h_out, w_out,
+                                     cluster, kth, thresh, iters, stream);
 }
 
 // The rules by which the wrappers choose a route (ops/voxelizer.py holds a
 // copy for the CPU): 1 where K1's cluster kernel takes (H, W), else 0
 extern "C" int evfly_hist_frame_cluster_fits(int H, int W, int two_pass, int cluster) {
   return frame_cluster_fits(H, W, two_pass, cluster) ? 1 : 0;
+}
+
+// K2's cluster kernel's cap on events per window at (H, W), or -1
+extern "C" int evfly_hist_scaled_cluster_cap(int H, int W, int cluster) {
+  return scaled_cluster_cap(H, W, cluster);
 }
 
 // K3's cluster kernel's cap on events per window at (H, W) -> (h_out,
@@ -1120,30 +1344,46 @@ extern "C" int evfly_hist_resized_cluster_cap(int H, int W, int h_out, int w_out
 }
 
 // cudaOccupancyMaxActiveClusters into *clusters: K1's cluster kernel
-// (kind 0, one count array; kind 1, two) or K3's with N events and an
-// (h_out, w_out) output (kind 2)
+// (kind 0, one count array; kind 1, two), K3's with N events and an (h_out,
+// w_out) output (kind 2) or K2's with N events (kind 3)
 extern "C" int evfly_hist_cluster_occupancy(int kind, int H, int W, int N, int h_out,
                                             int w_out, int cluster, int* clusters) {
-  const bool resized = kind == 2;
-  if (resized ? N < 0 || N > resized_cluster_cap(H, W, h_out, w_out, cluster)
-              : !frame_cluster_fits(H, W, kind, cluster)) {
+  cudaLaunchAttribute attr;
+  cudaError_t err = cudaSuccess;
+  if (kind == 0 || kind == 1) {
+    if (!frame_cluster_fits(H, W, kind, cluster)) return static_cast<int>(cudaErrorInvalidValue);
+    err = prepare_once(hist_frame_cluster_kernel, &g_frame_cluster_done, true);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const cudaLaunchConfig_t cfg = cluster_config(
+        1, cluster, kFrameThreads, frame_cluster_smem(H, W, kind, cluster), nullptr, &attr);
+    err = cudaOccupancyMaxActiveClusters(clusters, hist_frame_cluster_kernel, &cfg);
+  } else if (kind == 2 || kind == 3) {
+    const bool resize = kind == 2;
+    const int cap = resize ? resized_cluster_cap(H, W, h_out, w_out, cluster)
+                           : scaled_cluster_cap(H, W, cluster);
+    if (N < 0 || N > cap) return static_cast<int>(cudaErrorInvalidValue);
+    void (*kernel)(const float*, const float*, const int*, const float*, float*, float*, int,
+                   int, int, int, int, int, float, int) = nullptr;
+    err = resize ? scaled_cluster_kernel<true>(N, &kernel)
+                 : scaled_cluster_kernel<false>(N, &kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t smem = resize ? resized_cluster_smem(H, W, N, h_out, w_out, cluster)
+                               : scaled_cluster_smem(H, W, N, cluster);
+    const cudaLaunchConfig_t cfg = cluster_config(
+        1, cluster, resized_packed(N) ? kPackedThreads : kResizedThreads, smem, nullptr, &attr);
+    err = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool packed = resized && resized_packed(N);
-  cudaError_t err = !resized ? prepare_once(hist_frame_cluster_kernel, &g_frame_cluster_done, true)
-                    : packed ? prepare_resized_cluster<true>()
-                             : prepare_resized_cluster<false>();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr;
-  const size_t smem = resized ? resized_cluster_smem(H, W, N, h_out, w_out, cluster)
-                              : frame_cluster_smem(H, W, kind, cluster);
-  const int threads = !resized ? kFrameThreads : packed ? kPackedThreads : kResizedThreads;
-  const cudaLaunchConfig_t cfg = cluster_config(1, cluster, threads, smem, nullptr, &attr);
-  err = !resized ? cudaOccupancyMaxActiveClusters(clusters, hist_frame_cluster_kernel, &cfg)
-        : packed ? cudaOccupancyMaxActiveClusters(
-                       clusters, hist_scaled_resized_cluster_kernel<true>, &cfg)
-                 : cudaOccupancyMaxActiveClusters(
-                       clusters, hist_scaled_resized_cluster_kernel<false>, &cfg);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef EVFLY_PHASE_STAMPS
+// the phase stamps of the last K2 launch: n values of g_stamps into host
+extern "C" int evfly_phase_stamps(void* host, int n) {
+  if (n < 0 || n > kStampCtas * kStampsPerCta) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(host, g_stamps, static_cast<size_t>(n) * sizeof(unsigned long long)));
+}
+#endif

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels: one ``nvcc`` call, one ``.so``.
+"""Build and load the port's CUDA kernels: one ``nvcc`` per source, all
+started together, linked into one ``.so``.
 
 Every ``csrc/*.cu`` source has a plain C interface and includes no PyTorch
 or CUTLASS header, so a cold build takes seconds.  The shared library goes to
@@ -39,11 +40,12 @@ _F = ctypes.c_float
 # c_void_p, so ctypes does not cut a 64-bit address to a 32-bit int)
 _SIGNATURES = {
     "evfly_hist_frame": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P],
-    "evfly_hist_scaled": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
-    "evfly_scale_counts": [_P] * 4 + [_I] * 6 + [_F, _I, _I, _P],
+    "evfly_scale_counts": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
     "evfly_hist_frame_cluster": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P],
+    "evfly_hist_scaled_cluster": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
     "evfly_hist_scaled_resized_cluster": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
     "evfly_hist_frame_cluster_fits": [_I] * 4,
+    "evfly_hist_scaled_cluster_cap": [_I] * 3,
     "evfly_hist_resized_cluster_cap": [_I] * 5,
     "evfly_hist_cluster_occupancy": [_I] * 7 + [_P],
     "evfly_empty": [_I, _P],
@@ -68,9 +70,13 @@ def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
-def source_hash() -> str:
+def _flags(defines=()) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def source_hash(defines=()) -> str:
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -88,30 +94,51 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
-@functools.lru_cache(maxsize=1)
-def build() -> BuildInfo:
+@functools.lru_cache(maxsize=2)
+def build(defines=()) -> BuildInfo:
     """Compile ``csrc/*.cu`` into ``build/libevfly_kernels_<hash>.so`` unless
-    a library of the same hash is there already."""
+    a library of the same hash is there already.  ``defines``: macros for a
+    probe's build (e.g. ``("EVFLY_PHASE_STAMPS",)``), part of the hash."""
     t0 = time.perf_counter()
-    out = BUILD_DIR / f"libevfly_kernels_{source_hash()}.so"
+    out = BUILD_DIR / f"libevfly_kernels_{source_hash(defines)}.so"
     if out.exists():
         return BuildInfo(out, time.perf_counter() - t0, True, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    # one nvcc per source, all at once, then one link
+    objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources()]
+    compile_flags = [f for f in _flags(defines) if f != "-shared"]
+    cmds = [[_nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources(), objects)]
+    cmds.append([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objects)])
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds[:-1]]
+    logs = []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{logs[-1]}")
+        link = subprocess.run(cmds[-1], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({link.returncode}): {' '.join(cmds[-1])}\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    return BuildInfo(out, time.perf_counter() - t0, False, proc.stdout + proc.stderr)
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    return BuildInfo(out, time.perf_counter() - t0, False, "".join(logs))
 
 
-@functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build().path))
+@functools.lru_cache(maxsize=2)
+def library(defines=()) -> ctypes.CDLL:
+    """The kernels' library (built with ``defines``), entry points typed."""
+    lib = ctypes.CDLL(str(build(defines).path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)

@@ -15,19 +15,19 @@ with ``counts`` the signed event count frame under np.histogram2d binning:
 
 The kernels are in ``csrc/voxelizer.cu``.  Each wrapper ``hist_*`` has a
 plain PyTorch version ``hist_*_plain``, which CPU tensors take and against
-which the kernel is held, and counts its own launches.  K1 and K3 run one
-thread-block cluster per window with the window's count frame in the
+which the kernel is held, and counts its own launches.  K1, K2 and K3 run
+one thread-block cluster per window with the window's count frame in the
 cluster's distributed shared memory (``hist_frame_cluster``,
-``hist_scaled_resized``); K1 keeps its kernel of before (``hist_frame``,
-one block per band of rows) for the frames no cluster holds, chosen by
-shape before launch (``k1_route``).  K2 packs two int16 counts per word in
-one block and takes at most 32,767 events per window; K3 takes up to
-``resized_cluster_cap`` events.  The entry points take any number, routing
-a batch by its shape (``scaled_route``) where K2 and K3 cannot take it
-through K1's counts and ``scale_counts`` or ``scale_counts_resized``, K2's
-and K3's function over a count frame in a kernel of their own.  The TPU
-layout knobs of the JAX functions (``chunk``, ``subchunks``, ``int8_mm``,
-``interpret``) have no counterpart.
+``hist_scaled``, ``hist_scaled_resized``); K1 keeps its kernel of before
+(``hist_frame``, one block per band of rows) for the frames no cluster
+holds, chosen by shape before launch (``k1_route``).  K2 takes up to
+``scaled_cluster_cap`` events per window, K3 up to ``resized_cluster_cap``.
+The entry points take any number, routing a batch by its shape
+(``scaled_route``) where K2 and K3 cannot take it through K1's counts and
+``scale_counts`` or ``scale_counts_resized``, K2's and K3's function over a
+count frame on a cluster kernel of their own.  The TPU layout knobs of the
+JAX functions (``chunk``, ``subchunks``, ``int8_mm``, ``interpret``) have no
+counterpart.
 """
 
 from __future__ import annotations
@@ -46,21 +46,25 @@ from .imageops import resize_matrix
 from .percentile import bisect_abs_quantile
 
 # a block may opt in to 227 KB (232,448 bytes) of shared memory; keep 1 KiB
-# for the kernel's static shared variables
+# for the kernel's static shared variables (8 KiB for scale_counts')
 _SMEM_LIMIT = 232448 - 1024
-# two int16 counts share one int32 word in K2's frame and in K3's bands up to
-# this many events per window
+_SCALE_SMEM_LIMIT = 232448 - 8192
+# two int16 counts share one int32 word in K2's and K3's bands up to this
+# many events per window
 _MAX_EVENTS = 32767
 # K1's band kernel counts a band of rows of the frame per block in int32:
 # 32 KiB a band
 _BAND_INTS = 8192
-# CTAs per window of K1's and K3's cluster kernels (measured on the H100,
-# PERF.md section 6); the library takes up to 16
+# CTAs per window of the cluster kernels (measured on the H100, PERF.md
+# section 6); the library takes up to 16
 K1_CLUSTER = 8
+K2_CLUSTER = 2
 K3_CLUSTER = 2
+SCALE_CLUSTER = 16
 _MAX_CLUSTER = 16
-# K3's cluster kernel keeps a dense table of |count| below this and a list
-# of the cells at or above it (at most N / _K_TABLE of them)
+# K2's and K3's cluster kernels and scale_counts' keep a dense table of
+# |count| below this and a list of the cells at or above it (K2's and K3's
+# at most N / _K_TABLE of them)
 _K_TABLE = 64
 
 
@@ -212,11 +216,6 @@ def _kernel_events(name: str, x: torch.Tensor, y: torch.Tensor, pol: torch.Tenso
     return x.to(torch.float32).contiguous(), y.to(torch.float32).contiguous(), pc
 
 
-def _packed_smem(N: int, H: int, W: int) -> int:
-    # the packed frame and the count-of-counts table (|count| <= N)
-    return ((H * W + 1) // 2 + N + 1) * 4
-
-
 def _round4(n: int) -> int:
     return (n + 3) // 4 * 4
 
@@ -244,9 +243,10 @@ def frame_cluster_fits(H: int, W: int, two_pass: bool, cluster: int = K1_CLUSTER
 
 
 def resized_packed(N: int) -> bool:
-    """Whether K3's cluster kernel keeps two int16 counts in each word of
-    its band for windows of N events (no count can pass int16; two CTAs of
-    512 threads per SM), rather than one int32 count (one CTA of 1,024)."""
+    """Whether K2's and K3's cluster kernels keep two int16 counts in each
+    word of their bands for windows of N events (no count can pass int16;
+    two CTAs of 512 threads per SM), rather than one int32 count (one CTA
+    of 1,024)."""
     return N <= _MAX_EVENTS
 
 
@@ -262,27 +262,51 @@ def _resized_halo_words(W: int, packed: bool) -> int:
     return (W + 1) // 2 if packed else W
 
 
-def resized_cluster_cap(H: int, W: int, h_out: int, w_out: int,
-                        cluster: int = K3_CLUSTER) -> int:
-    """The most events per window K3's cluster kernel takes at H x W ->
-    h_out x w_out: what the band, the taps and a row leave of a block's
-    shared memory for the list of the cells with |count| >= 64 (at most
-    N / 64); -1 where not even a list of 4 fits.  Up to 32,767 events
-    the band is packed, so the cap is the int32 band's where that passes
-    32,767, else the packed band's, at most 32,767.  The rule of
-    ``csrc/voxelizer.cu``'s ``resized_cluster_cap`` (its entry point
-    ``evfly_hist_resized_cluster_cap``)."""
-    if min(H, W, h_out, w_out) < 1 or not 1 <= cluster <= _MAX_CLUSTER:
-        return -1
+def _scaled_band_words(H: int, W: int, cluster: int, packed: bool) -> int:
+    # K2's band array: its cells from K1's output alignment (up to 3 slots)
+    # on, whole int4s
+    if packed:
+        return _round4((band_rows(H, cluster) * W + 4) // 2)
+    return _band_ints(H, W, cluster)
+
+
+def _events_cap(band_words) -> int:
+    """The most events per window whose list of the cells with |count| >= 64
+    (at most N / 64) fits beside ``band_words(packed)`` words of a block's
+    shared memory, -1 where not even a list of 4 fits.  Up to 32,767
+    events the band is packed, so the cap is the int32 band's where that
+    passes 32,767, else the packed band's, at most 32,767
+    (``csrc/voxelizer.cu``'s ``events_cap``)."""
 
     def cap_of(packed: bool) -> int:
-        left = (_SMEM_LIMIT // 4 - _resized_band_words(H, W, cluster, packed)
-                - 4 * (h_out + w_out) - _resized_halo_words(W, packed))
-        n_list = left // 4 * 4  # C's left & ~3
+        n_list = (_SMEM_LIMIT // 4 - band_words(packed)) // 4 * 4  # C's left & ~3
         return n_list * _K_TABLE - 1 if n_list >= 4 else -1
 
     wide = cap_of(False)
     return wide if wide > _MAX_EVENTS else min(_MAX_EVENTS, cap_of(True))
+
+
+def resized_cluster_cap(H: int, W: int, h_out: int, w_out: int,
+                        cluster: int = K3_CLUSTER) -> int:
+    """The most events per window K3's cluster kernel takes at H x W ->
+    h_out x w_out: what the band, the taps and a row leave of a block's
+    shared memory for the window's list (``_events_cap``).  The rule of
+    ``csrc/voxelizer.cu``'s ``resized_cluster_cap`` (its entry point
+    ``evfly_hist_resized_cluster_cap``)."""
+    if min(H, W, h_out, w_out) < 1 or not 1 <= cluster <= _MAX_CLUSTER:
+        return -1
+    return _events_cap(lambda packed: _resized_band_words(H, W, cluster, packed)
+                       + 4 * (h_out + w_out) + _resized_halo_words(W, packed))
+
+
+def scaled_cluster_cap(H: int, W: int, cluster: int = K2_CLUSTER) -> int:
+    """The most events per window K2's cluster kernel takes at H x W: what
+    the band leaves of a block's shared memory for the window's list
+    (``_events_cap``).  The rule of ``csrc/voxelizer.cu``'s
+    ``scaled_cluster_cap`` (its entry point ``evfly_hist_scaled_cluster_cap``)."""
+    if min(H, W) < 1 or not 1 <= cluster <= _MAX_CLUSTER:
+        return -1
+    return _events_cap(lambda packed: _scaled_band_words(H, W, cluster, packed))
 
 
 def _large_capacity(N: int) -> int:
@@ -299,6 +323,25 @@ def resized_cluster_smem(N: int, H: int, W: int, h_out: int, w_out: int,
             + 4 * (h_out + w_out) + _resized_halo_words(W, packed)) * 4
 
 
+def scaled_cluster_smem(N: int, H: int, W: int, cluster: int = K2_CLUSTER) -> int:
+    """Dynamic shared memory of one CTA of K2's cluster kernel, bytes: the
+    band (packed up to 32,767 events) and the window's list."""
+    return (_scaled_band_words(H, W, cluster, resized_packed(N)) + _large_capacity(N)) * 4
+
+
+def scale_slice_slots(HW: int, cluster: int = SCALE_CLUSTER) -> int:
+    """Slots of a window's counts each CTA of ``scale_counts``' cluster kernel
+    takes: a multiple of 4, from the window's first cell's word offset mod 4
+    on (``csrc/voxelizer.cu``'s ``scale_slice_slots``)."""
+    return _round4(-(-(HW + 3) // cluster))
+
+
+def scale_slice_cached(HW: int, cluster: int = SCALE_CLUSTER) -> bool:
+    """Whether a CTA of ``scale_counts``' frame kernel keeps its slice of the
+    counts in shared memory (else it reads them again from L2 to write)."""
+    return scale_slice_slots(HW, cluster) * 4 <= _SCALE_SMEM_LIMIT
+
+
 def k1_route(H: int, W: int, two_pass: bool) -> str:
     """K1's kernel for an H x W frame: "cluster" (``hist_frame_cluster``)
     where the band fits, else "band" (``hist_frame``).  Decided by shape
@@ -308,30 +351,14 @@ def k1_route(H: int, W: int, two_pass: bool) -> str:
 
 def scaled_route(N: int, H: int, W: int, resize: Optional[Tuple[int, int]] = None) -> str:
     """The route of a batch of N events per window at H x W through the
-    scaled entry points.  K2 (``resize`` None): "packed" where a count fits
-    int16 and the packed frame fits one block, else "k1" (K1's counts, then
-    ``scale_counts``).  K3 (``resize`` its (h_out, w_out)): "cluster" up to
-    ``resized_cluster_cap``, else "k1" (then ``scale_counts_resized``).
+    scaled entry points: "cluster" up to the cluster kernel's cap, K2's
+    (``scaled_cluster_cap``, ``resize`` None) or K3's
+    (``resized_cluster_cap``, ``resize`` its (h_out, w_out)), else "k1"
+    (K1's counts, then ``scale_counts`` or ``scale_counts_resized``).
     Decided by shape alone, before any launch."""
     if resize is not None:
         return "cluster" if N <= resized_cluster_cap(H, W, *resize) else "k1"
-    fits = N <= _MAX_EVENTS and _packed_smem(N, H, W) <= _SMEM_LIMIT
-    return "packed" if fits else "k1"
-
-
-def _packed_table_len(name: str, N: int, H: int, W: int) -> int:
-    """K2's count-of-counts table length; raises when the packed frame and
-    the table do not fit one block or a count could pass int16."""
-    table_len = N + 1  # |count| <= events per window
-    smem = _packed_smem(N, H, W)
-    if N > _MAX_EVENTS or smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"{name}: {N} events per window at {H}x{W} need {smem} bytes of shared "
-            f"memory (limit {_SMEM_LIMIT}) or exceed {_MAX_EVENTS} events: the kernel "
-            f"packs two int16 counts per word, so it takes at most {_MAX_EVENTS} events "
-            f"per window (event_histogram takes any number)"
-        )
-    return table_len
+    return "cluster" if N <= scaled_cluster_cap(H, W) else "k1"
 
 
 def hist_frame(
@@ -424,32 +451,48 @@ def hist_frame_routed(
     return hist_frame(x, y, pol, H, W, pos_thresh, neg_thresh)
 
 
+def _scaled_cluster_launch(x, y, pol, H: int, W: int, thresh: float, q: float, iters: int,
+                           cluster: int):
+    """Launch K2's cluster kernel on clusters of ``cluster`` CTAs; raises
+    above its cap.  Returns (frame, q)."""
+    xc, yc, pc = _kernel_events("hist_scaled", x, y, pol)
+    B, N = xc.shape
+    cap = scaled_cluster_cap(H, W, cluster)
+    if N > cap:
+        raise ValueError(
+            f"hist_scaled: {N} events per window at {H}x{W} exceed the cap of {cap} on "
+            f"{cluster} CTAs; event_histogram_scaled takes any number")
+    if B * cluster >= 2 ** 31:
+        raise ValueError(f"hist_scaled: {B} windows x {cluster} CTAs pass grid.x")
+    out = torch.empty(B, H, W, dtype=torch.float32, device=x.device)
+    qout = torch.empty(B, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        status = _build.library().evfly_hist_scaled_cluster(
+            xc.data_ptr(), yc.data_ptr(), pc.data_ptr(), out.data_ptr(), qout.data_ptr(),
+            B, N, H, W, cluster, _kth(q, H * W), thresh, iters, _build.stream_of(x.device),
+        )
+    _build.check("evfly_hist_scaled_cluster", status)
+    return out, qout
+
+
 def hist_scaled(
     x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, H: int, W: int,
     thresh: float = 0.2, q: float = 0.97, iters: int = 18,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2: (B, N) events, N <= 32,767 -> ((B, H, W) clipped frame, (B,)
-    quantile).
+    """K2: (B, N) events, N <= ``scaled_cluster_cap(H, W)`` -> ((B, H, W)
+    clipped frame, (B,) quantile), one cluster of ``K2_CLUSTER`` CTAs per
+    window with the count frame in row bands across their shared memory
+    (two int16 counts a word up to 32,767 events, ``resized_packed``; int32
+    above).
 
     CPU tensors take ``hist_scaled_plain``; CUDA tensors launch the kernel
     or raise.  ``hist_scaled.launches`` counts the launches.
     """
     if x.device.type == "cpu":
         return hist_scaled_plain(x, y, pol, H, W, thresh, q, iters)
-    xc, yc, pc = _kernel_events("hist_scaled", x, y, pol)
-    B, N = xc.shape
-    table_len = _packed_table_len("hist_scaled", N, H, W)
-    out = torch.empty(B, H, W, dtype=torch.float32, device=x.device)
-    qout = torch.empty(B, dtype=torch.float32, device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        status = lib.evfly_hist_scaled(
-            xc.data_ptr(), yc.data_ptr(), pc.data_ptr(), out.data_ptr(), qout.data_ptr(),
-            B, N, H, W, _kth(q, H * W), thresh, iters, table_len, _build.stream_of(x.device),
-        )
-    _build.check("evfly_hist_scaled", status)
+    res = _scaled_cluster_launch(x, y, pol, H, W, thresh, q, iters, K2_CLUSTER)
     hist_scaled.launches += 1
-    return out, qout
+    return res
 
 
 hist_scaled.launches = 0
@@ -512,12 +555,12 @@ hist_scaled_resized.launches = 0
 def cluster_occupancy(kernel: str, H: int, W: int, N: int = 0,
                       out_hw: Tuple[int, int] = (1, 1), cluster: Optional[int] = None) -> int:
     """``cudaOccupancyMaxActiveClusters`` of a cluster kernel on the current
-    device: ``kernel`` "k1" (one count array), "k1_two_pass" or "k3" (with N
-    events per window and an ``out_hw`` output); ``cluster`` CTAs each (the
-    kernel's own by default)."""
-    kind = {"k1": 0, "k1_two_pass": 1, "k3": 2}[kernel]
+    device: ``kernel`` "k1" (one count array), "k1_two_pass", "k3" (with N
+    events per window and an ``out_hw`` output) or "k2" (with N events per
+    window); ``cluster`` CTAs each (the kernel's own by default)."""
+    kind = {"k1": 0, "k1_two_pass": 1, "k3": 2, "k2": 3}[kernel]
     if cluster is None:
-        cluster = K3_CLUSTER if kind == 2 else K1_CLUSTER
+        cluster = {2: K3_CLUSTER, 3: K2_CLUSTER}.get(kind, K1_CLUSTER)
     n = ctypes.c_int(0)
     status = _build.library().evfly_hist_cluster_occupancy(kind, H, W, N, *out_hw, cluster,
                                                            ctypes.byref(n))
@@ -526,25 +569,35 @@ def cluster_occupancy(kernel: str, H: int, W: int, N: int = 0,
 
 
 def _scale_launch(name: str, counts: torch.Tensor, thresh: float, q: float, iters: int,
-                  resize: Optional[Tuple[int, int, bool]]):
-    """Launch ``scale_counts_kernel`` on (B, H, W) counts on CUDA; ``resize``
-    (h_out, w_out, align_corners) or None.  Returns (out, q)."""
+                  resize: Optional[Tuple[int, int, bool]], cluster: int = SCALE_CLUSTER):
+    """Launch ``scale_counts_cluster_kernel`` on (B, H, W) counts on CUDA,
+    one cluster of ``cluster`` CTAs per window; ``resize`` (h_out, w_out,
+    align_corners) or None.  Returns (out, q)."""
     if counts.device.type != "cuda" or counts.dim() != 3:
         raise ValueError(f"{name}: expected (B, H, W) counts on CUDA, got "
                          f"{tuple(counts.shape)} on {counts.device}")
+    if not 1 <= cluster <= _MAX_CLUSTER:
+        raise ValueError(f"{name}: clusters of {cluster} CTAs (1 to {_MAX_CLUSTER})")
     cc = counts.to(torch.float32).contiguous()
+    if cc.data_ptr() % 16:  # the kernel reads whole 16-byte groups
+        cc = cc.clone()
     B, H, W = cc.shape
+    if B * cluster >= 2 ** 31:
+        raise ValueError(f"{name}: {B} windows x {cluster} CTAs pass grid.x")
     h_out, w_out, align_corners = resize if resize is not None else (H, W, False)
     taps = cc  # not read without a resize
     if resize is not None:
         taps, _, _ = _resize_operators(H, W, h_out, w_out, align_corners, cc.device)
     out = torch.empty(B, h_out, w_out, dtype=torch.float32, device=cc.device)
     qout = torch.empty(B, dtype=torch.float32, device=cc.device)
+    # each CTA's list of the |count| >= 64 of its slice: no count is
+    # bounded, so up to every cell of the window
+    lists = torch.empty(B, H, W, dtype=torch.int32, device=cc.device)
     with torch.cuda.device(cc.device):
         status = _build.library().evfly_scale_counts(
-            cc.data_ptr(), taps.data_ptr(), out.data_ptr(), qout.data_ptr(), B, H, W, h_out,
-            w_out, _kth(q, H * W), thresh, iters, int(resize is not None),
-            _build.stream_of(cc.device),
+            cc.data_ptr(), taps.data_ptr(), out.data_ptr(), qout.data_ptr(), lists.data_ptr(),
+            B, H, W, h_out, w_out, cluster, _kth(q, H * W), thresh, iters,
+            int(resize is not None), _build.stream_of(cc.device),
         )
     _build.check(name, status)
     return out, qout
@@ -555,7 +608,8 @@ def scale_counts(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2's function over a (B, H, W) f32 count frame of exact integers (K1's
     with thresholds 1), for windows K2 cannot take: ((B, H, W) clipped frame,
-    (B,) quantile), the quantile the plain version's bit for bit.
+    (B,) quantile), the quantile the plain version's bit for bit.  One
+    cluster of ``SCALE_CLUSTER`` CTAs per window reads the counts once.
 
     CPU tensors take ``scale_counts_plain``; CUDA tensors launch the kernel
     or raise.  ``scale_counts.launches`` counts the launches.
@@ -599,7 +653,7 @@ def hist_scaled_routed(
     """(frame, quantile) of ``event_histogram_scaled`` for (B, N) events:
     K2 (``hist_scaled``) or, where ``scaled_route`` says "k1", K1's counts
     and ``scale_counts``."""
-    if scaled_route(x.shape[1], H, W) == "packed":
+    if scaled_route(x.shape[1], H, W) == "cluster":
         return hist_scaled(x, y, pol, H, W, thresh, q, iters)
     return scale_counts(hist_frame_routed(x, y, pol, H, W, 1.0, 1.0), thresh, q, iters)
 
@@ -678,8 +732,8 @@ def event_histogram_scaled(
     One (N,) window -> (H, W); a (B, N) batch -> (B, H, W).  Any number
     of events.  Runs on ``device`` (CUDA unless the caller names another),
     through K2 on CUDA, or where K2 cannot take the batch (``scaled_route``:
-    above 32,767 events per window, or about 12,900 at 260 x 346) through
-    K1 and ``scale_counts`` (``hist_scaled_routed``).
+    above ``scaled_cluster_cap``, 823,807 events per window at 260 x 346)
+    through K1 and ``scale_counts`` (``hist_scaled_routed``).
     """
     x, y, pol, single = _device_events(x, y, pol, device)
     frame, _ = hist_scaled_routed(x, y, pol, H, W, thresh, q, iters)

@@ -18,11 +18,14 @@ from evfly_tpu_torch.stream import BatchedStreamingPipeline, StreamingPipeline
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "evfly_tpu_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+# the port's package, its smoke run and its probes under tools/
+TOOLS = ["k2_phase_stamps", "path_rates"]
+SCRIPTS = [REPO / "chip_smoke.py"] + [REPO / "tools" / f"{t}.py" for t in TOOLS]
+PORT_FILES = sorted(PORT.rglob("*.py")) + SCRIPTS
 MODULES = sorted(
     ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
     for p in PORT.rglob("*.py")
-) + ["chip_smoke"]
+) + ["chip_smoke"] + [f"tools.{t}" for t in TOOLS]
 
 
 def test_import_check_covers_every_module():
@@ -30,7 +33,7 @@ def test_import_check_covers_every_module():
                    "evfly_tpu_torch.models.origunet", "evfly_tpu_torch.models.composites",
                    "evfly_tpu_torch.models.recurrent", "evfly_tpu_torch.ops.lstm_fused",
                    "evfly_tpu_torch.ops.voxelizer", "evfly_tpu_torch.precision",
-                   "chip_smoke"):
+                   "chip_smoke", "tools.k2_phase_stamps", "tools.path_rates"):
         assert module in MODULES
 
 
@@ -98,3 +101,11 @@ def test_chip_smoke_exits_nonzero_without_cuda():
                           text=True, timeout=300, env=env)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("tool", TOOLS)
+def test_tools_exit_nonzero_without_cuda(tool):
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run([sys.executable, f"tools/{tool}.py"], cwd=REPO,
+                          capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 1 and "no CUDA device" in proc.stderr

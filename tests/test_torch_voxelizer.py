@@ -283,13 +283,16 @@ def test_k2_kernel_matches_plain_on_gpu(cuda_device):
 
 
 def test_scaled_route_by_shape():
-    """K2 and K3 pack two int16 counts per word and hold the frame and a
-    count table of N + 1 entries in one block; any other batch takes K1."""
-    assert voxelizer.scaled_route(5000, 260, 346) == "packed"
-    assert voxelizer.scaled_route(40000, 260, 346) == "k1"
-    assert voxelizer.scaled_route(20000, 260, 346) == "k1"  # the table passes 227 KB
-    assert voxelizer.scaled_route(32767, 64, 86) == "packed"
-    assert voxelizer.scaled_route(32768, 64, 86) == "k1"
+    """K2 and K3 take a batch on their cluster kernels up to their caps (the
+    band and the window's list of large counts in a block's shared memory);
+    any larger batch takes K1's counts and a scale kernel."""
+    for H, W in ((260, 346), (64, 86)):
+        cap = voxelizer.scaled_cluster_cap(H, W)
+        for n in (5000, 20000, 32767, 32768, 40000, cap):
+            assert voxelizer.scaled_route(n, H, W) == "cluster"
+        assert voxelizer.scaled_route(cap + 1, H, W) == "k1"
+    assert voxelizer.scaled_cluster_cap(260, 346) == 823807
+    assert voxelizer.scaled_route(823808, 260, 346) == "k1"
 
 
 def _cap_events(seed, N, H, W, hot=1000):
@@ -331,7 +334,8 @@ def test_k1_route_quantile_equals_the_plain_version():
 @pytest.mark.gpu
 def test_scaled_entry_points_above_the_cap_on_gpu(cuda_device):
     H, W = 260, 346
-    N = voxelizer.resized_cluster_cap(H, W, 60, 90) + 1  # past K2's cap and K3's
+    # past K2's cap and K3's
+    N = max(voxelizer.scaled_cluster_cap(H, W), voxelizer.resized_cluster_cap(H, W, 60, 90)) + 1
     x, y, p = (torch.from_numpy(a).to(cuda_device) for a in _cap_events(32, N, H, W))
     before = (voxelizer.hist_frame_cluster.launches, voxelizer.scale_counts.launches,
               voxelizer.scale_counts_resized.launches)

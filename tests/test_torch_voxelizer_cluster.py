@@ -1,30 +1,35 @@
-"""K1's and K3's cluster kernels: their rules, mirrored on the CPU.
+"""The voxelizer's cluster kernels: their rules, mirrored on the CPU.
 
-The kernels (``csrc/voxelizer.cu``, ``hist_frame_cluster_kernel`` and
-``hist_scaled_resized_cluster_kernel``) run one thread-block cluster of C
-CTAs per window, the window's int32 count frame cut into C bands of
-``band_rows(H, C)`` rows.  What decides their results besides the
-arithmetic of the plain versions is bookkeeping: which CTA owns a cell,
-which output rows a CTA writes and which neighbour row it reads, how the
-events are sliced, where K1's band lies in shared memory against its
-16-byte output groups, and how the count-of-counts tables of the bands
-merge.  These tests state each rule in numpy, as the kernel computes it,
-and hold it exhaustively against what it must equal: ``_taps`` (the resize
-taps), the dense count-of-counts of ``hist_scaled_resized_plain``'s counts
-and its quantile (exact), and the JAX package's functions (K1 exact, K3
-within 3e-5, the JAX package's bound, tests/test_fused_voxelizer.py:68).
-The kernels themselves run only on the card: the ``gpu`` tests below, and
-``chip_smoke.py``.
+The kernels (``csrc/voxelizer.cu``: K1 ``hist_frame_cluster_kernel``, K2
+and K3 ``hist_scaled_cluster_kernel``) run one thread-block cluster of C
+CTAs per window, the window's count frame cut into C bands of
+``band_rows(H, C)`` rows; ``scale_counts_cluster_kernel`` (K2's and K3's
+function over K1's counts) cuts a window's counts into C slices.  What
+decides their results besides the arithmetic of the plain versions is
+bookkeeping: which CTA owns a cell, which output rows a CTA writes and
+which neighbour row it reads, how the events and the counts are sliced,
+where K1's and K2's bands lie in shared memory against their 16-byte output
+groups, how the count-of-counts tables of the bands and slices merge, and
+the bisection driven by the k-th smallest |count| alone.  These tests state
+each rule in numpy, as the kernel computes it, and hold it exhaustively
+against what it must equal: ``_taps`` (the resize taps), the dense
+count-of-counts of the plain version's counts and its quantile (exact), the
+plain ``bisect_abs_quantile`` (bit for bit), and the JAX package's functions
+(K1 exact, K2 within 2e-5 and K3 within 3e-5, the JAX package's bounds,
+tests/test_fused_voxelizer.py:34,68).  The kernels themselves run only on
+the card: the ``gpu`` tests below, and ``chip_smoke.py``.
 """
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 
 from evfly_tpu.ops import voxelizer as jvox
-from evfly_tpu_torch.ops import voxelizer
+from evfly_tpu_torch.ops import percentile, voxelizer
 from evfly_tpu_torch.ops.imageops import resize_matrix
 from torch_helpers import cuda_device  # noqa: F401  (fixture)
 
@@ -394,6 +399,252 @@ def test_k3_owner_from_a_float_estimate(H, W, C):
     np.testing.assert_array_equal(owner, idx // band_cells)
 
 
+# ------------------------------------------------- K2's band, written as K1's
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("C", CLUSTERS)
+@pytest.mark.parametrize("H,W", [(260, 346), (64, 86), (37, 41), (3, 5)])
+def test_k2_band_writes_cover_every_cell_once(H, W, C, packed):
+    """K2's CTA r keeps cell i of its band at slot lead(r) + i, lead(r) the
+    output word offset of the band's first cell mod 4 (K1's layout), two
+    slots a word when packed; it writes the slots before its first whole
+    group and after its last one by one and each whole group of 4 slots (an
+    int4, or two packed words) as one float4.  For every window of a batch
+    and every alignment of the output, each cell of the frame is written
+    once, every group is 16-byte aligned in the output, and every slot read
+    lies inside the band array (``_scaled_band_words``)."""
+    rows = voxelizer.band_rows(H, C)
+    band_cells = rows * W
+    stride = voxelizer._scaled_band_words(H, W, C, packed)
+    slots_in_array = stride * (2 if packed else 1)
+    for out_word in range(4):  # the output's first word mod 4
+        for b in range(3):
+            frame0 = b * H * W
+            written = np.zeros(H * W, np.int64)
+            for r, (row0, row_end) in enumerate(_bands(H, C)):
+                lead = (out_word + frame0 + r * band_cells) % 4
+                cells = max(0, row_end - row0) * W
+                slots = lead + cells
+                assert slots <= slots_in_array
+                first = row0 * W - lead  # frame cell of slot 0
+                g0, g1 = min((lead + 3) // 4, slots // 4), slots // 4
+                singles = list(range(lead, min(4 * g0, slots))) + \
+                    list(range(max(4 * g1, lead), slots))
+                for s in singles:
+                    written[first + s] += 1
+                for g in range(g0, g1):
+                    assert (out_word + frame0 + first + 4 * g) % 4 == 0
+                    assert lead <= 4 * g and 4 * g + 4 <= slots
+                    if packed:
+                        assert 2 * g + 1 < stride
+                    written[first + 4 * g:first + 4 * g + 4] += 1
+            np.testing.assert_array_equal(written, np.ones(H * W))
+
+
+def test_k2_band_with_its_lead_holds_the_counts():
+    """A packed band built from slot lead + i, as K2's adds build it, gives
+    back every count at its slot and zeros in the lead slots, so the scan's
+    tally of the slots less the lead's zeros is the band's count-of-counts."""
+    rng = np.random.default_rng(7)
+    counts = rng.integers(-3, 4, 1001)
+    counts[[0, 500, 1000]] = [32767, -32767, 70]
+    for lead in range(4):
+        slots = np.concatenate([np.zeros(lead, np.int64), counts])
+        words = _packed_band(slots)
+        decoded = _decode(words)[:slots.size]
+        np.testing.assert_array_equal(decoded[lead:], counts)
+        assert not decoded[:lead].any()
+        small, table, large = _moment_scan(decoded, packed=True)
+        small[0] -= lead  # thread 0 starts its count of cells at -lead
+        dense = np.bincount(np.abs(counts), minlength=K_TABLE)
+        np.testing.assert_array_equal(small, dense[:K_SMALL])
+        np.testing.assert_array_equal(table[K_SMALL:], dense[K_SMALL:K_TABLE])
+        assert sorted(large) == sorted(np.abs(counts)[np.abs(counts) >= K_TABLE].tolist())
+
+
+# ------------------------------------- scale_counts: v_k, slices and the lists
+
+
+def _bisect_by_kth_value(vk, maxv, iters=18):
+    """The kernel's bisection driven by v_k alone: #(|count| <= mid) < kth is
+    mid < v_k, and the zero snap #(|count| == 0) >= kth is v_k == 0 (f32)."""
+    lo, hi, v = np.float32(0), np.float32(maxv), np.float32(vk)
+    for _ in range(iters):
+        mid = np.float32(0.5) * (lo + hi)
+        if mid < v:
+            lo = mid
+        else:
+            hi = mid
+    return np.float32(0) if vk == 0 else hi
+
+
+_COUNTS = {
+    "small": st.integers(-5, 5),
+    "past int16": st.integers(-(2 ** 24), 2 ** 24),  # f32 holds them exactly
+    "zeros": st.just(0),
+    "past the table": st.one_of(st.integers(-3, 3), st.integers(64, 5000),
+                                st.integers(-5000, -64)),
+}
+
+
+@settings(max_examples=300, deadline=None, database=None, derandomize=True)
+@given(data=st.data())
+def test_bisection_driven_by_the_kth_value_equals_the_plain_one(data):
+    """For any integer counts, the 18-step bisection of
+    ``ops/percentile.bisect_abs_quantile`` (the plain version's) equals the
+    one that compares mid with v_k, the k-th smallest |count|, bit for bit:
+    counts past int16, all-zero windows and v_k past the dense table of 64
+    included."""
+    kind = data.draw(st.sampled_from(sorted(_COUNTS)))
+    counts = np.asarray(data.draw(st.lists(_COUNTS[kind], min_size=1, max_size=300)),
+                        np.int64)
+    kth = data.draw(st.integers(1, counts.size))
+    iters = data.draw(st.sampled_from([1, 5, 18, 30]))
+    a = np.abs(counts)
+    ref = percentile.bisect_abs_quantile(torch.from_numpy(a.astype(np.float32))[None], kth,
+                                         iters).numpy()[0]
+    vk = int(np.sort(a)[kth - 1])
+    got = _bisect_by_kth_value(vk, int(a.max()), iters)
+    assert got.tobytes() == np.float32(ref).tobytes()
+
+
+def _scale_counts_model(counts, C, lead, kth, thresh=0.2, iters=18):
+    """numpy mirror of ``scale_counts_cluster_kernel`` for one window's (H,
+    W) integer counts whose first cell has word offset ``lead`` mod 4: CTA r
+    takes slots [r * per, (r + 1) * per) of [lead, lead + H * W), tallies
+    its whole groups with the scan's sums (``_moment_scan``, 512 threads)
+    and its other cells one by one, its |count| >= 64 into its list at the
+    offset of its first cell in the scratch; the parts merge slot by slot;
+    v_k from the merged table's CDF or, past it, from a search by halving
+    over the lists.  Returns (frame, q, v_k, entries in the lists)."""
+    H, W = counts.shape
+    HW = H * W
+    flat = counts.ravel().astype(np.int64)
+    per = voxelizer.scale_slice_slots(HW, C)
+    assert per % 4 == 0 and C * per >= lead + HW
+    scratch = np.full(HW, -1, np.int64)
+    table, maxv, segments = np.zeros(K_TABLE, np.int64), 0, []
+    covered = np.zeros(HW, np.int64)
+    for r in range(C):
+        s0 = max(lead, r * per)
+        s1 = max(s0, min(lead + HW, (r + 1) * per))
+        g0, g1 = min((s0 + 3) // 4, s1 // 4), s1 // 4
+        grouped = flat[4 * g0 - lead:4 * g1 - lead] if g1 > g0 else flat[:0]
+        singles = np.concatenate([flat[s0 - lead:max(s0, 4 * g0) - lead][:max(0, 4 * g0 - s0)],
+                                  flat[max(4 * g1, s0) - lead:s1 - lead]])
+        covered[s0 - lead:s1 - lead] += 1
+        small, part, large = _moment_scan(grouped, packed=False)
+        a1 = np.abs(singles)
+        for v in a1:
+            if v < K_TABLE:
+                (small if v < K_SMALL else part)[v] += 1
+            else:
+                large.append(int(v))
+        part[:K_SMALL] = small
+        assert len(large) <= s1 - s0
+        scratch[s0 - lead:s0 - lead + len(large)] = large
+        segments.append((s0 - lead, len(large)))
+        table += part
+        cells = flat[s0 - lead:s1 - lead]
+        maxv = max(maxv, int(np.abs(cells).max()) if cells.size else 0)
+    np.testing.assert_array_equal(covered, np.ones(HW))
+    lists = np.concatenate([scratch[o:o + n] for o, n in segments])
+    below = int(table.sum())
+    if below >= kth:
+        vk = int((np.cumsum(table) < kth).sum())
+    else:
+        rank, lo, hi = kth - below, K_TABLE, maxv
+        while lo < hi:
+            mid = lo + (hi - lo) // 2
+            if int((lists <= mid).sum()) >= rank:
+                hi = mid
+            else:
+                lo = mid + 1
+        vk = lo
+    q = _bisect_by_kth_value(vk, maxv, iters)
+    scale = np.float32(1) / max(q, np.float32(1e-30)) if q > 0 else np.float32(thresh)
+    frame = np.clip(counts.astype(np.float32) * scale, np.float32(-1), np.float32(1))
+    return frame, q, vk, lists.size
+
+
+def _hot_window(seed, H, W, hot_events, n_hot=3):
+    """5,000 uniform events and ``n_hot`` pixels of ``hot_events`` each."""
+    rng = np.random.default_rng(seed)
+    x, y, p = (a[0] for a in _events(seed, 1, 5000, H, W))
+    hx = np.repeat(np.floor(rng.uniform(0, W, n_hot)) + 0.5, hot_events).astype(np.float32)
+    hy = np.repeat(np.floor(rng.uniform(0, H, n_hot)) + 0.5, hot_events).astype(np.float32)
+    hp = np.repeat(rng.choice([-1, 1], n_hot), hot_events).astype(np.int32)
+    return np.concatenate([x, hx]), np.concatenate([y, hy]), np.concatenate([p, hp])
+
+
+@pytest.mark.parametrize("C", [4, 8, 16])
+@pytest.mark.parametrize("lead", [0, 1, 2, 3])
+@pytest.mark.parametrize("kind", ["uniform", "hot", "deep"])
+def test_scale_counts_model_matches_the_plain_version(kind, lead, C):
+    """The slices, the tables and lists merged through the slots, and the
+    bisection on v_k give ``scale_counts_plain``'s quantile and frame bit for
+    bit at 64x86: uniform events, hot pixels past int16, and counts whose
+    97th percentile passes the dense table (the search over the lists)."""
+    H, W = 64, 86
+    if kind == "deep":  # |count| around 100 on every cell
+        counts = np.random.default_rng(lead + C).integers(60, 140, (H, W))
+        counts *= np.random.default_rng(C).choice([-1, 1], (H, W))
+    else:
+        x, y, p = _hot_window(lead, H, W, 40000 if kind == "hot" else 0, 3 if kind == "hot" else 0)
+        counts = voxelizer._signed_counts(*(torch.from_numpy(a)[None] for a in (x, y, p)),
+                                          H, W).reshape(H, W).numpy().astype(np.int64)
+    kth = voxelizer._kth(0.97, H * W)
+    frame, q, vk, n_listed = _scale_counts_model(counts, C, lead, kth)
+    ref, qref = voxelizer.scale_counts_plain(torch.from_numpy(counts.astype(np.float32))[None])
+    assert q.tobytes() == qref.numpy()[0].tobytes()
+    np.testing.assert_array_equal(frame, ref[0].numpy())
+    if kind == "deep":
+        assert vk >= K_TABLE and n_listed > 0
+    if kind == "hot":
+        assert np.abs(counts).max() > 32767 and n_listed == 3 and vk < K_TABLE
+
+
+@pytest.mark.parametrize("kind", ["uniform", "hot"])
+def test_scale_counts_model_matches_jax(kind):
+    """The model on K1's counts of a window at 64x86, uniform or with two
+    pixels past int16, against the JAX package's ``event_histogram_scaled``
+    on its events (within 2e-5, the JAX package's bound; the quantile of its
+    Pallas kernel exactly)."""
+    H, W = 64, 86
+    x, y, p = _hot_window(11, H, W, 34000 if kind == "hot" else 0, 2 if kind == "hot" else 0)
+    counts = voxelizer.hist_frame_plain(*(torch.from_numpy(a)[None] for a in (x, y, p)),
+                                        H, W, 1.0, 1.0)[0].numpy().astype(np.int64)
+    frame, q, _, _ = _scale_counts_model(counts, 16, 2, voxelizer._kth(0.97, H * W))
+    jx, jy, jp = (jnp.asarray(a) for a in (x, y, p))
+    ref = np.asarray(jvox.event_histogram_scaled(jx, jy, jp, H, W))
+    xi, yi, sign = jvox._bin_events(jx, jy, jp, H, W)
+    _, qref = jvox._hist_pallas_fused_quantile(
+        yi, xi, sign, H=H, W=W, chunk=512, interpret=True, q=0.97, iters=18)
+    np.testing.assert_allclose(frame, ref, atol=2e-5)
+    assert q == np.float32(qref)
+
+
+@pytest.mark.parametrize("C", CLUSTERS)
+@pytest.mark.parametrize("HW", [1, 3, 4, 5, 5504, 89960, 89961, 921600])
+def test_scale_slices_cover_each_cell_once(HW, C):
+    """Every CTA's slice is a multiple of 4 slots from a multiple of 4 on
+    (but the first, which starts at lead), so every whole group is a
+    16-byte load and store; the slices cover the window once whatever its
+    lead; the frame kernel keeps a slice in shared memory where it fits."""
+    per = voxelizer.scale_slice_slots(HW, C)
+    for lead in range(4):
+        seen = np.zeros(HW, np.int64)
+        for r in range(C):
+            s0 = max(lead, r * per)
+            s1 = max(s0, min(lead + HW, (r + 1) * per))
+            assert r == 0 or s0 % 4 == 0 or s0 == s1
+            seen[s0 - lead:s1 - lead] += 1
+        np.testing.assert_array_equal(seen, np.ones(HW))
+    assert voxelizer.scale_slice_cached(HW, C) == (per * 4 <= voxelizer._SCALE_SMEM_LIMIT)
+    assert voxelizer.scale_slice_cached(89960, 16)
+
+
 # ----------------------------------------------------------------- fit rules
 
 
@@ -414,11 +665,13 @@ def test_cluster_caps_and_routes_by_shape():
         assert voxelizer.scaled_route(n, H, W, out) == "cluster"
     assert voxelizer.scaled_route(cap + 1, H, W, out) == "k1"
     assert voxelizer.resized_packed(32767) and not voxelizer.resized_packed(32768)
-    # K2 keeps its packed kernel and its cap
-    assert voxelizer.scaled_route(5000, H, W) == "packed"
-    assert voxelizer.scaled_route(20000, H, W) == "k1"
-    assert voxelizer.scaled_route(32767, 64, 86) == "packed"
-    assert voxelizer.scaled_route(32768, 64, 86) == "k1"
+    # K2's cluster kernel, with no taps and no row to copy, takes more than K3
+    assert voxelizer.scaled_cluster_cap(H, W) == 823807 > cap
+    for n in (5000, 20000, 32767, 32768, 823807):
+        assert voxelizer.scaled_route(n, H, W) == "cluster"
+    assert voxelizer.scaled_route(823808, H, W) == "k1"
+    assert voxelizer.scaled_route(32767, 64, 86) == voxelizer.scaled_route(32768, 64, 86) \
+        == "cluster"
     # one row too wide for a band and its copy: K1's counts
     assert voxelizer.resized_cluster_cap(1, 60000, 1, 10) == -1
     assert voxelizer.scaled_route(10, 1, 60000, (1, 10)) == "k1"
@@ -475,6 +728,32 @@ def test_k3_takes_every_count_up_to_its_cap(H, W, ho, wo, C):
         assert all(fits(n) for n in (0, 1, 63, 64, min(cap, 32767)))
 
 
+@pytest.mark.parametrize("C", CLUSTERS)
+@pytest.mark.parametrize("H,W", [(260, 346), (64, 86), (480, 640), (37, 41)])
+def test_k2_takes_every_count_up_to_its_cap(H, W, C):
+    """K2's cap is the last N whose band and list fit a block's shared
+    memory (int16 bands up to 32,767 events, int32 above), and at the
+    sensor's shape every count of the rule's cases fits: 5,000, 20,000,
+    32,767 (packed), 32,768 (int32)."""
+    cap = voxelizer.scaled_cluster_cap(H, W, C)
+
+    def fits(n):
+        return voxelizer.scaled_cluster_smem(n, H, W, C) <= voxelizer._SMEM_LIMIT
+
+    assert fits(cap) == (cap >= 0) and not fits(cap + 1)
+    if cap >= 0:
+        assert all(fits(n) for n in (0, 1, 63, 64, min(cap, 32767)))
+        assert cap >= voxelizer.resized_cluster_cap(H, W, 60, 90, C)
+    if (H, W) in ((260, 346), (64, 86)) and C == voxelizer.K2_CLUSTER:
+        for n in (5000, 20000, 32767, 32768):
+            assert fits(n) and voxelizer.scaled_route(n, H, W) == "cluster"
+        assert voxelizer.resized_packed(32767) and not voxelizer.resized_packed(32768)
+        # the packed band's words: half the band's slots, with K1's lead
+        rows = voxelizer.band_rows(H, C)
+        assert voxelizer.scaled_cluster_smem(5000, H, W, C) == \
+            (((rows * W + 4) // 2 + 3) // 4 * 4 + (5000 // 64 + 1 + 3) // 4 * 4) * 4
+
+
 # ------------------------------------------------------- the launchers on the CPU
 
 
@@ -484,6 +763,11 @@ def test_cluster_launchers_refuse_cpu_tensors():
         voxelizer._frame_cluster_launch(x, y, p, 16, 20, 0.2, 0.2, 8)
     with pytest.raises(ValueError, match="unsupported device"):
         voxelizer._resized_cluster_launch(x, y, p, 16, 20, 8, 10, 0.2, 0.97, 18, False, 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        voxelizer._scaled_cluster_launch(x, y, p, 16, 20, 0.2, 0.97, 18, 2)
+    counts = voxelizer.hist_frame_plain(x, y, p, 16, 20, 1.0, 1.0)
+    with pytest.raises(ValueError, match="counts on CUDA"):
+        voxelizer._scale_launch("scale_counts", counts, 0.2, 0.97, 18, None)
 
 
 # ------------------------------------------------------------ on the card
@@ -530,6 +814,8 @@ def test_cluster_rules_match_the_library_on_gpu(cuda_device):
     lib = _build.library()
     for h, w in ((1, 1), (64, 86), (260, 346), (720, 1280), (2000, 900)):
         for c in CLUSTERS:
+            assert voxelizer.scaled_cluster_cap(h, w, c) == \
+                lib.evfly_hist_scaled_cluster_cap(h, w, c)
             for ho, wo in ((60, 90), (h, w)):
                 assert voxelizer.resized_cluster_cap(h, w, ho, wo, c) == \
                     lib.evfly_hist_resized_cluster_cap(h, w, ho, wo, c)
@@ -545,3 +831,66 @@ def test_k1_cluster_takes_more_windows_than_grid_y_on_gpu(cuda_device):
     got = voxelizer.hist_frame_cluster(x, y, p, H, W)
     assert torch.equal(got, voxelizer.hist_frame_plain(x, y, p, H, W))
 
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N", [(256, 5000), (2, 80), (2, 20000), (2, 32767), (2, 40000),
+                                 (2, 100000)])
+def test_k2_cluster_kernel_matches_plain_on_gpu(cuda_device, B, N):
+    x, y, p = (torch.from_numpy(a).to(cuda_device) for a in _events(19 + N, B, N, 260, 346))
+    if N == 32767:  # int16 counts at +-32,000, on the last row of band 0
+        x[:, :32000], y[:, :32000] = 200.5, 129.5
+        p[0, :32000], p[1, :32000] = 1, -1
+    if N == 40000:  # a count past int16
+        x[0, :33000], y[0, :33000], p[0, :33000] = 100.5, 130.5, 1
+    if N == 100000:  # 400 counts past the dense table, across a band edge
+        x[:, :50000] = 150.0 + x[:, :50000] * (20.0 / 346)
+        y[:, :50000] = 25.0 + y[:, :50000] * (20.0 / 260)
+    assert voxelizer.scaled_route(N, 260, 346) == "cluster"
+    before = voxelizer.hist_scaled.launches
+    out, q = voxelizer.hist_scaled(x, y, p, 260, 346)
+    assert voxelizer.hist_scaled.launches == before + 1
+    ref, qref = voxelizer.hist_scaled_plain(x, y, p, 260, 346)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+    assert torch.equal(q, qref)
+    for cluster in (4, 8):
+        got, gq = voxelizer._scaled_cluster_launch(x, y, p, 260, 346, 0.2, 0.97, 18, cluster)
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=0)
+        assert torch.equal(gq, qref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("resize", [None, (60, 90)], ids=["frame", "resized"])
+@pytest.mark.parametrize("kind", ["hot", "deep", "offset"])
+def test_scale_counts_kernels_match_plain_on_gpu(cuda_device, kind, resize):
+    """Both scale_counts kernels on every cluster size against their plain
+    versions: K1's counts of 2 x 200,000 events with 33,000 on one pixel;
+    counts of +-60..140 on every cell (v_k past the dense table); and a
+    count frame starting 4 bytes past 16-byte alignment (a copy)."""
+    H, W = 260, 346
+    if kind == "deep":
+        rng = np.random.default_rng(3)
+        counts = torch.tensor(rng.integers(60, 140, (2, H, W)) * rng.choice([-1, 1], (2, H, W)),
+                              dtype=torch.float32, device=cuda_device)
+    else:
+        x, y, p = (torch.from_numpy(a).to(cuda_device) for a in _events(40, 2, 200000, H, W))
+        x[1, :33000], y[1, :33000], p[1, :33000] = 100.5, 130.5, 1
+        counts = voxelizer.hist_frame_plain(x, y, p, H, W, 1.0, 1.0)
+        if kind == "offset":
+            counts = torch.cat([torch.zeros(1, device=cuda_device), counts.ravel()])[1:]
+            counts = counts.reshape(2, H, W)
+    name = "scale_counts" if resize is None else "scale_counts_resized"
+    extra = () if resize is None else resize
+    plain = voxelizer.scale_counts_plain if resize is None else voxelizer.scale_counts_resized_plain
+    ref, qref = plain(counts, *extra)
+    kernel = getattr(voxelizer, name)
+    before = kernel.launches
+    out, q = kernel(counts, *extra)
+    assert kernel.launches == before + 1
+    atol = 2e-5 if resize is None else 3e-5
+    torch.testing.assert_close(out, ref, atol=atol, rtol=0)
+    assert torch.equal(q, qref)
+    for cluster in (1, 4, 8, 16):
+        got, gq = voxelizer._scale_launch(name, counts, 0.2, 0.97, 18,
+                                          None if resize is None else (*resize, False), cluster)
+        torch.testing.assert_close(got, ref, atol=atol, rtol=0)
+        assert torch.equal(gq, qref)
