@@ -33,11 +33,24 @@ just before it and read just after:
   K4 (mode "stacked") or K5 (mode "wavefront"), on each route, and once
   with K1's band kernel;
 - batched streaming: ``BatchedStreamingPipeline`` with 16 streams over 4
-  steps, some streams reset before the third, against 16 single streams.
+  steps, some streams reset before the third, against 16 single streams;
+- the graph step: each streaming step replays one CUDA graph on the card
+  (the default), held against the same step run eagerly (``graph=False``)
+  with the state carried: ``step_events`` in both LSTM modes and both
+  percentile modes with windows in two event buckets (two graphs sharing
+  the state), ``step_frame``, and ``step_frames`` of 16 streams with a
+  reset mask; a profile of replays names K1 and K4/K5 among the replayed
+  kernels (a wrapper's launch count grows at the warm-up and the capture of
+  a graph, not at its replays);
+- the deployment loop: ``stream.hil.run_hil_episode`` flies 30 ticks on the
+  port's native event accumulator and flight-stack core (built with g++ at
+  their first use) with the joint model's graph step, each tick's velocity
+  against an eager run on the plain path.
 
-It then times a streaming step and the G-stream rates, in the manner of
-``tools/latency_bench.py``.  Every phase prints a flushed line when it starts
-and when it ends.  The last lines of standard output are the card's name and
+It then times a streaming step and the G-stream rates, each as graphs and
+eagerly in turns, in the manner of ``tools/torch_latency_bench.py``, and
+profiles a graph step beside an eager one for their idle shares.  Every
+phase prints a flushed line when it starts and when it ends.  The last lines of standard output are the card's name and
 power limit, the kernels' JSON line and the result line
 ``{"ok": true, "device": {...}}``.
 
@@ -48,6 +61,7 @@ kernel fails to build, launch or agree, or when the run exceeds its budget.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import re
@@ -117,7 +131,8 @@ from evfly_tpu_torch.ops.voxelizer import (
     scaled_route,
 )
 from evfly_tpu_torch.ops.voxelizer import cluster_occupancy as vox_cluster_occupancy
-from evfly_tpu_torch.stream import BatchedStreamingPipeline, StreamingPipeline
+from evfly_tpu_torch.stream import BatchedStreamingPipeline, StreamingPipeline, hil
+from evfly_tpu_torch.stream.pipeline import event_bucket
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(REPO, "artifacts", "pretrain_v_final.pth")
@@ -147,7 +162,11 @@ MANY_WINDOWS, FEW_EVENTS, SMALL_H, SMALL_W = 70_000, 16, 64, 86  # past grid.y's
 LSTM_CHECKS = ((1, N_WINDOWS), (1, 2), (1, 1), (16, N_WINDOWS), (16, 2), (16, 1))
 LSTM_TIMED = ((1, N_WINDOWS), (1, 1), (16, 1), (64, 1))
 TURNS = ("l2", "cluster", "cluster", "l2")  # old, new, new, old
+GRAPH_TURNS = (False, True, True, False)     # eager, graph, graph, eager
 STREAM_WINDOWS, STREAMS = 8, 16         # streaming steps; batched streams
+HIL_SECONDS = 2.0                       # 30 ticks of the deployment loop at 15 Hz
+# the window of the graph-step phase cut to another event bucket (2,048)
+SECOND_BUCKET_AT, SECOND_BUCKET_EVENTS = 5, 1500
 # tools/latency_bench.py's counts: chained and synchronized streaming
 # steps, and batched steps at each number of streams
 CHAINED_STEPS, SYNC_STEPS, RATE_STEPS, RATE_STREAMS = 100, 20, 30, (16, 64)
@@ -859,7 +878,7 @@ def phase_streaming(dev, model):
         for fast in (False, True):
             lstm.mode = mode
             pipe = StreamingPipeline(model, fast_percentile=fast, device=dev)
-            plain = StreamingPipeline(model, fast_percentile=fast, device=dev)
+            plain = StreamingPipeline(model, fast_percentile=fast, device=dev, graph=False)
             set_fused_lstm(True)
             hist_frame.launches = hist_frame_cluster.launches = 0
             for k in kernels:
@@ -950,7 +969,8 @@ def phase_batched(dev, model, steps: int = 4):
     set_fused_lstm(False)
     verr = derr = herr = cerr = 0.0
     for g in range(STREAMS):
-        single = StreamingPipeline(model, desvel=desvel[g], fast_percentile=True, device=dev)
+        single = StreamingPipeline(model, desvel=desvel[g], fast_percentile=True, device=dev,
+                                   graph=False)
         for s in range(steps):
             if masks[s][g]:
                 single.reset()
@@ -966,6 +986,87 @@ def phase_batched(dev, model, steps: int = 4):
     require(outs[-1][0].shape == (STREAMS, 3) and outs[-1][1].shape == (STREAMS, H, W),
             "batched shapes")
     require(max(verr, derr, herr, cerr) <= VEL_ATOL, "batched path disagrees with single streams")
+
+
+def _check_graph_run(label, graph_pipe, eager_pipe, step_g, step_e, steps, state_of):
+    """Steps ``graph_pipe`` (replaying CUDA graphs) and ``eager_pipe`` (the
+    same step run eagerly) through ``steps`` inputs; after each step the
+    outputs and every stream's state (``state_of(pipe)``: a list of single
+    streams' states) within VEL_ATOL, c relative to max(1, max|c|)."""
+    require(graph_pipe.graph and not eager_pipe.graph, f"{label}: graph flags")
+    verr = derr = herr = cerr = 0.0
+    for inp in steps:
+        vg, dg = step_g(inp)
+        ve, de = step_e(inp)
+        verr = max(verr, (vg - ve).abs().max().item())
+        derr = max(derr, (dg - de).abs().max().item())
+        require(bool(torch.isfinite(vg).all()) and bool(torch.isfinite(dg).all()),
+                f"{label}: output not finite")
+        for sg, se in zip(state_of(graph_pipe), state_of(eager_pipe)):
+            he, ce = state_errs(sg, se)
+            herr, cerr = max(herr, he), max(cerr, ce)
+    graphs = len(graph_pipe._steps.slots)
+    log(f"graph step {label}: {len(steps)} steps, {graphs} graph(s); max|diff| vs the eager "
+        f"step: velocity {verr:.3e}, depth {derr:.3e}, h {herr:.3e}, c/max(1,|c|) {cerr:.3e}")
+    require(all(s.graph is not None for s in graph_pipe._steps.slots.values()),
+            f"{label}: a step ran without its graph")
+    require(max(verr, derr, herr, cerr) <= VEL_ATOL, f"{label}: the graph step disagrees")
+    return graphs
+
+
+def phase_graph_step(dev, model):
+    """The streaming steps replayed as CUDA graphs (the default on CUDA)
+    against the same steps run eagerly (``graph=False``), state carried:
+    ``step_events`` over STREAM_WINDOWS windows, one of them in a second
+    event bucket so that two graphs share the state, in both LSTM modes and
+    both percentile modes; ``step_frame``; ``step_frames`` with STREAMS
+    streams and a reset mask.  Then the kernels of replays, by name."""
+    windows = stream_windows(dev, STREAM_WINDOWS)
+    windows[SECOND_BUCKET_AT] = tuple(t[:SECOND_BUCKET_EVENTS] for t in windows[SECOND_BUCKET_AT])
+    require(event_bucket(SECOND_BUCKET_EVENTS) != event_bucket(N_EVENTS), "one bucket only")
+    lstm = model.vitfly_vitlstm.lstm
+    set_fused_lstm(True)
+    for mode in ("stacked", "wavefront"):
+        lstm.mode = mode
+        for fast in (False, True):
+            g = StreamingPipeline(model, fast_percentile=fast, device=dev)
+            e = StreamingPipeline(model, fast_percentile=fast, device=dev, graph=False)
+            graphs = _check_graph_run(
+                f"step_events ({mode}, fast_percentile={fast})", g, e,
+                lambda w: g.step_events(*w), lambda w: e.step_events(*w), windows,
+                lambda p: [p.hidden])
+            require(graphs == 2, "the second event bucket did not capture its own graph")
+    lstm.mode = None
+    frames = sparse_frames(8, (4, H, W), dev)
+    g = StreamingPipeline(model, device=dev)
+    e = StreamingPipeline(model, device=dev, graph=False)
+    _check_graph_run("step_frame", g, e, g.step_frame, e.step_frame, list(frames),
+                     lambda p: [p.hidden])
+    steps = 4
+    frames = sparse_frames(9, (steps, STREAMS, H, W), dev)
+    masks = [torch.tensor([s == 2 and g_ % 4 == 1 for g_ in range(STREAMS)], device=dev)
+             for s in range(steps)]
+    desvel = [3.0 + 2.0 * g_ / (STREAMS - 1) for g_ in range(STREAMS)]
+    bg = BatchedStreamingPipeline(model, STREAMS, desvel=desvel, fast_percentile=True, device=dev)
+    be = BatchedStreamingPipeline(model, STREAMS, desvel=desvel, fast_percentile=True,
+                                  device=dev, graph=False)
+    _check_graph_run(f"step_frames G={STREAMS}, streams reset before step 3", bg, be,
+                     lambda s: bg.step_frames(frames[s], masks[s]),
+                     lambda s: be.step_frames(frames[s], masks[s]), list(range(steps)),
+                     lambda p: [_one_stream(p.hidden, g_) for g_ in range(STREAMS)])
+
+    # the kernels of replays: the graph step's trace names K1 and K4 (K5)
+    names = {"K1": "hist_frame_cluster_kernel", "K4/K5": "lstm_cluster_kernel"}
+    for mode in ("stacked", "wavefront"):
+        lstm.mode = mode
+        pipe = StreamingPipeline(model, fast_percentile=True, device=dev)
+        pipe.step_events(*windows[0])
+        prof = phase_profile(lambda: pipe.step_events(*windows[0]), names,
+                             f"replayed graph ({mode})")
+        require(prof is not None, "the profiler saw no device time in replays")
+        require(all(prof["by_label"][k] > 0 for k in names),
+                f"the replayed graph ({mode}) ran no {names}")
+    lstm.mode = None
 
 
 def _streaming_ms(pipe, windows):
@@ -988,42 +1089,146 @@ def _streaming_ms(pipe, windows):
     return chained, samples
 
 
+def _free_device_memory():
+    """Return the memory of freed pipelines and their graphs to the card,
+    so that every timed pipeline captures with the same memory free (cuDNN
+    picks a convolution's algorithm by the workspace it can allocate)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_card_numbers(dev, model, windows, smi):
-    """tools/latency_bench.py's numbers on the card: ms per streaming step
-    over 100 chained steps (one synchronize) and p50 of 20 synchronized
-    steps, each LSTM mode on both routes in turns, and steps/s of G streams
-    stepped together."""
+    """tools/torch_latency_bench.py's numbers on the card: ms per streaming
+    step over 100 chained steps (one synchronize) and p50 of 20
+    synchronized steps, each LSTM mode on both routes in turns, each route
+    eagerly and as CUDA graphs; and steps/s of G streams stepped together,
+    eager and graph in turns (eager, graph, graph, eager)."""
     numbers = {}
     lstm = model.vitfly_vitlstm.lstm
     with torch.inference_mode():
         for mode in ("stacked", "wavefront"):
             lstm.mode = mode
             for route in TURNS:
-                pipe = StreamingPipeline(model, fast_percentile=True, device=dev)
-                with forced_route(route):
-                    chained, samples = _streaming_ms(pipe, windows)
-                p50 = statistics.median(samples)
-                numbers.setdefault((mode, route), []).append((chained, p50))
-                log(f"streaming step ({mode}, {route} route, fast percentile): {chained:.3f} ms "
-                    f"per step over {CHAINED_STEPS} chained steps; p50 {p50:.3f} ms of "
-                    f"{SYNC_STEPS} synchronized (min {min(samples):.3f}, max "
-                    f"{max(samples):.3f}) on {smi}")
+                for graph in (False, True):
+                    _free_device_memory()
+                    pipe = StreamingPipeline(model, fast_percentile=True, device=dev,
+                                             graph=graph)
+                    with forced_route(route):
+                        chained, samples = _streaming_ms(pipe, windows)
+                    p50 = statistics.median(samples)
+                    numbers.setdefault((mode, route, graph), []).append((chained, p50))
+                    log(f"streaming step ({mode}, {route} route, "
+                        f"{'graph' if graph else 'eager'}, fast percentile): {chained:.3f} ms "
+                        f"per step over {CHAINED_STEPS} chained steps; p50 {p50:.3f} ms of "
+                        f"{SYNC_STEPS} synchronized (min {min(samples):.3f}, max "
+                        f"{max(samples):.3f}) on {smi}")
         lstm.mode = None
         for G in RATE_STREAMS:
             frames = sparse_frames(5, (G, H, W), dev)
-            pipe = BatchedStreamingPipeline(model, G, fast_percentile=True, device=dev)
-            for _ in range(2):
-                pipe.step_frames(frames)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(RATE_STEPS):
-                pipe.step_frames(frames)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            numbers[G] = G * RATE_STEPS / dt
-            log(f"batched G={G}: {numbers[G]:.1f} steps/s ({dt / RATE_STEPS * 1e3:.3f} ms per "
-                f"batched step, {int(numbers[G] / 15.0)} streams at 15 Hz) on {smi}")
+            for graph in GRAPH_TURNS:
+                _free_device_memory()
+                pipe = BatchedStreamingPipeline(model, G, fast_percentile=True, device=dev,
+                                                graph=graph)
+                for _ in range(2):
+                    pipe.step_frames(frames)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(RATE_STEPS):
+                    pipe.step_frames(frames)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                rate = G * RATE_STEPS / dt
+                numbers.setdefault((G, graph), []).append(rate)
+                log(f"batched G={G} ({'graph' if graph else 'eager'}): {rate:.1f} steps/s "
+                    f"({dt / RATE_STEPS * 1e3:.3f} ms per batched step, {int(rate / 15.0)} "
+                    f"streams at 15 Hz) on {smi}")
+                del pipe
     return numbers
+
+
+def hil_sensor(pos, t):
+    """tests/test_hil.py's sensor: 500 random events at 640x480 that
+    depend on t alone, so every tick's frame is the same whatever the
+    vehicle does."""
+    rng = np.random.default_rng(int(t * 1000) % 2**31)
+    n = 500
+    return (rng.integers(0, 640, n), rng.integers(0, 480, n), rng.choice([-1, 1], n))
+
+
+class _Recording:
+    """A pipeline that keeps the velocity of each of its steps."""
+
+    def __init__(self, pipe):
+        self.pipe, self.input_hw, self.vels = pipe, pipe.input_hw, []
+
+    def step_frame(self, frame):
+        vel, depth = self.pipe.step_frame(frame)
+        self.vels.append(vel)
+        return vel, depth
+
+
+@contextlib.contextmanager
+def timed_ticks(times: list, runners: list):
+    """``run_hil_episode``'s DeploymentRunner with each ``tick()`` timed
+    (host clock, ms) into ``times`` and each runner kept in ``runners``,
+    for reading them in this script."""
+    base = hil.DeploymentRunner
+
+    class Timed(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            runners.append(self)
+
+        def tick(self):
+            t0 = time.perf_counter()
+            cmd = super().tick()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return cmd
+
+    hil.DeploymentRunner = Timed
+    try:
+        yield
+    finally:
+        hil.DeploymentRunner = base
+
+
+def phase_hil(dev, model, smi):
+    """The deployment loop: ``run_hil_episode`` flies HIL_SECONDS (30 ticks
+    at 15 Hz) on the port's native accumulator and flight-stack core with
+    the joint model's ``StreamingPipeline``, as CUDA graphs, eagerly, and
+    eagerly on the plain path (``set_fused_lstm(False)``; deploy steps
+    frames, so K1 is not on it).  Each tick's velocity of the graph run
+    within VEL_ATOL of the plain run's; ms per tick() of each."""
+    runs = {}
+    for label, graph, fused in (("graph", True, True), ("eager", False, True),
+                                ("eager plain", False, False)):
+        set_fused_lstm(fused)
+        lstm_stacked_cluster.launches = 0
+        rec = _Recording(StreamingPipeline(model, device=dev, graph=graph))
+        times, runners = [], []
+        with timed_ticks(times, runners):
+            res = hil.run_hil_episode(rec, hil_sensor, duration=HIL_SECONDS)
+        torch.cuda.synchronize()
+        runs[label] = (res, rec, times, runners[0].acc.is_native, lstm_stacked_cluster.launches)
+    set_fused_lstm(True)
+    (res, rec, times, native, n_k4), plain = runs["graph"], runs["eager plain"]
+    ticks = len(res.t)
+    verr = max((a - b).abs().max().item() for a, b in zip(rec.vels, plain[1].vels))
+    cerr = float(np.abs(res.cmd - plain[0].cmd).max())
+    for label, (r, _, t, nat, n) in runs.items():
+        log(f"HIL {label}: {len(r.t)} ticks, accumulator native {nat}, guard stopped "
+            f"{r.guard_stopped}, final position {r.pos[-1].round(3).tolist()}, K4 cluster "
+            f"launches {n}; ms per tick(): p50 {statistics.median(t):.3f}, max {max(t):.3f} "
+            f"(first {t[0]:.3f}), p50 after the first {statistics.median(t[1:]):.3f} on {smi}")
+    log(f"HIL graph vs eager plain path over {ticks} ticks: velocity max|diff| {verr:.3e}, "
+        f"guarded command max|diff| {cerr:.3e} (atol {VEL_ATOL})")
+    require(ticks == round(HIL_SECONDS * 15) and len(rec.vels) == ticks, "HIL tick count")
+    require(all(nat for _, _, _, nat, _ in runs.values()), "the accumulator is not native")
+    require(not any(r.guard_stopped for r, *_ in runs.values()), "the safety latch fired")
+    require(n_k4 > 0 and plain[4] == 0, "the graph run did not take K4 / the plain run did")
+    require(all(bool(torch.isfinite(v).all()) for v in rec.vels), "HIL velocity not finite")
+    require(verr <= VEL_ATOL and cerr <= VEL_ATOL, "the HIL graph run disagrees with the plain path")
+    return {label: statistics.median(t) for label, (_, _, t, _, _) in runs.items()}
 
 
 _SERVING_KERNELS = {"K3": "hist_scaled_cluster_kernel", "K4": "lstm_cluster_kernel"}
@@ -1031,7 +1236,10 @@ _SERVING_KERNELS = {"K3": "hist_scaled_cluster_kernel", "K4": "lstm_cluster_kern
 
 def phase_profile(step, kernel_names=_SERVING_KERNELS, label="main-path"):
     """Device time of 3 steps of a path by kernel, under torch.profiler;
-    ``kernel_names`` maps a label to a substring of a kernel's name."""
+    ``kernel_names`` maps a label to a substring of a kernel's name.
+    Returns the busy and span ms, the idle share, the number of kernels and
+    the device ms of each label, or None where the trace has no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
@@ -1044,7 +1252,7 @@ def phase_profile(step, kernel_names=_SERVING_KERNELS, label="main-path"):
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         log("profile: the trace has no device time (not measured)")
-        return
+        return None
     busy = sum(e.time_range.elapsed_us() for e in kernels)
     span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
     share = {**{k: 0.0 for k in kernel_names}, "other": 0.0}
@@ -1061,6 +1269,8 @@ def phase_profile(step, kernel_names=_SERVING_KERNELS, label="main-path"):
         + f"; {len(kernels)} kernels")
     for name, (n, us) in sorted(others.items(), key=lambda kv: -kv[1][1])[:8]:
         log(f"  other: {us / 1e3:8.3f} ms in {n:5d} launches  {name[:90]}")
+    return dict(busy_ms=busy / 1e3, span_ms=span / 1e3, idle_share=1 - busy / span,
+                kernels=len(kernels), by_label={k: v / 1e3 for k, v in share.items()})
 
 
 def phase_precision(dev, model, windows):
@@ -1076,6 +1286,7 @@ def phase_precision(dev, model, windows):
     try:
         require(get_precision() == "highest", "the port's default precision is not 'highest'")
         pipe = StreamingPipeline(model, fast_percentile=True, device=dev)
+        require(pipe.graph, "the streaming step does not replay a graph by default")
         outs = [pipe.step_events(*w) for w in windows[:3]]
         torch.cuda.synchronize()
         require((cudnn.allow_tf32, matmul.allow_tf32) == defaults,
@@ -1112,7 +1323,7 @@ def phase_precision(dev, model, windows):
         tf32_err = (vel_tf32.cpu() - vel_c).abs().max().item()
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
-    log(f"precision, PyTorch's default flags (cudnn.allow_tf32 True): streaming step x3 vs "
+    log(f"precision, PyTorch's default flags (cudnn.allow_tf32 True): graph streaming step x3 vs "
         f"the CPU: velocity {verr:.3e}, depth {derr:.3e}, h {herr:.3e}, c/max(1,|c|) "
         f"{cerr:.3e}; LSTMNetVIT x {N_WINDOWS} windows vs the CPU: velocity {vit_err:.3e}, "
         f"h {vit_herr:.3e}, c/max(1,|c|) {vit_cerr:.3e} (atol {VEL_ATOL}); with "
@@ -1329,13 +1540,20 @@ def main() -> int:
         stream_launches, windows = phase_streaming(dev, model)
     with Phase(f"batched streaming, {STREAMS} streams"):
         phase_batched(dev, model)
+    with Phase("graph step"):
+        phase_graph_step(dev, model)
+    with Phase("deployment loop (HIL)"):
+        tick_ms = phase_hil(dev, model, smi)
     with Phase("card numbers"):
         numbers = phase_card_numbers(dev, model, windows, smi)
-    with Phase("streaming profile"):
-        pipe = StreamingPipeline(model, fast_percentile=True, device=dev)
-        phase_profile(lambda: pipe.step_events(*windows[0]),
-                      {"K1": "hist_frame_cluster_kernel", "K4": "lstm_cluster_kernel"},
-                      "streaming")
+    with Phase("streaming profile, graph and eager"):
+        idle = {}
+        for graph in (True, False):
+            pipe = StreamingPipeline(model, fast_percentile=True, device=dev, graph=graph)
+            prof = phase_profile(lambda: pipe.step_events(*windows[0]),
+                                 {"K1": "hist_frame_cluster_kernel", "K4": "lstm_cluster_kernel"},
+                                 f"streaming ({'graph' if graph else 'eager'})")
+            idle["graph" if graph else "eager"] = None if prof is None else prof["idle_share"]
     with Phase(f"batched profile, {STREAMS} streams"):
         bpipe = BatchedStreamingPipeline(model, STREAMS, fast_percentile=True, device=dev)
         bframes = sparse_frames(6, (STREAMS, H, W), dev)
@@ -1381,11 +1599,16 @@ def main() -> int:
         lstm_entry("wavefront", "l2", stream_launches["K5 L2"]),
     ]
     streaming = "; ".join(
-        f"{mode} {route} " + ", ".join(f"{c:.3f}" for c, _ in numbers[(mode, route)])
-        for mode in ("stacked", "wavefront") for route in ("cluster", "l2"))
+        f"{mode} {route} {'graph' if graph else 'eager'} "
+        + ", ".join(f"{c:.3f}" for c, _ in numbers[(mode, route, graph)])
+        for mode in ("stacked", "wavefront") for route in ("cluster", "l2")
+        for graph in (True, False))
     log(f"done in {time.perf_counter() - _T0:.1f}s; main path {wps:.1f} windows/s (L2 route "
-        f"{wps_l2:.1f}); streaming ms per chained step: {streaming}; steps/s "
-        + ", ".join(f"G={G} {numbers[G]:.1f}" for G in RATE_STREAMS))
+        f"{wps_l2:.1f}); streaming ms per chained step: {streaming}; idle share of a "
+        f"streaming step {idle}; p50 ms per HIL tick {tick_ms}; steps/s "
+        + ", ".join(f"G={G} {'graph' if graph else 'eager'} "
+                    + ", ".join(f"{r:.1f}" for r in numbers[(G, graph)])
+                    for G in RATE_STREAMS for graph in (True, False)))
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

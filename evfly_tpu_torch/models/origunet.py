@@ -213,5 +213,7 @@ class OrigUNet(nn.Module):
             y_interp = y_interp.reshape(*lead, *y_interp.shape[1:])
             y_upconv = y_upconv.reshape(*lead, *y_upconv.shape[1:])
 
-        y_vel = x.new_tensor([1.0, 0.0, 0.0]).expand(*lead, 3)
+        # made on the device, not copied from the host, so a CUDA graph can
+        # capture the forward
+        y_vel = torch.eye(1, 3, dtype=x.dtype, device=x.device)[0].expand(*lead, 3)
         return y_vel, (y_interp, y_upconv, (h_unet, None))

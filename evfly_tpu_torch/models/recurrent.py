@@ -33,6 +33,11 @@ def set_fused_lstm(enabled: bool) -> None:
     _USE_FUSED_LSTM = enabled
 
 
+def fused_lstm_enabled() -> bool:
+    """What ``set_fused_lstm`` last set."""
+    return _USE_FUSED_LSTM
+
+
 def _needs_grad(params: Params, x: torch.Tensor, hidden) -> bool:
     """Whether autograd would record this call: grad mode on and the input,
     the state or a parameter requiring grad."""
@@ -49,7 +54,7 @@ def fused_wanted(params: Params, x: torch.Tensor, hidden, hidden_size: int,
     and no gradient needed, since the kernels have no backward.  An
     eval-mode forward under autograd takes the plain loop, which is
     differentiable, as the JAX package's eval-mode apply is."""
-    return (_USE_FUSED_LSTM and not train and hidden_size % 128 == 0
+    return (fused_lstm_enabled() and not train and hidden_size % 128 == 0
             and not _needs_grad(params, x, hidden))
 
 

@@ -3,27 +3,53 @@
 Port of ``evfly_tpu/stream/pipeline.py``.  The reference deployment loop
 (evfly_ros/run.py:244-414) quantile-scales each event frame, runs the joint
 model with its hidden state carried from frame to frame, and scales the
-velocity by the desired speed.  Here each step runs eagerly under
-``torch.inference_mode()``, at the precision of
-``evfly_tpu_torch.set_precision`` (full f32 by default), with the hidden
-state kept on the device: raw
-events -> ``event_histogram`` (kernel K1 on CUDA) -> 97th-percentile scaling
--> ``OrigUNet`` with its ConvLSTM -> ``LSTMNetVIT`` (its LSTM through K4, or
-K5 in the wavefront mode) -> velocity and depth.
+velocity by the desired speed.  One step is ``stream_step``: raw events ->
+``event_histogram`` (kernel K1 on CUDA) -> 97th-percentile scaling ->
+``OrigUNet`` with its ConvLSTM -> ``LSTMNetVIT`` (its LSTM through K4, or
+K5 in the wavefront mode) -> velocity and depth, under
+``torch.inference_mode()`` and at the precision of
+``evfly_tpu_torch.set_precision`` (full f32 by default).
 ``BatchedStreamingPipeline`` steps G streams in one forward, each with its
 own state, where the JAX package vmaps the single-stream step.
+
+The JAX package runs each step as one jitted program with the state
+donated.  Here a pipeline keeps its inputs and its hidden state in static
+device buffers, and on CUDA each step replays one captured
+``torch.cuda.CUDAGraph`` (``graph=True``, the default): the step writes
+the new state back into the same buffers inside the graph, and only the
+copies of the inputs into their buffers run outside it.  A window of N
+events is padded with pol-0 events, which K1 drops, to ``event_bucket(N)``
+events, one graph for each size.  A graph is captured at the first step
+of its key (``graph_key``: everything that picks a kernel or an algorithm
+at capture), after ``WARMUP_STEPS`` eager steps whose state is discarded.
+``graph=False``, and every pipeline on the CPU, runs the same step on the
+same buffers eagerly.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..models import recurrent
+from ..ops import lstm_fused, voxelizer
 from ..ops.percentile import approx_abs_quantile
-from ..ops.voxelizer import event_histogram
-from ..precision import with_precision
+from ..precision import get_precision, with_precision
+
+# windows of events are padded to a power of two of at least this many
+EVENT_BUCKET_MIN = 1024
+# eager steps before a capture: they build the kernels' library, set their
+# shared-memory attributes, pack the LSTM weights and let cuBLAS and cuDNN
+# allocate their workspaces, none of which a graph may do
+WARMUP_STEPS = 2
+
+
+def event_bucket(n: int) -> int:
+    """The static size a window of ``n`` events is padded to: the next
+    power of two of at least ``EVENT_BUCKET_MIN``."""
+    return max(EVENT_BUCKET_MIN, 1 << max(n - 1, 0).bit_length())
 
 
 def _quantile_scale(frame: torch.Tensor, do_events: bool = True, fast: bool = False
@@ -52,21 +78,187 @@ def _model_device(model: torch.nn.Module, device: DeviceLike) -> torch.device:
     return dev
 
 
-def _zero_streams(hidden, mask: torch.Tensor):
-    """hidden (a nest of tuples and lists of (G, ...) tensors, or None) with
-    the streams where ``mask`` (G,) is True set to 0."""
+def _leaves(hidden) -> List[torch.Tensor]:
+    """The tensors of a hidden-state nest (tuples and lists, None skipped)."""
     if hidden is None:
-        return None
+        return []
     if isinstance(hidden, (tuple, list)):
-        return type(hidden)(_zero_streams(h, mask) for h in hidden)
-    return torch.where(mask.reshape(-1, *(1,) * (hidden.dim() - 1)), 0.0, hidden)
+        return [t for h in hidden for t in _leaves(h)]
+    return [hidden]
 
 
-class StreamingPipeline:
+def stream_step(model: torch.nn.Module, frame: torch.Tensor, desvel: torch.Tensor, hidden,
+                quantile_scale: bool = True, fast_percentile: bool = False):
+    """One streaming step of the joint model, a function of its inputs:
+    frame (H, W) with desvel (1,) and one stream's hidden state, or
+    (G, H, W) with desvel (G,) and the state of G streams.  Returns
+    (velocity scaled by desvel, (3,) or (G, 3); depth, (H, W) or
+    (G, H, W), or None; the new hidden state)."""
+    batched = frame.dim() == 3
+    if quantile_scale:
+        frame = _quantile_scale(frame, fast=fast_percentile)
+    H, W = frame.shape[-2:]
+    if batched:
+        G = frame.shape[0]
+        vel, (depth, _upconv, new_hidden) = model(
+            frame.reshape(G, 1, 1, H, W), desvel.reshape(G, 1, 1), *hidden)
+        return vel[:, 0] * desvel[:, None], depth[:, 0, 0], new_hidden
+    vel, (depth, _upconv, new_hidden) = model(frame.reshape(1, 1, H, W), desvel.reshape(1, 1),
+                                             *hidden)
+    return vel[0] * desvel, (depth[0, 0] if depth is not None else None), new_hidden
+
+
+def _signs(pol) -> torch.Tensor:
+    """pol's sign as the kernels take it: int32 as given, anything else
+    mapped to -1, 0 or 1."""
+    pol = torch.as_tensor(pol)
+    if pol.dtype == torch.int32:
+        return pol
+    return torch.where(pol > 0, 1, torch.where(pol < 0, -1, 0))
+
+
+class _Slot:
+    """One step's static input buffers, the step over them (``body``: no
+    arguments, writes the new state in place, returns the outputs) and,
+    once captured, its graph and the graph's output buffers."""
+
+    def __init__(self, inputs: Dict[str, torch.Tensor], body: Callable[[], tuple]):
+        self.inputs = inputs
+        self.body = body
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.outputs: Optional[tuple] = None
+
+
+class GraphKey(NamedTuple):
+    """What a captured step depends on beyond its buffers' addresses."""
+    kind: str                 # "frame", "events" or "frames"
+    size: int                 # the event bucket, or G for the batched step
+    precision: str            # set_precision
+    quantile: Tuple[bool, bool]  # (quantile_scale, fast_percentile)
+    fused_lstm: bool          # set_fused_lstm
+    lstm: Tuple[Tuple[str, str], ...]  # (mode, route) of each LSTM module
+    k1_route: Optional[str]   # K1's kernel, for the events step
+
+
+def _step_body(model, hidden, input_hw, quantile_scale: bool, fast_percentile: bool,
+               frame: Optional[torch.Tensor], desvel: torch.Tensor, events=None):
+    """The step over static buffers: the frame (or the histogram of the
+    events (x, y, pol)), the model, the new state copied into ``hidden``.
+    It holds no reference to its pipeline, so that a pipeline and its
+    graphs are freed as soon as the last reference to the pipeline goes."""
+    device = desvel.device
+
+    def body():
+        x = frame
+        if events is not None:
+            x = voxelizer.event_histogram(*events, *input_hw, device=device)
+        vel, depth, new_hidden = stream_step(model, x, desvel, hidden, quantile_scale,
+                                             fast_percentile)
+        for dst, src in zip(_leaves(hidden), _leaves(new_hidden)):
+            dst.copy_(src)
+        return vel, depth
+
+    return body
+
+
+class _Steps:
+    """A pipeline's steps: one ``_Slot`` for each ``GraphKey``, run eagerly
+    or, with ``graph``, as replays of the slot's CUDA graph.  ``state``
+    holds the static hidden-state tensors, which the warm-up steps before a
+    capture leave as they found them."""
+
+    def __init__(self, device: torch.device, graph: bool, state: List[torch.Tensor]):
+        self.device = device
+        self.graph = graph and device.type == "cuda"
+        self.state = state
+        self.slots: Dict[GraphKey, _Slot] = {}
+
+    def run(self, key: GraphKey, make: Callable[[], _Slot],
+            fill: Callable[[Dict[str, torch.Tensor]], None]) -> tuple:
+        slot = self.slots.get(key)
+        if slot is None:
+            slot = self.slots[key] = make()
+        fill(slot.inputs)
+        if not self.graph:
+            return slot.body()
+        if slot.graph is None:
+            self._capture(slot)
+        slot.graph.replay()
+        # the next replay overwrites the graph's outputs
+        return tuple(None if o is None else o.clone() for o in slot.outputs)
+
+    def _capture(self, slot: _Slot) -> None:
+        """Warm up on a side stream, put the state back, capture.  A capture
+        that fails raises; there is no fallback to the eager step."""
+        saved = [t.clone() for t in self.state]
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                slot.body()
+        current.wait_stream(side)
+        for t, s in zip(self.state, saved):
+            t.copy_(s)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outputs = slot.body()
+        slot.graph, slot.outputs = graph, outputs
+
+
+class _Pipeline:
+    """What the single-stream and the batched pipeline share: the model on
+    its device, the hidden state in static buffers, and the steps."""
+
+    def __init__(self, model, input_hw, quantile_scale, fast_percentile, device, graph,
+                 streams: Optional[int]):
+        self.device = _model_device(model, device)
+        self.model = model.eval()
+        self.input_hw = input_hw
+        self.quantile_scale = quantile_scale
+        self.fast_percentile = fast_percentile
+        self._lstms = [m for m in model.modules() if isinstance(m, recurrent.LSTM)]
+        with torch.inference_mode():
+            self.hidden = model.init_hidden(streams=streams)
+        self._steps = _Steps(self.device, graph, _leaves(self.hidden))
+
+    @property
+    def graph(self) -> bool:
+        """Whether the steps replay CUDA graphs (always False on the CPU)."""
+        return self._steps.graph
+
+    def graph_key(self, kind: str, size: int) -> GraphKey:
+        """The key of a step of ``kind`` at ``size`` under the current
+        settings: a change to any of them captures anew."""
+        H, W = self.input_hw
+        return GraphKey(
+            kind, size, get_precision(), (self.quantile_scale, self.fast_percentile),
+            recurrent.fused_lstm_enabled(),
+            tuple((m.mode or lstm_fused.FUSED_LSTM_MODE,
+                   lstm_fused.choose_route(m.hidden_size, m.num_layers)) for m in self._lstms),
+            voxelizer.k1_route(H, W, False) if kind == "events" else None,
+        )
+
+    def _body(self, frame: Optional[torch.Tensor], desvel: torch.Tensor, events=None):
+        return _step_body(self.model, self.hidden, self.input_hw, self.quantile_scale,
+                          self.fast_percentile, frame, desvel, events)
+
+    def reset(self):
+        """Zero the recurrent carry in place (sim resets when pos.x < 0.5,
+        run_competition.py:500-520; never in real deployment)."""
+        with torch.inference_mode():
+            for t in _leaves(self.hidden):
+                t.zero_()
+
+
+class StreamingPipeline(_Pipeline):
     """Stateful streaming runner around the joint model
     (``models.composites.OrigUNet_w_VITFLY_ViTLSTM``): its forward takes
     (frames, desvel, hidden_unet, hidden_vit) with the composite hidden
-    convention ((h_unet, h_velpred), h_vitlstm), and it has ``init_hidden()``.
+    convention ((h_unet, h_velpred), h_vitlstm), and it has
+    ``init_hidden()``.  ``hidden`` holds the state in static buffers, which
+    each step and ``reset`` write in place.  ``desvel`` may change between
+    steps.
     """
 
     def __init__(
@@ -77,53 +269,80 @@ class StreamingPipeline:
         quantile_scale: bool = True,
         fast_percentile: bool = False,
         device: DeviceLike = None,
+        graph: bool = True,
     ):
-        self.device = _model_device(model, device)
-        self.model = model.eval()
+        super().__init__(model, input_hw, quantile_scale, fast_percentile, device, graph, None)
         self.desvel = desvel
-        self.input_hw = input_hw
-        self.quantile_scale = quantile_scale
-        self.fast_percentile = fast_percentile
-        self.hidden = model.init_hidden()
+        self._desvel = torch.zeros(1, device=self.device)
+        self._desvel_set = None
 
-    def reset(self):
-        """Zero the recurrent carry (sim resets when pos.x < 0.5,
-        run_competition.py:500-520; never in real deployment)."""
-        self.hidden = self.model.init_hidden()
+    def _run(self, kind: str, size: int, buffers: Callable[[], Dict[str, torch.Tensor]], fill):
+        """Step through the slot of ``graph_key(kind, size)``; ``buffers()``
+        makes a new slot's inputs: a "frame", or the events "x", "y",
+        "pol"."""
+        if self._desvel_set != self.desvel:
+            with torch.inference_mode():
+                self._desvel.fill_(self.desvel)
+            self._desvel_set = self.desvel
 
-    @torch.inference_mode()
-    def _step(self, frame: torch.Tensor):
-        if self.quantile_scale:
-            frame = _quantile_scale(frame, fast=self.fast_percentile)
-        x = frame.reshape(1, 1, *self.input_hw)
-        desvel = torch.full((1, 1), self.desvel, dtype=torch.float32, device=self.device)
-        vel, (depth, _upconv, self.hidden) = self.model(x, desvel, *self.hidden)
-        return vel[0] * self.desvel, (depth[0, 0] if depth is not None else None)
+        def make():
+            bufs = buffers()
+            events = (bufs["x"], bufs["y"], bufs["pol"]) if "x" in bufs else None
+            return _Slot(bufs, self._body(bufs.get("frame"), self._desvel, events))
+
+        with torch.inference_mode():
+            return self._steps.run(self.graph_key(kind, size), make, fill)
 
     @with_precision
     def step_frame(self, frame):
-        """One event frame (H, W) -> (velocity (3,), depth (H, W))."""
-        return self._step(torch.as_tensor(frame, dtype=torch.float32, device=self.device))
+        """One event frame (H, W), an array or a tensor on any device ->
+        (velocity (3,), depth (H, W)) on the pipeline's device."""
+        H, W = self.input_hw
+
+        def fill(bufs):
+            bufs["frame"].copy_(torch.as_tensor(frame, dtype=torch.float32).reshape(H, W))
+
+        return self._run("frame", H * W, lambda: {
+            "frame": torch.zeros(H, W, device=self.device)}, fill)
 
     @with_precision
     def step_events(self, ex, ey, ep):
-        """One window of raw events (N,) each -> (velocity (3,), depth (H, W)).
-        The frame is ``event_histogram`` of the window (K1 on CUDA)."""
-        with torch.inference_mode():
-            frame = event_histogram(ex, ey, ep, *self.input_hw, device=self.device)
-        return self._step(frame)
+        """One window of raw events (N,) each, arrays or tensors on any
+        device -> (velocity (3,), depth (H, W)).  The frame is
+        ``event_histogram`` of the window (K1 on CUDA), the window padded
+        to ``event_bucket(N)`` events with pol 0."""
+        ex, ey, ep = (torch.as_tensor(v) for v in (ex, ey, ep))
+        if ex.dim() != 1 or ey.shape != ex.shape or ep.shape != ex.shape:
+            raise ValueError(f"step_events takes one window of (N,) events, got "
+                             f"{tuple(ex.shape)}, {tuple(ey.shape)}, {tuple(ep.shape)}")
+        n = ex.shape[0]
+        size = event_bucket(n)
+
+        def buffers():
+            f32 = dict(dtype=torch.float32, device=self.device)
+            return {"x": torch.zeros(size, **f32), "y": torch.zeros(size, **f32),
+                    "pol": torch.zeros(size, dtype=torch.int32, device=self.device)}
+
+        def fill(bufs):
+            for name, v in (("x", ex), ("y", ey), ("pol", _signs(ep))):
+                bufs[name][:n].copy_(v)
+                bufs[name][n:].zero_()
+
+        return self._run("events", size, buffers, fill)
 
 
-class BatchedStreamingPipeline:
+class BatchedStreamingPipeline(_Pipeline):
     """G independent event streams stepped in lockstep on one device.
 
     Every stream carries its own recurrent state; one forward takes the G
     frames with the stream axis leading, so the ConvLSTM runs with batch G
-    and the ViTLSTM's LSTM is one launch for all G streams.
+    and the ViTLSTM's LSTM is one launch for all G streams.  ``desvel`` is
+    fixed at construction, as in the JAX package.
 
     Per-stream hidden reset is a mask argument (sim resets a stream when its
     quad re-enters pos.x < 0.5, run_competition.py:500-520), applied BEFORE
-    the forward like ``StreamingPipeline.reset``.
+    the forward like ``StreamingPipeline.reset``: the masked streams' state
+    is zeroed in place.
     """
 
     def __init__(
@@ -135,39 +354,36 @@ class BatchedStreamingPipeline:
         quantile_scale: bool = True,
         fast_percentile: bool = False,
         device: DeviceLike = None,
+        graph: bool = True,
     ):
-        self.device = _model_device(model, device)
-        self.model = model.eval()
+        super().__init__(model, input_hw, quantile_scale, fast_percentile, device, graph,
+                         num_streams)
         self.G = num_streams
-        self.input_hw = input_hw
-        self.quantile_scale = quantile_scale
-        self.fast_percentile = fast_percentile
         self.desvel = torch.broadcast_to(
             torch.as_tensor(desvel, dtype=torch.float32, device=self.device), (num_streams,)
         ).clone()
-        self.hidden = self.init_hidden()
 
     def init_hidden(self):
         return self.model.init_hidden(streams=self.G)
 
-    def reset(self):
-        self.hidden = self.init_hidden()
-
     @with_precision
-    @torch.inference_mode()
     def step_frames(self, frames, reset_mask=None):
         """frames (G, H, W) -> (velocities (G, 3) scaled by desvel, depths
         (G, H, W)).  ``reset_mask`` (G,) bool zeroes those streams'
         recurrent state before the forward."""
-        frames = torch.as_tensor(frames, dtype=torch.float32, device=self.device)
-        hidden = self.hidden
-        if reset_mask is not None:
-            mask = torch.as_tensor(reset_mask, dtype=torch.bool, device=self.device)
-            hidden = _zero_streams(hidden, mask)
-        if self.quantile_scale:
-            frames = _quantile_scale(frames, fast=self.fast_percentile)
-        x = frames.reshape(self.G, 1, 1, *self.input_hw)
-        vel, (depth, _upconv, self.hidden) = self.model(
-            x, self.desvel.reshape(self.G, 1, 1), *hidden
-        )
-        return vel[:, 0] * self.desvel[:, None], depth[:, 0, 0]
+        G, (H, W) = self.G, self.input_hw
+        with torch.inference_mode():
+            if reset_mask is not None:
+                mask = torch.as_tensor(reset_mask, dtype=torch.bool, device=self.device)
+                for t in _leaves(self.hidden):
+                    t.masked_fill_(mask.reshape(-1, *(1,) * (t.dim() - 1)), 0.0)
+
+            def make():
+                bufs = {"frame": torch.zeros(G, H, W, device=self.device)}
+                return _Slot(bufs, self._body(bufs["frame"], self.desvel))
+
+            def fill(bufs):
+                bufs["frame"].copy_(torch.as_tensor(frames, dtype=torch.float32)
+                                    .reshape(G, H, W))
+
+            return self._steps.run(self.graph_key("frames", G), make, fill)

@@ -1,5 +1,6 @@
-"""Runs the port's ``gpu``-marked voxelizer tests on a machine with a CUDA
-card and without JAX (the GPU machine):
+"""Runs the port's ``gpu``-marked tests (the voxelizer kernels, the graph
+step, the deployment loop) on a machine with a CUDA card and without JAX
+(the GPU machine):
 
     python3 tests/run_gpu_tests.py [REPO]
 
@@ -18,7 +19,8 @@ import types
 
 REPO = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
                        os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-FILES = ("tests/test_torch_voxelizer.py", "tests/test_torch_voxelizer_cluster.py")
+FILES = ("tests/test_torch_voxelizer.py", "tests/test_torch_voxelizer_cluster.py",
+         "tests/test_torch_stream_graph.py", "tests/test_torch_hil.py")
 
 
 class _Inert(types.ModuleType):

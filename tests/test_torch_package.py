@@ -19,7 +19,7 @@ from evfly_tpu_torch.stream import BatchedStreamingPipeline, StreamingPipeline
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "evfly_tpu_torch"
 # the port's package, its smoke run and its probes under tools/
-TOOLS = ["k2_phase_stamps", "path_rates"]
+TOOLS = ["k2_phase_stamps", "path_rates", "torch_latency_bench"]
 SCRIPTS = [REPO / "chip_smoke.py"] + [REPO / "tools" / f"{t}.py" for t in TOOLS]
 PORT_FILES = sorted(PORT.rglob("*.py")) + SCRIPTS
 MODULES = sorted(
@@ -33,7 +33,11 @@ def test_import_check_covers_every_module():
                    "evfly_tpu_torch.models.origunet", "evfly_tpu_torch.models.composites",
                    "evfly_tpu_torch.models.recurrent", "evfly_tpu_torch.ops.lstm_fused",
                    "evfly_tpu_torch.ops.voxelizer", "evfly_tpu_torch.precision",
-                   "chip_smoke", "tools.k2_phase_stamps", "tools.path_rates"):
+                   "evfly_tpu_torch.stream.accumulator", "evfly_tpu_torch.stream.deploy",
+                   "evfly_tpu_torch.stream.hil", "evfly_tpu_torch.native._build",
+                   "evfly_tpu_torch.sim.dynamics", "evfly_tpu_torch.sim.native_quad",
+                   "evfly_tpu_torch.sim.pilot", "chip_smoke", "tools.k2_phase_stamps",
+                   "tools.path_rates", "tools.torch_latency_bench"):
         assert module in MODULES
 
 

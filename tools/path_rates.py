@@ -15,8 +15,9 @@ off), inputs from fixed numpy seeds:
   ``event_histogram_scaled`` (K2) -> ``interpolate_bilinear`` to 60x90 ->
   ``LSTMNetVIT``, windows/s;
 - streaming: ``StreamingPipeline.step_events`` with the joint model
-  (``policy_best.pth``), one window of 5,000 events a step, ms per step
-  over 100 chained steps.
+  (``policy_best.pth``), one window of 5,000 events a step (one CUDA graph
+  replayed per step, the pipeline's default), ms per step over 100
+  chained steps.
 
 Each rate is the median of 5 reps of 10 steps after 3 warm-up steps (host
 clock around work that ends in a synchronize).  Prints the card's name and
