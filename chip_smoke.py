@@ -45,11 +45,25 @@ just before it and read just after:
 - the deployment loop: ``stream.hil.run_hil_episode`` flies 30 ticks on the
   port's native event accumulator and flight-stack core (built with g++ at
   their first use) with the joint model's graph step, each tick's velocity
-  against an eager run on the plain path.
+  against an eager run on the plain path;
+- training: ``Learner(cfg).train_loop()`` for 2 epochs with the joint
+  configuration of ``tools/train_policy.py`` at 260x346, chunks of 16,
+  from ``artifacts/policy_best.pth``, on a synthetic dataset that the
+  port's dataloader preprocesses into its cache (``cache_dataset``: numpy
+  only, no h5py); every loss finite, the JAX package's workspace files and
+  checkpoint names, ``model_ep000001.pth`` reloaded bit for bit and
+  streamed once; validation runs K4 once per chunk and the train steps no
+  LSTM kernel, and validation through K4 matches the plain loop; every
+  kernel's launches over the run are counted; one train step on the card
+  against the same step on the CPU (loss, terms, every gradient, the
+  gradient norm, Adam's update of every parameter element, u and v), and
+  a step in TF32 must fail the same bounds.
 
 It then times a streaming step and the G-stream rates, each as graphs and
 eagerly in turns, in the manner of ``tools/torch_latency_bench.py``, and
-profiles a graph step beside an eager one for their idle shares.  Every
+profiles a graph step beside an eager one for their idle shares, and
+times the train step (chunks/s, frames/s, idle share, peak memory),
+validation (frames/s) and an epoch.  Every
 phase prints a flushed line when it starts and when it ends.  The last lines of standard output are the card's name and
 power limit, the kernels' JSON line and the result line
 ``{"ok": true, "device": {...}}``.
@@ -65,6 +79,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -74,6 +89,8 @@ import time
 import numpy as np
 import torch
 
+from evfly_tpu_torch.configs import EvflyConfig
+from evfly_tpu_torch.data.dataloading import cache_dataset
 from evfly_tpu_torch.models.composites import OrigUNet_w_VITFLY_ViTLSTM
 from evfly_tpu_torch.models.port import load_state_dict
 from evfly_tpu_torch.models.recurrent import set_fused_lstm
@@ -133,6 +150,8 @@ from evfly_tpu_torch.ops.voxelizer import (
 from evfly_tpu_torch.ops.voxelizer import cluster_occupancy as vox_cluster_occupancy
 from evfly_tpu_torch.stream import BatchedStreamingPipeline, StreamingPipeline, hil
 from evfly_tpu_torch.stream.pipeline import event_bucket
+from evfly_tpu_torch.train import Learner, stepfn
+from evfly_tpu_torch.train.learner import dataloader_kwargs
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(REPO, "artifacts", "pretrain_v_final.pth")
@@ -170,6 +189,43 @@ SECOND_BUCKET_AT, SECOND_BUCKET_EVENTS = 5, 1500
 # tools/latency_bench.py's counts: chained and synchronized streaming
 # steps, and batched steps at each number of streams
 CHAINED_STEPS, SYNC_STEPS, RATE_STEPS, RATE_STREAMS = 100, 20, 30, (16, 64)
+
+# the training phase: the joint configuration of tools/train_policy.py
+# (_cfg :61-98 and _joint_cfg :179-198) at full width, from policy_best.pth,
+# on a synthetic dataset of TRAIN_TRAJS trajectories of TRAIN_FRAMES frames
+TRAIN_CONFIG = dict(
+    model_type=["OrigUNet", "VITFLY_ViTLSTM"], velpred=0, num_in_channels=2,
+    num_out_channels=1, bev=2, num_recurrent=[1, 0], skip_type="interp", resize_input=[H, W],
+    use_h5=True, events="evs_frames", keep_collisions=False, val_split=0.15, seed=7,
+    batch_size=16, rescale_depth=1.0, rescale_evs=-1.0, evs_min_cutoff=0.0,
+    data_augmentation=1.0, device_data_quantized=True, traj_scan=True, epoch_scan=True,
+    scan_group=16, lr=1e-4, lr_warmup_epochs=1, loss_weights=[10.0, 1.0],
+    optional_loss_param=[5.0, -1.0], N_eps=2, save_model_freq=1, val_freq=1,
+    print_trainprogress_freq=1, checkpoint_path=[JOINT_CHECKPOINT], load_trainval=False,
+    enc_num_layers=2, enc_kernel_sizes=[5, 3], enc_kernel_strides=[2, 2],
+    enc_out_channels=[8, 32], enc_activations=["relu", "relu"], enc_pool_type="max",
+    enc_invert_pool_inputs=True, enc_pool_kernels=[2, 2], enc_pool_strides=[2, 2],
+    fc_num_layers=4, fc_layer_sizes=[1024, 128, 16, 1],
+    fc_activations=["leaky_relu", "leaky_relu", "leaky_relu", "tanh"], fc_dropout_p=0.1,
+)
+TRAIN_TRAJS, TRAIN_FRAMES, TRAIN_TIMED = 6, 49, 8
+# the card's train step against the port's on the CPU (same params and
+# chunk, no augmentation or dropout): loss, terms and gradient norm within
+# TRAIN_RTOL relative; each gradient within TRAIN_GRAD_TOL x the largest
+# |gradient| of its leaf on the CPU (the f32 sums of a 16-frame 260x346
+# UNet and its backward in cuDNN's order against the CPU's); Adam's update
+# of each parameter element, p_after - p_before, within TRAIN_STEP_ATOL
+# (0.01 lr) plus one f32 ulp of p.  The first step moves an element by
+# lr g / (|g| + eps), which a change of d in g moves by at most
+# lr d / (4 |g|): where |g| is at most TRAIN_SMALL_G times its leaf's
+# largest gradient disagreement and either gradient is nonzero (rounding
+# may set the step's sign), the update is held to 2 lr, elsewhere it moves
+# by at most lr / (4 TRAIN_SMALL_G) from the gradients' disagreement; u, v
+# within TRAIN_UV_TOL; a step in TF32 must fail these bounds (the readings
+# these were set from are in PERF.md); validation with K4 against the plain
+# loop within VEL_ATOL x max(1, |x|)
+TRAIN_RTOL, TRAIN_GRAD_TOL, TRAIN_STEP_ATOL, TRAIN_SMALL_G, TRAIN_UV_TOL = (
+    1e-4, 1e-4, 1e-6, 100.0, 1e-5)
 
 # tolerances: the JAX package's own bounds for the TPU kernels
 # (tests/test_fused_voxelizer.py:34,68, tests/test_lstm_pallas.py:53,79) and
@@ -1234,22 +1290,27 @@ def phase_hil(dev, model, smi):
 _SERVING_KERNELS = {"K3": "hist_scaled_cluster_kernel", "K4": "lstm_cluster_kernel"}
 
 
-def phase_profile(step, kernel_names=_SERVING_KERNELS, label="main-path"):
-    """Device time of 3 steps of a path by kernel, under torch.profiler;
+def phase_profile(step, kernel_names=_SERVING_KERNELS, label="main-path", grad=False):
+    """Device time of 3 steps of a path by kernel, under torch.profiler
+    (in inference mode unless the steps need autograd, ``grad``);
     ``kernel_names`` maps a label to a substring of a kernel's name.
     Returns the busy and span ms, the idle share, the number of kernels and
     the device ms of each label, or None where the trace has no device
     time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
+    with contextlib.nullcontext() if grad else torch.inference_mode():
         step()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 step()
             torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device events, without the annotations a record_function puts on the
+    # device's timeline (Adam's "Optimizer.step#Adam.step"): they overlap
+    # the kernels they annotate; their count is logged
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in device if not getattr(e, "is_user_annotation", False)]
     if not kernels:
         log("profile: the trace has no device time (not measured)")
         return None
@@ -1266,7 +1327,7 @@ def phase_profile(step, kernel_names=_SERVING_KERNELS, label="main-path"):
     log(f"profile of 3 {label} steps: device busy {busy / 1e3:.3f} ms over a {span / 1e3:.3f} ms span "
         f"(idle share {1 - busy / span:.3f}); device ms by kernel: "
         + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in share.items())
-        + f"; {len(kernels)} kernels")
+        + f"; {len(kernels)} kernels, {len(device) - len(kernels)} annotations left out")
     for name, (n, us) in sorted(others.items(), key=lambda kv: -kv[1][1])[:8]:
         log(f"  other: {us / 1e3:8.3f} ms in {n:5d} launches  {name[:90]}")
     return dict(busy_ms=busy / 1e3, span_ms=span / 1e3, idle_share=1 - busy / span,
@@ -1488,6 +1549,311 @@ def phase_many_windows(dev):
     torch.cuda.empty_cache()
 
 
+def synthetic_trajectories(seed: int = 11):
+    """TRAIN_TRAJS trajectories of TRAIN_FRAMES frames at 260x346 in
+    write_h5_dataset's layout, from a numpy seed: smooth depths in [0, 1],
+    sparse signed event counts (the dataloader rescales them by their 97th
+    percentile), forward velocity commands with a y command that is 0 on
+    some frames and a few nonzero z commands."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(TRAIN_FRAMES)
+    trajs = []
+    for i in range(TRAIN_TRAJS):
+        meta = np.zeros((TRAIN_FRAMES, 21), np.float32)
+        meta[:, 0], meta[:, 1], meta[:, 2], meta[:, 13] = t, t / 30.0, 5.0, 5.0
+        meta[:, 14] = np.round(np.sin(t / 7.0 + i) * 2.0) / 2.0
+        meta[:, 15] = (rng.random(TRAIN_FRAMES) < 0.2) * 0.5
+        coarse = torch.from_numpy(rng.random((TRAIN_FRAMES, 1, 14, 18)).astype(np.float32))
+        depths = interpolate_bilinear(coarse, (H, W))[:, 0].clamp(0.0, 1.0).numpy()
+        counts = rng.integers(-3, 4, (TRAIN_FRAMES - 1, H, W), dtype=np.int8)
+        evs = (counts * (rng.random((TRAIN_FRAMES - 1, H, W)) < 0.08)).astype(np.float32)
+        trajs.append({"name": f"traj_{i:03d}", "data": meta, "depths": depths,
+                      "ims": rng.random((TRAIN_FRAMES, H, W), dtype=np.float32),
+                      "desvel": meta[:, 2], "evs": evs})
+    return trajs
+
+
+LSTM_KERNELS = (lstm_stacked, lstm_wavefront, lstm_stacked_cluster, lstm_wavefront_cluster)
+# every kernel wrapper, by the names of the kernels' JSON entries
+KERNELS = {"K1 cluster": hist_frame_cluster, "K1 band": hist_frame, "K2": hist_scaled,
+           "K3": hist_scaled_resized, "scale_counts": scale_counts,
+           "scale_counts_resized": scale_counts_resized, "K4 L2": lstm_stacked,
+           "K5 L2": lstm_wavefront, "K4 cluster": lstm_stacked_cluster,
+           "K5 cluster": lstm_wavefront_cluster}
+
+
+def _recording_run_model(learner, records):
+    """Wrap learner.run_model: each trajectory's mode, whether it trained,
+    loss, terms, frames, synchronized seconds and the launches of each LSTM
+    kernel (K4/K5, both routes) during it."""
+    inner = learner.run_model
+
+    def run_model(it, starts, lengths, ids, mode, *args, **kwargs):
+        before = [k.launches for k in LSTM_KERNELS]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(it, starts, lengths, ids, mode, *args, **kwargs)
+        torch.cuda.synchronize()
+        loss, terms = out[0]
+        records.append(dict(
+            mode=mode, training=mode == "train" and kwargs.get("do_step", True),
+            loss=loss, terms=np.asarray(terms), frames=int(lengths[it]) - 1,
+            seconds=time.perf_counter() - t0,
+            launches=[k.launches - b for k, b in zip(LSTM_KERNELS, before)]))
+        return out
+
+    learner.run_model = run_model
+    return inner
+
+
+def _train_step_once(d, batch):
+    """One train step of the joint model from policy_best.pth on device
+    ``d``, no augmentation, no dropout: its loss, logged terms, gradient
+    norm, gradients and the state before and after, on the CPU."""
+    model = OrigUNet_w_VITFLY_ViTLSTM(device=d, **JOINT_CONFIG)
+    model.load_params(load_state_dict(JOINT_CHECKPOINT))
+    before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=TRAIN_CONFIG["lr"], betas=(0.9, 0.999),
+                           eps=1e-8)
+    step = stepfn.make_train_step(model, "joint_vitlstm", opt, TRAIN_CONFIG["loss_weights"],
+                                  TRAIN_CONFIG["optional_loss_param"])
+    loss, values, gn = step({k: v.to(d) for k, v in batch.items()}, None)
+    return dict(loss=loss.item(), values=values.cpu(), gn=gn.item(), before=before,
+                grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                after={k: v.detach().cpu() for k, v in model.state_dict().items()})
+
+
+def _step_errors(got, ref):
+    """The readings of one train step against the CPU's, each over its
+    bound (see TRAIN_GRAD_TOL): 1 or less passes.  Also the share of the
+    elements whose update is held only to 2 lr, and the worst leaves."""
+    lr, ulp = TRAIN_CONFIG["lr"], torch.finfo(torch.float32).eps
+    rel = lambda a, b: abs(a - b) / max(1.0, abs(b))
+    grad, step, small, n = {}, {}, 0, 0
+    for k, g in ref["grads"].items():
+        gg = got["grads"][k]
+        top, gap = g.abs().max().item(), (gg - g).abs().max().item()
+        grad[k] = gap / (TRAIN_GRAD_TOL * top) if top else float("inf") if gap else 0.0
+        p0 = ref["before"][k]
+        d_got, d_ref = got["after"][k] - p0, ref["after"][k] - p0
+        tiny = (g.abs() <= TRAIN_SMALL_G * gap) & ((g != 0) | (gg != 0))
+        bound = torch.where(tiny, torch.full_like(p0, 2 * lr), torch.full_like(p0, TRAIN_STEP_ATOL)
+                            ) + ulp * p0.abs()
+        ratio = ((d_got - d_ref).abs() / bound).flatten()
+        i = int(ratio.argmax())
+        # the worst element: its reading, gradients and updates (card, CPU)
+        step[k] = (ratio[i].item(), gg.flatten()[i].item(), g.flatten()[i].item(),
+                   d_got.flatten()[i].item(), d_ref.flatten()[i].item())
+        small, n = small + int(tiny.sum()), n + g.numel()
+    uv = max((got["after"][k] - v).abs().max().item() for k, v in ref["after"].items()
+             if k not in ref["grads"])
+    worst = lambda d, key: sorted(d.items(), key=lambda kv: -key(kv[1]))[:3]
+    return dict(loss=rel(got["loss"], ref["loss"]) / TRAIN_RTOL,
+                terms=max(((got["values"] - ref["values"]).abs()
+                           / ref["values"].abs().clamp_min(1.0)).tolist()) / TRAIN_RTOL,
+                gradnorm=rel(got["gn"], ref["gn"]) / TRAIN_RTOL,
+                grads=max(grad.values()), update=max(v[0] for v in step.values()),
+                uv=uv / TRAIN_UV_TOL, small_share=small / n, worst_grads=worst(grad, float),
+                worst_update=worst(step, lambda v: v[0]))
+
+
+def _card_vs_cpu_step(dev, batch):
+    """One train step of the joint model on the card and on the CPU, same
+    chunk: the card's readings against the CPU's, the same readings of a
+    step in TF32 on the card, and the CPU's loss, terms and gradient norm."""
+    ref = _train_step_once(torch.device("cpu"), batch)
+    errs = _step_errors(_train_step_once(dev, batch), ref)
+    saved = get_precision()
+    set_precision("tf32")
+    try:
+        tf32 = _step_errors(_train_step_once(dev, batch), ref)
+    finally:
+        set_precision(saved)
+    return errs, tf32, (ref["loss"], ref["values"].tolist(), ref["gn"])
+
+
+def phase_training(dev, smi):
+    """The training path at full width: the joint configuration of
+    tools/train_policy.py from policy_best.pth, Learner(cfg).train_loop()
+    for 2 epochs on a synthetic dataset that the port's dataloader
+    preprocesses and caches (numpy only: no h5py, no h5 file), then its
+    checks and the card's numbers.  The data and checkpoints live under
+    build/ and are removed after."""
+    root = os.path.join(REPO, "build", f"train_smoke_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        return _training(dev, smi, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _training(dev, smi, root):
+    datadir = os.path.join(root, "data", "datasets")
+    cfg = EvflyConfig(basedir=root, logdir="logs", datadir=datadir, dataset=["synthetic"],
+                      **TRAIN_CONFIG)
+    t0 = time.perf_counter()
+    train, val, _ = cache_dataset(os.path.join(datadir, "synthetic"), synthetic_trajectories(),
+                                  logger=lambda m: None, **dataloader_kwargs(cfg))
+    log(f"training data route: cache_dataset (the port's dataloader preprocessed "
+        f"{TRAIN_TRAJS} in-memory trajectories of {TRAIN_FRAMES} frames at {H}x{W} into its "
+        f"cache under a .h5.stat.json stamp, no h5py) in {time.perf_counter() - t0:.1f}s: "
+        f"train {train.ims.shape[0]} frames, val {val.ims.shape[0]}; event frames in "
+        f"[{min(float(e.min()) for e in train.evs):.2f}, "
+        f"{max(float(e.max()) for e in train.evs):.2f}]")
+    learner = Learner(cfg)
+    with open(os.path.join(learner.workspace, "log.txt")) as fh:
+        require("Cache hit" in fh.read(), "the Learner's dataloader missed the cache")
+    require(learner.device.type == "cuda", "the Learner did not take the card by default")
+    records = []
+    run_model = _recording_run_model(learner, records)
+    for k in KERNELS.values():
+        k.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what the earlier phases still hold
+    t0 = time.perf_counter()
+    learner.train_loop()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    trained = [r for r in records if r["training"]]
+    validated = [r for r in records if not r["training"]]
+    n_train, n_val = learner.num_training_steps, learner.num_val_steps
+    chunks = lambda rs: sum(-(-r["frames"] // cfg.batch_size) for r in rs)
+    k4_train = [sum(r["launches"]) for r in trained]
+    k4_val = sum(r["launches"][2] for r in validated)  # lstm_stacked_cluster
+    log(f"train_loop: {len(trained)} trajectories trained ({chunks(trained)} chunks), "
+        f"{len(validated)} validated ({chunks(validated)} chunks) in {loop_s:.1f}s; LSTM "
+        f"kernel launches (K4 L2, K5 L2, K4 cluster, K5 cluster): train "
+        f"{[sum(r['launches'][i] for r in trained) for i in range(4)]}, validation "
+        f"{[sum(r['launches'][i] for r in validated) for i in range(4)]}; launches of every "
+        f"kernel over train_loop {launches}; losses "
+        + ", ".join(f"{r['mode']} {r['loss']:.4f}" for r in records))
+    require(len(trained) == cfg.N_eps * n_train and len(validated) == cfg.N_eps * n_val,
+            "train_loop ran another number of trajectories")
+    require(all(np.isfinite(r["loss"]) and np.isfinite(r["terms"]).all() for r in records),
+            "a training or validation loss is not finite")
+    require(all(n == 0 for n in k4_train), "an LSTM kernel launched in a train step")
+    require(k4_val == chunks(validated) and sum(sum(r["launches"]) for r in validated) == k4_val,
+            "validation did not run K4 (cluster route) once per chunk")
+    require(launches == {**{name: 0 for name in KERNELS}, "K4 cluster": k4_val},
+            "train_loop launched another kernel than K4's cluster route in validation")
+
+    ws = learner.workspace
+    files = set(os.listdir(ws))
+    require({"args.txt", "log.txt", "train_val_dirs.npy", "model_ep000000.pth",
+             "model_ep000001.pth"} <= files, f"missing workspace files: {sorted(files)}")
+    for prefix in ("model_best_ep", "model_best0_ep", "model_best1_ep"):
+        require(sum(f.startswith(prefix) for f in files) == 1, f"not one {prefix}*.pth")
+    final = os.path.join(ws, "model_ep000001.pth")
+    saved = load_state_dict(final)
+    before = {k: v.detach().clone() for k, v in learner.params.items()}
+    learner.load_from_checkpoint(final)
+    after = learner.params
+    require(learner.num_eps_trained == 1 and all(
+        torch.equal(after[k].cpu(), saved[k]) and torch.equal(after[k], before[k])
+        for k in saved), "model_ep000001.pth did not reload bit for bit")
+    stream_model = OrigUNet_w_VITFLY_ViTLSTM(device=dev, **JOINT_CONFIG).eval()
+    stream_model.load_params(saved)
+    ex, ey, ep = make_events(21, 1, N_EVENTS, dev)
+    vel, depth = StreamingPipeline(stream_model, device=dev).step_events(ex[0], ey[0], ep[0])
+    torch.cuda.synchronize()
+    require(vel.shape == (3,) and depth.shape == (H, W) and bool(torch.isfinite(vel).all())
+            and bool(torch.isfinite(depth).all()), "the trained file does not stream")
+    log(f"workspace {sorted(files)}; model_ep000001.pth reloaded bit for bit; one streaming "
+        f"step with it: velocity {vel.tolist()}")
+
+    # validation through K4 against the plain loop, and its rate
+    starts, lengths = learner.val.traj_starts, learner.val.trajlength
+    ids = np.arange(n_val)
+
+    def validate(fused):
+        set_fused_lstm(fused)
+        for k in LSTM_KERNELS:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = [run_model(it, starts, lengths, ids, "val", batch_size=cfg.batch_size)
+                for it in range(n_val)]
+        torch.cuda.synchronize()
+        set_fused_lstm(True)
+        return outs, lstm_stacked_cluster.launches, time.perf_counter() - t
+
+    validate(True)  # warm-up
+    fused, n_fused, val_s = validate(True)
+    plain, n_plain, _ = validate(False)
+    rel = lambda a, b: float(np.max(np.abs(np.asarray(a) - np.asarray(b))
+                                    / np.maximum(1.0, np.abs(np.asarray(b)))))
+    val_err = max(max(rel(f[0][0], p[0][0]), rel(f[0][1], p[0][1]),
+                      rel(f[1][0][0], p[1][0][0]), rel(f[1][0][1], p[1][0][1]))
+                  for f, p in zip(fused, plain))
+    val_frames = int(np.sum(lengths - 1))
+    log(f"validation with K4 ({n_fused} launches) against the plain loop ({n_plain}): max "
+        f"|diff| / max(1, |x|) over losses, terms, velocities and depths {val_err:.3e}")
+    require(n_fused == chunks(validated) // cfg.N_eps and n_plain == 0,
+            "validation's K4 launches")
+    require(val_err <= VEL_ATOL, "validation through K4 disagrees with the plain loop")
+
+    # one train step on the card against the CPU
+    data, ev_offsets = learner._get_device_data("train", cfg.batch_size)
+    batch_fn = stepfn.make_batch_slicer(cfg.batch_size, cfg.num_in_channels,
+                                        cfg.num_out_channels)
+    idx0 = {"start": int(learner.train.traj_starts[0]) + 1, "ev_start": int(ev_offsets[0]),
+            "n_valid": cfg.batch_size}
+    t0 = time.perf_counter()
+    errs, tf32, cpu_vals = _card_vs_cpu_step(dev, batch_fn(data, idx0))
+    checked = ("loss", "terms", "gradnorm", "grads", "update", "uv")
+    show = lambda e: ", ".join(f"{k} {e[k]:.3e}" for k in checked) + (
+        f"; {e['small_share']:.4f} of the elements held to 2 lr; worst gradient leaves "
+        f"{e['worst_grads']}; worst update leaves {e['worst_update']}")
+    log(f"train step, card against CPU ({time.perf_counter() - t0:.1f}s; CPU loss, terms, "
+        f"gradient norm {cpu_vals}), each reading over its bound (TRAIN_RTOL {TRAIN_RTOL}, "
+        f"TRAIN_GRAD_TOL {TRAIN_GRAD_TOL}, TRAIN_STEP_ATOL {TRAIN_STEP_ATOL}, TRAIN_SMALL_G "
+        f"{TRAIN_SMALL_G}, TRAIN_UV_TOL {TRAIN_UV_TOL}): {show(errs)}")
+    log(f"the same step in TF32 on the card against the CPU: {show(tf32)}")
+    require(max(errs[k] for k in ("loss", "terms", "gradnorm")) <= 1,
+            "the card's loss, terms or gradient norm disagree with the CPU's")
+    require(errs["grads"] <= 1, "the card's gradients disagree with the CPU's")
+    require(errs["update"] <= 1 and errs["uv"] <= 1,
+            "the card's Adam step or power iteration disagrees with the CPU's")
+    require(max(tf32[k] for k in checked) > 1, "a train step in TF32 passes the f32 bounds")
+
+    # the card's numbers: train steps as train_loop runs them
+    step = learner._get_step("train", indexed=True, B=cfg.batch_size)
+    gen = learner._generator
+    idxs = [{"start": int(s) + 1 + c * cfg.batch_size,
+             "ev_start": int(o) + c * cfg.batch_size, "n_valid": cfg.batch_size}
+            for s, o in zip(learner.train.traj_starts, ev_offsets) for c in range(3)]
+    for i in range(2):
+        step(data, idxs[i], gen)
+    times = []
+    for i in range(TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(data, idxs[i % len(idxs)], gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    step_s = statistics.median(times)
+    prof = phase_profile(lambda: step(data, idxs[0], gen), {"K4": "lstm_cluster_kernel"},
+                         "train", grad=True)
+    epoch_s = loop_s / cfg.N_eps
+    numbers = dict(train_step_ms=step_s * 1e3, train_chunks_per_s=1.0 / step_s,
+                   train_frames_per_s=cfg.batch_size / step_s,
+                   val_frames_per_s=val_frames / val_s, seconds_per_epoch=epoch_s,
+                   max_memory_allocated_gib=peak / 2**30,
+                   train_loop_peak_gib=(peak - base) / 2**30,
+                   idle_share=None if prof is None else prof["idle_share"])
+    log(f"training numbers (card: {smi}; {cfg.batch_size}-frame chunks at {H}x{W}, full f32, "
+        f"median of {TRAIN_TIMED} synchronized train steps after 2): "
+        + ", ".join(f"{k} {v}" for k, v in numbers.items())
+        + f"; train_loop {loop_s:.2f}s for {cfg.N_eps} epochs of {n_train} train and {n_val} "
+          f"val trajectories with checkpoints")
+    return launches, numbers
+
+
 def _on_alarm(signum, frame):
     raise TimeoutError(f"chip_smoke exceeded its {BUDGET_S}s budget")
 
@@ -1559,11 +1925,15 @@ def main() -> int:
         bframes = sparse_frames(6, (STREAMS, H, W), dev)
         phase_profile(lambda: bpipe.step_frames(bframes), {"K4": "lstm_cluster_kernel"},
                       f"batched G={STREAMS}")
+    with Phase("training: Learner.train_loop, joint model at full width"):
+        train_launches, train_numbers = phase_training(dev, smi)
     signal.alarm(0)
 
-    def entry(name, source, replaces, n, **times):
+    def entry(name, source, replaces, n, key, **times):
+        """A kernel's JSON entry; ``key`` names it in KERNELS, for its
+        launches over the training phase's train_loop."""
         return dict(name=name, route="cuda", source=source, replaces=replaces, launches=n,
-                    **times)
+                    training_launches=train_launches[key], **times)
 
     def lstm_entry(mode, route, n):
         """A K4 or K5 route's JSON entry, timed at its path's shape: K4 at
@@ -1573,26 +1943,26 @@ def main() -> int:
         label, kernel, _ = LSTM_ROUTES[(mode, route)]
         return entry(f"{kernel.__name__} ({label})", lstm_src,
                      "evfly_tpu/ops/lstm_pallas.py:" + ("111" if mode == "stacked" else "203"),
-                     n, max_abs_err=lstm_errs[(mode, route)], ms=t[route],
+                     n, label, max_abs_err=lstm_errs[(mode, route)], ms=t[route],
                      plain_ms=t[f"plain_{route}"], bound_ms=t["bound_ms"],
                      bound_by=t["bound_by"], library_ms=t["library_ms"])
 
     vox, lstm_src = "evfly_tpu_torch/csrc/voxelizer.cu", "evfly_tpu_torch/csrc/lstm.cu"
     kernels = [
         entry("hist_frame_cluster (K1, cluster kernel)", vox, "evfly_tpu/ops/voxelizer.py:153",
-              stream_launches["K1 cluster"], **k1["cluster"]),
+              stream_launches["K1 cluster"], "K1 cluster", **k1["cluster"]),
         entry("hist_frame (K1, band kernel)", vox, "evfly_tpu/ops/voxelizer.py:153",
-              stream_launches["K1 band"], **k1["band"]),
+              stream_launches["K1 band"], "K1 band", **k1["band"]),
         entry("hist_scaled (K2, cluster kernel)", vox, "evfly_tpu/ops/voxelizer.py:251",
-              rung_launches["K2"], **k2),
+              rung_launches["K2"], "K2", **k2),
         entry("hist_scaled_resized (K3, cluster kernel)", vox,
-              "evfly_tpu/ops/voxelizer.py:405", launches["K3"], **k3),
+              "evfly_tpu/ops/voxelizer.py:405", launches["K3"], "K3", **k3),
         entry("scale_counts (K2's function over K1's counts, cluster kernel)", vox,
               "evfly_tpu/ops/voxelizer.py:251", cap_launches["scale_counts"],
-              **cap["scale_counts"]),
+              "scale_counts", **cap["scale_counts"]),
         entry("scale_counts_resized (K3's function over K1's counts, cluster kernel)", vox,
               "evfly_tpu/ops/voxelizer.py:405", cap_launches["scale_counts_resized"],
-              **cap["scale_counts_resized"]),
+              "scale_counts_resized", **cap["scale_counts_resized"]),
         lstm_entry("stacked", "cluster", launches["K4 cluster"]),
         lstm_entry("wavefront", "cluster", stream_launches["K5 cluster"]),
         lstm_entry("stacked", "l2", l2_launches["K4 L2"]),
@@ -1608,7 +1978,8 @@ def main() -> int:
         f"streaming step {idle}; p50 ms per HIL tick {tick_ms}; steps/s "
         + ", ".join(f"G={G} {'graph' if graph else 'eager'} "
                     + ", ".join(f"{r:.1f}" for r in numbers[(G, graph)])
-                    for G in RATE_STREAMS for graph in (True, False)))
+                    for G in RATE_STREAMS for graph in (True, False))
+        + f"; training {train_numbers}")
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

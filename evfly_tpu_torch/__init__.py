@@ -3,7 +3,8 @@
 The serving path of the JAX package, ported: raw events -> fused
 voxelize / 97th-percentile normalize / bilinear resize (``ops.voxelizer``,
 CUDA kernel ``csrc/voxelizer.cu``) -> ``models.vitfly.LSTMNetVIT`` with its
-stacked LSTM as one CUDA kernel (``ops.lstm_fused``, ``csrc/lstm.cu``).
+stacked LSTM as one CUDA kernel (``ops.lstm_fused``, ``csrc/lstm.cu``); the
+streaming deployment path (``stream``) and training (``train.Learner``).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (see ``device.resolve_device``), and compute in full f32

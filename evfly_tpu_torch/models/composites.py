@@ -47,15 +47,18 @@ class OrigUNet_w_VITFLY_ViTLSTM(nn.Module):
         return (self.origunet.init_hidden(streams), h_vit)
 
     @with_precision
-    def forward(self, x: torch.Tensor, desvel: torch.Tensor, hidden_unet=None, hidden_vit=None):
+    def forward(self, x: torch.Tensor, desvel: torch.Tensor, hidden_unet=None, hidden_vit=None,
+                generator: Optional[torch.Generator] = None):
         """x: event frames (N, 1, H, W), or (G, N, 1, H, W) for G streams;
         desvel (N, 1) or (G, N, 1); hidden_unet (h_unet, h_velpred) and
-        hidden_vit (h, c), None for zeros.
+        hidden_vit (h, c), None for zeros.  ``generator`` draws the ViTLSTM's
+        dropout in training, as the JAX package's ``rng``; without one there
+        is no dropout.
 
         Returns (velocity, (depth, y_upconv, ((h_unet, h_velpred), h_vitlstm))).
         """
         _, (x_depth, y_upconv, h_unet_pair) = self.origunet(x, hidden_unet)
         x_vel, h_vit = self.vitfly_vitlstm(
-            torch.clamp(x_depth * 2.0, 0.0, 1.0), desvel, None, hidden_vit
+            torch.clamp(x_depth * 2.0, 0.0, 1.0), desvel, None, hidden_vit, generator
         )
         return x_vel, (x_depth, y_upconv, (h_unet_pair, h_vit))

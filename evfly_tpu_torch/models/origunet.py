@@ -84,7 +84,7 @@ class OrigUNet(nn.Module):
         if velpred > 0:
             raise NotImplementedError(
                 f"OrigUNet velpred={velpred}: the velocity heads (models/layers.py "
-                "DynamicConvNet, VelPredictor) are not ported yet (ROADMAP §1)"
+                "DynamicConvNet, VelPredictor) are not ported yet (ROADMAP §1 item 3)"
             )
         if form_BEV in (1, 2):
             num_in_channels = 1

@@ -139,6 +139,22 @@ def spectral_linear(
     return linear(x, weight_orig / spectral_sigma(weight_orig, u, v), bias)
 
 
+def spectral_norm_power_iteration(weight_orig: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                                  n_iters: int = 1, eps: float = 1e-12):
+    """torch spectral_norm's power-iteration update of (u, v), n_iters
+    times: v = normalize(W^T u), then u = normalize(W v), W flattened to
+    (out, -1).  The train step runs it once on every spectral-norm layer
+    before the forward, outside autograd, as torch does inside forward()
+    when training."""
+    w_mat = weight_orig.reshape(weight_orig.shape[0], -1)
+    for _ in range(n_iters):
+        v = w_mat.T @ u
+        v = v / (torch.linalg.vector_norm(v) + eps)
+        u = w_mat @ v
+        u = u / (torch.linalg.vector_norm(u) + eps)
+    return u, v
+
+
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5):
     """torch nn.LayerNorm over the last dimension."""
     return F.layer_norm(x, (x.shape[-1],), weight, bias, eps)

@@ -10,11 +10,14 @@ import pytest
 import torch
 
 import evfly_tpu_torch
+from evfly_tpu_torch.configs import EvflyConfig
 from evfly_tpu_torch.models.composites import OrigUNet_w_VITFLY_ViTLSTM
 from evfly_tpu_torch.models.origunet import OrigUNet
+from evfly_tpu_torch.models.registry import build_model
 from evfly_tpu_torch.models.vitfly import LSTMNetVIT
 from evfly_tpu_torch.ops import voxelizer
 from evfly_tpu_torch.stream import BatchedStreamingPipeline, StreamingPipeline
+from evfly_tpu_torch.train import Learner
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "evfly_tpu_torch"
@@ -36,8 +39,15 @@ def test_import_check_covers_every_module():
                    "evfly_tpu_torch.stream.accumulator", "evfly_tpu_torch.stream.deploy",
                    "evfly_tpu_torch.stream.hil", "evfly_tpu_torch.native._build",
                    "evfly_tpu_torch.sim.dynamics", "evfly_tpu_torch.sim.native_quad",
-                   "evfly_tpu_torch.sim.pilot", "chip_smoke", "tools.k2_phase_stamps",
-                   "tools.path_rates", "tools.torch_latency_bench"):
+                   "evfly_tpu_torch.sim.pilot", "evfly_tpu_torch.configs",
+                   "evfly_tpu_torch.configs.config", "evfly_tpu_torch.models.port",
+                   "evfly_tpu_torch.models.registry", "evfly_tpu_torch.data",
+                   "evfly_tpu_torch.data.augment", "evfly_tpu_torch.data.dataloading",
+                   "evfly_tpu_torch.train", "evfly_tpu_torch.train.__main__",
+                   "evfly_tpu_torch.train.losses", "evfly_tpu_torch.train.stepfn",
+                   "evfly_tpu_torch.train.learner", "evfly_tpu_torch.train.evaluation_tools",
+                   "evfly_tpu_torch.utils", "evfly_tpu_torch.utils.ev_vis", "chip_smoke",
+                   "tools.k2_phase_stamps", "tools.path_rates", "tools.torch_latency_bench"):
         assert module in MODULES
 
 
@@ -75,7 +85,7 @@ def test_scan_patterns_are_word_bounded():
     assert not _JAX.search("import jaxtyping")
 
 
-def test_default_device_raises_without_cuda(monkeypatch):
+def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         evfly_tpu_torch.resolve_device()
@@ -91,6 +101,11 @@ def test_default_device_raises_without_cuda(monkeypatch):
         OrigUNet()
     with pytest.raises(RuntimeError, match="CUDA"):
         OrigUNet_w_VITFLY_ViTLSTM(input_shape=(1, 1, 196, 196), form_BEV=2)
+    for device in ("tpu", "gpu", "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Learner(EvflyConfig(device=device, dataset=None, basedir=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(EvflyConfig(model_type=["OrigUNet", "VITFLY_ViTLSTM"], bev=2))
     model = OrigUNet_w_VITFLY_ViTLSTM(input_shape=(1, 1, 196, 196), form_BEV=2, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         StreamingPipeline(model, input_hw=(196, 196))
