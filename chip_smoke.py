@@ -57,13 +57,29 @@ just before it and read just after:
   kernel's launches over the run are counted; one train step on the card
   against the same step on the CPU (loss, terms, every gradient, the
   gradient norm, Adam's update of every parameter element, u and v), and
-  a step in TF32 must fail the same bounds.
+  a step in TF32 must fail the same bounds;
+- the velocity heads: configuration A (evfly_tpu/configs/files/
+  eval_sim_Dtheta_vitlstm.txt: ``OrigUNet`` with the velpred-11 head on its
+  68x148 decoder output, 768 features) and B (the same D(theta) with
+  ``ConvNet_w_VelPred`` and a 1-layer LSTM of hidden 768) built through
+  ``registry.build_model``, D(theta) from ``policy_best.pth``, the heads
+  from a seed; K4 and K5 on the L2 route at H = 768, L = 1 against their
+  plain versions and timed beside cuDNN's LSTM; B through
+  ``StreamingPipeline.step_events`` in both modes (graph against eager, then
+  against the plain path) and ``BatchedStreamingPipeline`` with 16 streams;
+  ``Learner(cfg).train_loop()`` for 2 epochs on A (no kernel launches; the
+  BatchNorm counters count the steps; the checkpoint carries the running
+  stats and reloads bit for bit), A's step on a padded chunk on the card
+  against the CPU in f64 under the training bounds and in f32 under those
+  of its loss, terms, gradient norm and BatchNorm state, and B's validation
+  through K4 against the plain loop.
 
 It then times a streaming step and the G-stream rates, each as graphs and
 eagerly in turns, in the manner of ``tools/torch_latency_bench.py``, and
 profiles a graph step beside an eager one for their idle shares, and
 times the train step (chunks/s, frames/s, idle share, peak memory),
-validation (frames/s) and an epoch.  Every
+validation (frames/s) and an epoch, and the velocity heads' train step,
+validation and streaming step.  Every
 phase prints a flushed line when it starts and when it ends.  The last lines of standard output are the card's name and
 power limit, the kernels' JSON line and the result line
 ``{"ok": true, "device": {...}}``.
@@ -91,9 +107,11 @@ import torch
 
 from evfly_tpu_torch.configs import EvflyConfig
 from evfly_tpu_torch.data.dataloading import cache_dataset
+from evfly_tpu_torch.models import port
 from evfly_tpu_torch.models.composites import OrigUNet_w_VITFLY_ViTLSTM
 from evfly_tpu_torch.models.port import load_state_dict
 from evfly_tpu_torch.models.recurrent import set_fused_lstm
+from evfly_tpu_torch.models.registry import build_model
 from evfly_tpu_torch.models.vitfly import LSTMNetVIT
 from evfly_tpu_torch.precision import get_precision, set_precision
 from evfly_tpu_torch.ops import _build, lstm_fused, voxelizer
@@ -209,6 +227,20 @@ TRAIN_CONFIG = dict(
     fc_activations=["leaky_relu", "leaky_relu", "leaky_relu", "tanh"], fc_dropout_p=0.1,
 )
 TRAIN_TRAJS, TRAIN_FRAMES, TRAIN_TIMED = 6, 49, 8
+# the velocity heads, with TRAIN_CONFIG's enc and fc params (those of
+# evfly_tpu/configs/files/eval_sim_Dtheta_vitlstm.txt): configuration A is
+# that file's model, OrigUNet with the velpred-11 head on its 68x148 decoder
+# output (768 features, no head LSTM); B is the same D(theta) with
+# ConvNet_w_VelPred and a 1-layer LSTM of hidden 768 on that output.
+# D(theta) comes from policy_best.pth, the heads from HEADS_SEED.
+CONFIG_A = dict(model_type=["OrigUNet"], velpred=11, num_recurrent=[1, 0], num_outputs=1)
+CONFIG_B = dict(model_type=["OrigUNet", "ConvNet_w_VelPred"], velpred=0, num_recurrent=[1, 1],
+                num_outputs=1)
+HEADS_SEED, HEAD_H = 23, 768
+# (G, T) of the head LSTM's checks (streaming: T = 1 at G = 1 and 16;
+# validation: a 16-frame chunk) and of its timings
+HEAD_LSTM_CHECKS = ((1, 16), (1, 1), (16, 1), (16, 16))
+HEAD_LSTM_TIMED = ((1, 1), (16, 1), (1, 16))
 # the card's train step against the port's on the CPU (same params and
 # chunk, no augmentation or dropout): loss, terms and gradient norm within
 # TRAIN_RTOL relative; each gradient within TRAIN_GRAD_TOL x the largest
@@ -226,6 +258,17 @@ TRAIN_TRAJS, TRAIN_FRAMES, TRAIN_TIMED = 6, 49, 8
 # loop within VEL_ATOL x max(1, |x|)
 TRAIN_RTOL, TRAIN_GRAD_TOL, TRAIN_STEP_ATOL, TRAIN_SMALL_G, TRAIN_UV_TOL = (
     1e-4, 1e-4, 1e-6, 100.0, 1e-5)
+# BatchNorm running stats after a step, card against CPU (the velocity
+# heads): within TRAIN_BN_ATOL + TRAIN_BN_RTOL |x|; counters equal
+TRAIN_BN_ATOL, TRAIN_BN_RTOL = 1e-6, 1e-5
+# Configuration A's step amplifies the card's rounding in its head
+# (train-mode BatchNorm over a nearly flat depth map, leaky-ReLU kinks):
+# its worst gradient leaf reads 43 times the gradient bound in f32 and
+# 3,419 in TF32, the joint model's 0.25 and 30.1 (PERF.md §6).  So its
+# step is held to every bound above in f64, card against CPU, and in f32
+# to the bounds of the readings that amplification leaves alone (a TF32
+# step must fail those); the f32 gradients and updates are logged
+HEADS_F32_CHECKED = ("loss", "terms", "gradnorm", "uv", "bn")
 
 # tolerances: the JAX package's own bounds for the TPU kernels
 # (tests/test_fused_voxelizer.py:34,68, tests/test_lstm_pallas.py:53,79) and
@@ -664,18 +707,18 @@ def forced_route(route):
         lstm_fused.choose_route = by_shape
 
 
-def _lstm_problem(dev, seed, G, T, hidden=HID, layers=L):
+def _lstm_problem(dev, seed, G, T, hidden=HID, layers=L, inputs=IN):
     """cuDNN's LSTM (the yardstick only) and, from its weights, the kernels'
     packed layouts, layer-0 gates (G, T, 4H) and a carried state (G, L, H)."""
     gen = torch.Generator().manual_seed(seed)
     b = 1.0 / hidden ** 0.5
-    lstm = torch.nn.LSTM(IN, hidden, layers)
+    lstm = torch.nn.LSTM(inputs, hidden, layers)
     with torch.no_grad():
         for p in lstm.parameters():
             p.copy_(torch.empty_like(p).uniform_(-b, b, generator=gen))
     lstm = lstm.to(dev)
     params = {k: v.detach() for k, v in lstm.named_parameters()}
-    x = torch.randn(G, T, IN, generator=gen).to(dev)
+    x = torch.randn(G, T, inputs, generator=gen).to(dev)
     h0 = (torch.randn(G, layers, hidden, generator=gen) * 0.5).to(dev)
     c0 = (torch.randn(G, layers, hidden, generator=gen) * 0.5).to(dev)
     with torch.no_grad():
@@ -1606,16 +1649,23 @@ def _recording_run_model(learner, records):
     return inner
 
 
-def _train_step_once(d, batch):
-    """One train step of the joint model from policy_best.pth on device
-    ``d``, no augmentation, no dropout: its loss, logged terms, gradient
-    norm, gradients and the state before and after, on the CPU."""
+def _joint_from_policy_best(d):
     model = OrigUNet_w_VITFLY_ViTLSTM(device=d, **JOINT_CONFIG)
-    model.load_params(load_state_dict(JOINT_CHECKPOINT))
+    return model.load_params(load_state_dict(JOINT_CHECKPOINT))
+
+
+def _train_step_once(d, batch, make_model=_joint_from_policy_best, kind="joint_vitlstm",
+                     dtype=torch.float32):
+    """One train step of ``make_model(d)`` (the joint model from
+    policy_best.pth) on device ``d`` in ``dtype``, no augmentation, no
+    dropout: its loss, logged terms, gradient norm, gradients and the state
+    before and after, on the CPU."""
+    model = make_model(d).to(dtype)
+    batch = {k: v.to(dtype) if v.is_floating_point() else v for k, v in batch.items()}
     before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     opt = torch.optim.Adam(model.parameters(), lr=TRAIN_CONFIG["lr"], betas=(0.9, 0.999),
                            eps=1e-8)
-    step = stepfn.make_train_step(model, "joint_vitlstm", opt, TRAIN_CONFIG["loss_weights"],
+    step = stepfn.make_train_step(model, kind, opt, TRAIN_CONFIG["loss_weights"],
                                   TRAIN_CONFIG["optional_loss_param"])
     loss, values, gn = step({k: v.to(d) for k, v in batch.items()}, None)
     return dict(loss=loss.item(), values=values.cpu(), gn=gn.item(), before=before,
@@ -1645,31 +1695,77 @@ def _step_errors(got, ref):
         step[k] = (ratio[i].item(), gg.flatten()[i].item(), g.flatten()[i].item(),
                    d_got.flatten()[i].item(), d_ref.flatten()[i].item())
         small, n = small + int(tiny.sum()), n + g.numel()
-    uv = max((got["after"][k] - v).abs().max().item() for k, v in ref["after"].items()
-             if k not in ref["grads"])
+    is_bn = lambda k: k.endswith(("running_mean", "running_var", "num_batches_tracked"))
+    uv = max([(got["after"][k] - v).abs().max().item() for k, v in ref["after"].items()
+              if k not in ref["grads"] and not is_bn(k)], default=0.0)
+
+    def bn_reading(a, v):
+        """A BatchNorm buffer over its bound: the running stats within
+        TRAIN_BN_ATOL + TRAIN_BN_RTOL |x|, the counter exactly."""
+        if not v.is_floating_point():
+            return 0.0 if torch.equal(a, v) else float("inf")
+        return ((a - v).abs() / (TRAIN_BN_ATOL + TRAIN_BN_RTOL * v.abs())).max().item()
+
+    bn = max([bn_reading(got["after"][k], v) for k, v in ref["after"].items() if is_bn(k)],
+             default=0.0)
     worst = lambda d, key: sorted(d.items(), key=lambda kv: -key(kv[1]))[:3]
     return dict(loss=rel(got["loss"], ref["loss"]) / TRAIN_RTOL,
                 terms=max(((got["values"] - ref["values"]).abs()
                            / ref["values"].abs().clamp_min(1.0)).tolist()) / TRAIN_RTOL,
                 gradnorm=rel(got["gn"], ref["gn"]) / TRAIN_RTOL,
                 grads=max(grad.values()), update=max(v[0] for v in step.values()),
-                uv=uv / TRAIN_UV_TOL, small_share=small / n, worst_grads=worst(grad, float),
+                uv=uv / TRAIN_UV_TOL, bn=bn, small_share=small / n,
+                worst_grads=worst(grad, float),
                 worst_update=worst(step, lambda v: v[0]))
 
 
-def _card_vs_cpu_step(dev, batch):
-    """One train step of the joint model on the card and on the CPU, same
-    chunk: the card's readings against the CPU's, the same readings of a
-    step in TF32 on the card, and the CPU's loss, terms and gradient norm."""
-    ref = _train_step_once(torch.device("cpu"), batch)
-    errs = _step_errors(_train_step_once(dev, batch), ref)
+def _card_vs_cpu_step(dev, batch, *model_and_kind):
+    """One train step (of the joint model, or ``make_model`` and ``kind``)
+    on the card and on the CPU, same chunk: the card's readings against the
+    CPU's, the same readings of a step in TF32 on the card, and the CPU's
+    step (``_train_step_once``)."""
+    ref = _train_step_once(torch.device("cpu"), batch, *model_and_kind)
+    errs = _step_errors(_train_step_once(dev, batch, *model_and_kind), ref)
     saved = get_precision()
     set_precision("tf32")
     try:
-        tf32 = _step_errors(_train_step_once(dev, batch), ref)
+        tf32 = _step_errors(_train_step_once(dev, batch, *model_and_kind), ref)
     finally:
         set_precision(saved)
-    return errs, tf32, (ref["loss"], ref["values"].tolist(), ref["gn"])
+    return errs, tf32, ref
+
+
+def _validation_vs_plain(learner, run_model, kernel):
+    """The Learner's validation pass over its val trajectories with the
+    fused LSTM (after one warm-up pass) and with the plain loop: the max
+    |diff| / max(1, |x|) over losses, terms, velocities and depths, the
+    launches of ``kernel`` in each pass, the fused pass's seconds and the
+    frames validated."""
+    cfg, n_val = learner.cfg, learner.num_val_steps
+    starts, lengths = learner.val.traj_starts, learner.val.trajlength
+    ids = np.arange(n_val)
+
+    def validate(fused):
+        set_fused_lstm(fused)
+        for k in LSTM_KERNELS:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = [run_model(it, starts, lengths, ids, "val", batch_size=cfg.batch_size)
+                for it in range(n_val)]
+        torch.cuda.synchronize()
+        set_fused_lstm(True)
+        return outs, kernel.launches, time.perf_counter() - t
+
+    validate(True)  # warm-up
+    fused, n_fused, val_s = validate(True)
+    plain, n_plain, _ = validate(False)
+    rel = lambda a, b: float(np.max(np.abs(np.asarray(a) - np.asarray(b))
+                                    / np.maximum(1.0, np.abs(np.asarray(b)))))
+    val_err = max(max(rel(f[0][0], p[0][0]), rel(f[0][1], p[0][1]),
+                      rel(f[1][0][0], p[1][0][0]), rel(f[1][0][1], p[1][0][1]))
+                  for f, p in zip(fused, plain))
+    return val_err, n_fused, n_plain, val_s, int(np.sum(lengths - 1))
 
 
 def phase_training(dev, smi):
@@ -1767,30 +1863,8 @@ def _training(dev, smi, root):
         f"step with it: velocity {vel.tolist()}")
 
     # validation through K4 against the plain loop, and its rate
-    starts, lengths = learner.val.traj_starts, learner.val.trajlength
-    ids = np.arange(n_val)
-
-    def validate(fused):
-        set_fused_lstm(fused)
-        for k in LSTM_KERNELS:
-            k.launches = 0
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        outs = [run_model(it, starts, lengths, ids, "val", batch_size=cfg.batch_size)
-                for it in range(n_val)]
-        torch.cuda.synchronize()
-        set_fused_lstm(True)
-        return outs, lstm_stacked_cluster.launches, time.perf_counter() - t
-
-    validate(True)  # warm-up
-    fused, n_fused, val_s = validate(True)
-    plain, n_plain, _ = validate(False)
-    rel = lambda a, b: float(np.max(np.abs(np.asarray(a) - np.asarray(b))
-                                    / np.maximum(1.0, np.abs(np.asarray(b)))))
-    val_err = max(max(rel(f[0][0], p[0][0]), rel(f[0][1], p[0][1]),
-                      rel(f[1][0][0], p[1][0][0]), rel(f[1][0][1], p[1][0][1]))
-                  for f, p in zip(fused, plain))
-    val_frames = int(np.sum(lengths - 1))
+    val_err, n_fused, n_plain, val_s, val_frames = _validation_vs_plain(
+        learner, run_model, lstm_stacked_cluster)
     log(f"validation with K4 ({n_fused} launches) against the plain loop ({n_plain}): max "
         f"|diff| / max(1, |x|) over losses, terms, velocities and depths {val_err:.3e}")
     require(n_fused == chunks(validated) // cfg.N_eps and n_plain == 0,
@@ -1804,7 +1878,8 @@ def _training(dev, smi, root):
     idx0 = {"start": int(learner.train.traj_starts[0]) + 1, "ev_start": int(ev_offsets[0]),
             "n_valid": cfg.batch_size}
     t0 = time.perf_counter()
-    errs, tf32, cpu_vals = _card_vs_cpu_step(dev, batch_fn(data, idx0))
+    errs, tf32, ref = _card_vs_cpu_step(dev, batch_fn(data, idx0))
+    cpu_vals = (ref["loss"], ref["values"].tolist(), ref["gn"])
     checked = ("loss", "terms", "gradnorm", "grads", "update", "uv")
     show = lambda e: ", ".join(f"{k} {e[k]:.3e}" for k in checked) + (
         f"; {e['small_share']:.4f} of the elements held to 2 lr; worst gradient leaves "
@@ -1852,6 +1927,325 @@ def _training(dev, smi, root):
         + f"; train_loop {loop_s:.2f}s for {cfg.N_eps} epochs of {n_train} train and {n_val} "
           f"val trajectories with checkpoints")
     return launches, numbers
+
+
+# ------------------------------------------------------------ velocity heads
+
+def heads_config(root=None, **keys) -> EvflyConfig:
+    """TRAIN_CONFIG with ``keys`` (CONFIG_A or CONFIG_B), its workspace and
+    data under ``root``."""
+    where = {} if root is None else dict(basedir=root, logdir="logs", dataset=["synthetic"],
+                                          datadir=os.path.join(root, "data", "datasets"))
+    return EvflyConfig(**{**TRAIN_CONFIG, **keys, **where})
+
+
+def d_theta_weights():
+    """D(theta)'s weights of policy_best.pth, keyed as OrigUNet's own."""
+    return {k[len("origunet."):]: v for k, v in load_state_dict(JOINT_CHECKPOINT).items()
+            if k.startswith("origunet.")}
+
+
+def heads_model(dev, cfg: EvflyConfig):
+    """``registry.build_model(cfg)`` on ``dev``, its heads drawn from
+    HEADS_SEED, D(theta) from policy_best.pth through ``port.load_into``
+    (strict=False: the heads keep their draws)."""
+    model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(HEADS_SEED))
+    prefix = "origunet." if isinstance(cfg.model_type_norm, list) else ""
+    d_theta = {prefix + k: v for k, v in d_theta_weights().items()}
+    state = port.load_into(model.state_dict(), d_theta, strict=False)
+    require(all(torch.equal(state[k].cpu(), v) for k, v in d_theta.items()),
+            "D(theta) did not load from policy_best.pth")
+    model.load_state_dict(state)
+    return model.eval()
+
+
+# the head LSTM's route in each mode: (label, kernel wrapper, plain version)
+HEAD_ROUTES = {mode: LSTM_ROUTES[(mode, "l2")] for mode in ("stacked", "wavefront")}
+
+
+def phase_head_lstm(dev, flush):
+    """K4 and K5 on the L2 route at the head LSTM's shape (H = 768, L = 1:
+    empty layer-1 weights) against their plain versions at HEAD_LSTM_CHECKS,
+    zero and carried state; then timed at HEAD_LSTM_TIMED beside cuDNN's
+    LSTM(768, 768, 1) and the bound, L2 flushed."""
+    require(choose_route(HEAD_H, 1) == "l2", "the head's LSTM does not take the L2 route")
+    errs, times = {}, {}
+    with torch.no_grad():
+        for G, T_ in HEAD_LSTM_CHECKS:
+            _, _, xp0, packed, h0, c0 = _lstm_problem(dev, 60 + G + T_, G, T_, HEAD_H, 1, HEAD_H)
+            require(packed.wih_t.shape == (HEAD_H, 0) and packed.bias.shape == (0,),
+                    "L = 1 packs empty layer-1 weights")
+            for mode, (name, kernel, plain) in HEAD_ROUTES.items():
+                err = _check_lstm(f"{name} H={HEAD_H}", kernel, plain, xp0,
+                                  _route_weights(packed, "l2"), h0, c0)
+                errs[mode] = max(errs.get(mode, 0.0), err)
+        for G, T_ in HEAD_LSTM_TIMED:
+            lstm, x, xp0, packed, h0, c0 = _lstm_problem(dev, 70 + G + T_, G, T_, HEAD_H, 1,
+                                                         HEAD_H)
+            xs, hs, cs = (t.transpose(0, 1).contiguous() for t in (x, h0, c0))
+            library_ms = time_ms(lambda: lstm(xs, (hs, cs)), flush, 10)
+            w = _route_weights(packed, "l2")
+            n_bytes = sum(t.numel() * 4 for t in (xp0, *w, h0, c0)) + (
+                G * T_ * HEAD_H + 2 * G * HEAD_H) * 4
+            b_ms, b_by = bound_ms(n_bytes, 2 * G * T_ * HEAD_H * 4 * HEAD_H)
+            for mode, (name, kernel, plain) in HEAD_ROUTES.items():
+                t = dict(ms=time_ms(lambda: kernel(xp0, *w, h0, c0), flush, 10),
+                         plain_ms=time_ms(lambda: plain(xp0, *w, h0, c0), flush, 5, warmup=1),
+                         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+                times[(mode, G, T_)] = t
+                log(f"{name} H={HEAD_H} L=1 G={G} T={T_}: {t['ms']:.4f} ms, plain "
+                    f"{t['plain_ms']:.4f} ms, torch.nn.LSTM({HEAD_H}, {HEAD_H}, 1) "
+                    f"{library_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}, {n_bytes} bytes)")
+    return errs, times
+
+
+def phase_heads_streaming(dev, model_b):
+    """Configuration B through StreamingPipeline.step_events over
+    STREAM_WINDOWS windows in both LSTM modes, the graph step against the
+    eager one, and after them one more step against the plain path (K1's
+    plain version, set_fused_lstm(False)); then BatchedStreamingPipeline
+    with STREAMS streams over 4 steps, streams reset before the third,
+    graph against eager.  Every kernel's launches over each run, and the
+    graph step's ms per step in each mode (``_streaming_ms``)."""
+    windows = stream_windows(dev, STREAM_WINDOWS)
+    lstm = model_b.convnet_w_velpred.lstm
+    require(lstm.hidden_size == HEAD_H and lstm.num_layers == 1, "the head LSTM's shape")
+    launches, stream_ms = {}, {}
+    set_fused_lstm(True)
+    for mode, (name, kernel, _) in HEAD_ROUTES.items():
+        lstm.mode = mode
+        for k in KERNELS.values():
+            k.launches = 0
+        g = StreamingPipeline(model_b, device=dev)
+        e = StreamingPipeline(model_b, device=dev, graph=False)
+        _check_graph_run(f"configuration B, step_events ({mode})", g, e,
+                         lambda w: g.step_events(*w), lambda w: e.step_events(*w), windows,
+                         lambda p: [p.hidden])
+        torch.cuda.synchronize()
+        counts = {n: k.launches for n, k in KERNELS.items()}
+        launches[mode] = counts
+        log(f"configuration B streaming ({mode}): launches {counts}")
+        require(counts["K1 cluster"] > 0 and counts[name] > 0,
+                f"a kernel of configuration B's streaming path ({mode}) never launched")
+        require(sum(counts[n] for n in ("K4 L2", "K5 L2", "K4 cluster", "K5 cluster"))
+                == counts[name], f"configuration B's streaming ({mode}) ran another LSTM kernel")
+        set_fused_lstm(False)
+        plain = StreamingPipeline(model_b, device=dev, graph=False)
+        for ex, ey, ep in windows + windows[:1]:
+            vr, dr = plain.step_frame(hist_frame_plain(ex[None], ey[None], ep[None], H, W)[0])
+        set_fused_lstm(True)
+        v, d = g.step_events(*windows[0])
+        torch.cuda.synchronize()
+        herr, cerr = state_errs(g.hidden, plain.hidden)
+        verr, derr = (v - vr).abs().max().item(), (d - dr).abs().max().item()
+        log(f"configuration B ({mode}) after {STREAM_WINDOWS + 1} steps, graph against the "
+            f"plain path: velocity {verr:.3e}, depth {derr:.3e}, h {herr:.3e}, c/max(1,|c|) "
+            f"{cerr:.3e}; velocity {v.tolist()}")
+        require(v.shape == (3,) and d.shape == (H, W), "configuration B's shapes")
+        require(max(verr, derr, herr, cerr) <= VEL_ATOL,
+                f"configuration B ({mode}) disagrees with the plain path")
+        del g, e, plain
+        _free_device_memory()
+        chained, samples = _streaming_ms(StreamingPipeline(model_b, device=dev), windows)
+        stream_ms[mode] = (chained, statistics.median(samples))
+        log(f"configuration B streaming step ({mode}, graph): {chained:.3f} ms per step over "
+            f"{CHAINED_STEPS} chained steps; p50 {statistics.median(samples):.3f} ms of "
+            f"{SYNC_STEPS} synchronized")
+    lstm.mode = None
+    steps = 4
+    frames = sparse_frames(12, (steps, STREAMS, H, W), dev)
+    masks = [torch.tensor([s == 2 and g_ % 4 == 1 for g_ in range(STREAMS)], device=dev)
+             for s in range(steps)]
+    desvel = [3.0 + 2.0 * g_ / (STREAMS - 1) for g_ in range(STREAMS)]
+    for k in KERNELS.values():
+        k.launches = 0
+    bg = BatchedStreamingPipeline(model_b, STREAMS, desvel=desvel, fast_percentile=True,
+                                  device=dev)
+    be = BatchedStreamingPipeline(model_b, STREAMS, desvel=desvel, fast_percentile=True,
+                                  device=dev, graph=False)
+    _check_graph_run(f"configuration B, step_frames G={STREAMS}, streams reset before step 3",
+                     bg, be, lambda s: bg.step_frames(frames[s], masks[s]),
+                     lambda s: be.step_frames(frames[s], masks[s]), list(range(steps)),
+                     lambda p: [_one_stream(p.hidden, g_) for g_ in range(STREAMS)])
+    torch.cuda.synchronize()
+    launches["batched"] = {n: k.launches for n, k in KERNELS.items()}
+    log(f"configuration B batched G={STREAMS}: launches {launches['batched']}")
+    require(launches["batched"]["K4 L2"] > 0, "the batched heads path did not run K4 L2")
+    return launches, stream_ms
+
+
+def phase_heads_training(dev, smi):
+    """Configuration A through Learner(cfg).train_loop() for 2 epochs on
+    the training phase's synthetic dataset, D(theta) from policy_best.pth
+    (a checkpoint of its weights alone, loaded with strict=False), the head
+    drawn from the config's seed; configuration B validated on the same data through K4
+    (L2 route, H = 768) against the plain loop.  Data and checkpoints live
+    under build/ and are removed after."""
+    root = os.path.join(REPO, "build", f"heads_smoke_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        return _heads_training(dev, smi, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _heads_training(dev, smi, root):
+    os.makedirs(root)
+    d_theta_file = os.path.join(root, "d_theta.pth")
+    port.save_state_dict(d_theta_weights(), d_theta_file)
+    cfg = heads_config(root, **{**CONFIG_A, "checkpoint_path": [d_theta_file]})
+    cache_dataset(os.path.join(cfg.datadir, "synthetic"), synthetic_trajectories(),
+                  logger=lambda m: None, **dataloader_kwargs(cfg))
+    learner = Learner(cfg)
+    require(learner.device.type == "cuda" and learner.model.velpred == 11
+            and learner.model.velpred_lstm_size == HEAD_H, "configuration A's model")
+    bn_keys = [k for k in learner.params if k.endswith("num_batches_tracked")]
+    require(len(bn_keys) == 2, "configuration A's head has not two BatchNorms")
+    start = {k: v.detach().cpu().clone() for k, v in learner.params.items()}
+    require(all(torch.equal(start[k], v) for k, v in d_theta_weights().items()),
+            "the Learner did not load D(theta)")
+    records = []
+    run_model = _recording_run_model(learner, records)
+    for k in KERNELS.values():
+        k.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    learner.train_loop()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    trained = [r for r in records if r["training"]]
+    chunks = lambda rs: sum(-(-r["frames"] // cfg.batch_size) for r in rs)
+    counters = {k: int(learner.params[k]) for k in bn_keys}
+    log(f"configuration A train_loop: {len(trained)} trajectories trained ({chunks(trained)} "
+        f"chunks), {len(records) - len(trained)} validated in {loop_s:.1f}s; launches of every "
+        f"kernel {launches}; BatchNorm counters {counters}; losses "
+        + ", ".join(f"{r['mode']} {r['loss']:.4f}" for r in records))
+    require(len(trained) == cfg.N_eps * learner.num_training_steps, "trajectories trained")
+    require(all(np.isfinite(r["loss"]) and np.isfinite(r["terms"]).all() for r in records),
+            "a training or validation loss of configuration A is not finite")
+    require(all(n == 0 for n in launches.values()), "configuration A's train_loop ran a kernel")
+    require(all(n == chunks(trained) for n in counters.values()),
+            "the BatchNorm counters do not count the train steps")
+    final = os.path.join(learner.workspace, "model_ep000001.pth")
+    saved = load_state_dict(final)
+    require(all(saved[k].dtype == torch.int64 and int(saved[k]) == counters[k] for k in bn_keys),
+            "model_ep000001.pth does not carry the BatchNorm counters")
+    before = {k: v.detach().clone() for k, v in learner.params.items()}
+    learner.load_from_checkpoint(final)
+    require(all(torch.equal(learner.params[k].cpu(), saved[k])
+                and torch.equal(learner.params[k], before[k]) for k in saved),
+            "model_ep000001.pth (with its running stats) did not reload bit for bit")
+
+    # one train step on the card against the CPU, from the state before training
+    data, ev_offsets = learner._get_device_data("train", cfg.batch_size)
+    batch_fn = stepfn.make_batch_slicer(cfg.batch_size, cfg.num_in_channels,
+                                        cfg.num_out_channels)
+    idx0 = {"start": int(learner.train.traj_starts[0]) + 1, "ev_start": int(ev_offsets[0]),
+            "n_valid": cfg.batch_size - 3}
+
+    def model_a(d):
+        m = build_model(cfg, device=d)
+        m.load_state_dict(start)
+        return m
+
+    t0 = time.perf_counter()
+    batch = batch_fn(data, idx0)
+    cpu = torch.device("cpu")
+    errs, tf32, ref = _card_vs_cpu_step(dev, batch, model_a, "origunet")
+    cpu_vals = (ref["loss"], ref["values"].tolist(), ref["gn"])
+
+    f64 = torch.float64
+    errs64 = _step_errors(_train_step_once(dev, batch, model_a, "origunet", f64),
+                          _train_step_once(cpu, batch, model_a, "origunet", f64))
+    checked = ("loss", "terms", "gradnorm", "grads", "update", "uv", "bn")
+    show = lambda e: ", ".join(f"{k} {e[k]:.3e}" for k in checked) + (
+        f"; worst gradient leaves {e['worst_grads']}; worst update leaves {e['worst_update']}")
+    log(f"configuration A train step on a padded chunk ({cfg.batch_size - 3} of "
+        f"{cfg.batch_size} frames valid), card against CPU ({time.perf_counter() - t0:.1f}s; "
+        f"CPU loss, terms, gradient norm {cpu_vals}), each reading over its bound (bn: "
+        f"TRAIN_BN_ATOL {TRAIN_BN_ATOL} + TRAIN_BN_RTOL {TRAIN_BN_RTOL} |x|), in f32: "
+        f"{show(errs)}")
+    log(f"the same step in f64, card against CPU: {show(errs64)}")
+    log(f"the same step in TF32 on the card against the CPU's f32: {show(tf32)}")
+    require(max(errs64[k] for k in checked) <= 1,
+            "configuration A's train step in f64 on the card disagrees with the CPU's")
+    require(max(errs[k] for k in HEADS_F32_CHECKED) <= 1,
+            "configuration A's f32 train step on the card disagrees with the CPU's")
+    require(max(tf32[k] for k in HEADS_F32_CHECKED) > 1,
+            "a train step in TF32 passes the f32 bounds")
+
+    # the card's numbers: train steps as train_loop runs them
+    step = learner._get_step("train", indexed=True, B=cfg.batch_size)
+    gen = learner._generator
+    idxs = [{"start": int(s) + 1 + c * cfg.batch_size,
+             "ev_start": int(o) + c * cfg.batch_size, "n_valid": cfg.batch_size}
+            for s, o in zip(learner.train.traj_starts, ev_offsets) for c in range(3)]
+    for i in range(2):
+        step(data, idxs[i], gen)
+    times = []
+    for i in range(TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(data, idxs[i % len(idxs)], gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    step_ms = statistics.median(times) * 1e3
+    prof = phase_profile(lambda: step(data, idxs[0], gen), {}, "configuration A train",
+                         grad=True)
+    del learner, run_model, step, data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # configuration B: its validation through K4 on the L2 route at H = 768
+    cfg_b = heads_config(root, **{**CONFIG_B, "checkpoint_path": [JOINT_CHECKPOINT]})
+    learner_b = Learner(cfg_b)
+    require(all(torch.equal(learner_b.params["origunet." + k].cpu(), v)
+                for k, v in d_theta_weights().items()), "B's Learner did not load D(theta)")
+    val_err, n_fused, n_plain, val_s, val_frames = _validation_vs_plain(
+        learner_b, learner_b.run_model, lstm_stacked)
+    n_chunks = sum(-(-(int(n) - 1) // cfg_b.batch_size) for n in learner_b.val.trajlength)
+    log(f"configuration B validation with K4 L2 at H={HEAD_H} ({n_fused} launches) against "
+        f"the plain loop ({n_plain}): max |diff| / max(1, |x|) over losses, terms, velocities "
+        f"and depths {val_err:.3e}")
+    require(n_fused == n_chunks and n_plain == 0, "configuration B's validation K4 launches")
+    require(val_err <= VEL_ATOL, "configuration B's validation through K4 disagrees")
+    numbers = dict(a_train_step_ms=step_ms, a_train_frames_per_s=cfg.batch_size / step_ms * 1e3,
+                   a_seconds_per_epoch=loop_s / cfg.N_eps, a_train_loop_peak_gib=(peak - base)
+                   / 2**30, a_idle_share=None if prof is None else prof["idle_share"],
+                   b_val_frames_per_s=val_frames / val_s)
+    log(f"velocity-head training numbers (card: {smi}; {cfg.batch_size}-frame chunks at "
+        f"{H}x{W}, full f32, median of {TRAIN_TIMED} synchronized train steps after 2): "
+        + ", ".join(f"{k} {v}" for k, v in numbers.items()))
+    return launches, n_fused, numbers
+
+
+def phase_velocity_heads(dev, flush, smi):
+    """Configurations A and B built through registry.build_model on the
+    card; the head LSTM's kernels at H = 768; B streamed; A trained and B
+    validated.  Returns the head LSTM's errors and times, the streaming
+    launches, A's train_loop launches, B's validation launches and the
+    training numbers."""
+    errs, times = phase_head_lstm(dev, flush)
+    model_a = heads_model(dev, heads_config(**CONFIG_A))
+    frames = sparse_frames(13, (2, 1, H, W), dev)
+    with torch.inference_mode():
+        vel, (depth, upconv, _) = model_a(frames)
+    require(vel.shape == (2, 3) and depth.shape == (2, 1, H, W) and upconv.shape == (2, 1, 68, 148)
+            and bool(torch.isfinite(vel).all()), "configuration A's forward")
+    log(f"configuration A on the card: velocities {vel.tolist()}")
+    del model_a
+    model_b = heads_model(dev, heads_config(**CONFIG_B))
+    stream_launches, stream_ms = phase_heads_streaming(dev, model_b)
+    del model_b
+    _free_device_memory()
+    train_launches, val_launches, numbers = phase_heads_training(dev, smi)
+    numbers.update({f"b_streaming_ms_{mode}": ms for mode, ms in stream_ms.items()})
+    return errs, times, stream_launches, train_launches, val_launches, numbers
 
 
 def _on_alarm(signum, frame):
@@ -1927,6 +2321,9 @@ def main() -> int:
                       f"batched G={STREAMS}")
     with Phase("training: Learner.train_loop, joint model at full width"):
         train_launches, train_numbers = phase_training(dev, smi)
+    with Phase("velocity heads: configurations A and B at full width"):
+        (head_errs, head_times, head_stream, head_train, head_val,
+         head_numbers) = phase_velocity_heads(dev, flush, smi)
     signal.alarm(0)
 
     def entry(name, source, replaces, n, key, **times):
@@ -1968,6 +2365,17 @@ def main() -> int:
         lstm_entry("stacked", "l2", l2_launches["K4 L2"]),
         lstm_entry("wavefront", "l2", stream_launches["K5 L2"]),
     ]
+    # the head LSTM of configuration B (H = 768, L = 1) on the L2 route,
+    # timed at its streaming step's shape (one stream, T = 1); launches over
+    # B's streaming run in the kernel's mode, and B's validation for K4
+    for mode, (label, kernel, _) in HEAD_ROUTES.items():
+        kernels.append(dict(
+            name=f"{kernel.__name__} ({label}, H={HEAD_H} L=1: the velocity head's LSTM)",
+            route="cuda", source=lstm_src,
+            replaces="evfly_tpu/ops/lstm_pallas.py:" + ("111" if mode == "stacked" else "203"),
+            launches=head_stream[mode][label], training_launches=head_train[label],
+            validation_launches=head_val if mode == "stacked" else 0,
+            max_abs_err=head_errs[mode], **head_times[(mode, 1, 1)]))
     streaming = "; ".join(
         f"{mode} {route} {'graph' if graph else 'eager'} "
         + ", ".join(f"{c:.3f}" for c, _ in numbers[(mode, route, graph)])
@@ -1979,7 +2387,8 @@ def main() -> int:
         + ", ".join(f"G={G} {'graph' if graph else 'eager'} "
                     + ", ".join(f"{r:.1f}" for r in numbers[(G, graph)])
                     for G in RATE_STREAMS for graph in (True, False))
-        + f"; training {train_numbers}")
+        + f"; training {train_numbers}; velocity heads {head_numbers}, head LSTM ms "
+        + ", ".join(f"{m} G={G} T={T_} {t['ms']:.4f}" for (m, G, T_), t in head_times.items()))
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

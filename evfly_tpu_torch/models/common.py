@@ -85,6 +85,18 @@ def init_spectral_linear(gen, in_f: int, out_f: int, bias: bool = True) -> Param
     return p
 
 
+def init_batchnorm2d(num_features: int) -> Params:
+    """torch nn.BatchNorm2d's state: weight and bias, the running stats and
+    the int64 counter ``num_batches_tracked``."""
+    return {
+        "weight": torch.ones(num_features, dtype=torch.float32),
+        "bias": torch.zeros(num_features, dtype=torch.float32),
+        "running_mean": torch.zeros(num_features, dtype=torch.float32),
+        "running_var": torch.ones(num_features, dtype=torch.float32),
+        "num_batches_tracked": torch.zeros((), dtype=torch.int64),
+    }
+
+
 def init_layernorm(num_features: int) -> Params:
     return {
         "weight": torch.ones(num_features, dtype=torch.float32),
@@ -182,6 +194,30 @@ class ConvTranspose2d(ParamLeaf):
 
     def forward(self, x):
         return imageops.conv_transpose2d(x, self.weight, self._bias(), self.stride, self.padding)
+
+
+class BatchNorm2d(ParamLeaf):
+    """torch nn.BatchNorm2d (momentum 0.1, eps 1e-5) whose running stats
+    and counter are buffers, so an optimizer over ``parameters()`` never
+    sees them (``is_trainable_key``).  In training mode a forward
+    normalizes with the batch statistics, over the frames where ``mask``
+    is 1 when one is given, and writes the new running stats and the
+    counter + 1 into the buffers outside autograd: the JAX package's
+    ``updates``, merged into the params after the optimizer step."""
+
+    def __init__(self, num_features: int, device):
+        super().__init__(init_batchnorm2d(num_features), device,
+                         ("running_mean", "running_var", "num_batches_tracked"))
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
+        out, mean, var = imageops.batch_norm2d(x, self.weight, self.bias, self.running_mean,
+                                               self.running_var, self.training, mask=mask)
+        if self.training:
+            with torch.no_grad():
+                self.running_mean.copy_(mean)
+                self.running_var.copy_(var)
+                self.num_batches_tracked.add_(1)
+        return out
 
 
 class LayerNorm(ParamLeaf):

@@ -1,7 +1,7 @@
-"""D(theta): the events -> depth ``OrigUNet``, with its ConvLSTM bottleneck.
+"""D(theta): the events -> depth ``OrigUNet``, with its ConvLSTM bottleneck
+and its optional velocity head.
 
-Port of ``evfly_tpu/models/origunet.py`` (reference learner_models.py:339-616)
-for ``velpred=0``, the configuration of the trained joint model:
+Port of ``evfly_tpu/models/origunet.py`` (reference learner_models.py:339-616):
 
 * a 5-level valid-padding UNet on 260x346 inputs, channels 32 -> 512, the
   bottleneck (512, 8, 13) and the decoder output (1, 68, 148) bilinearly
@@ -10,12 +10,18 @@ for ``velpred=0``, the configuration of the trained joint model:
 * an optional 1-layer ConvLSTM with 1x1 kernels and no bias at the
   bottleneck, run over the frames of a sequence with batch 1, or over each
   of G streams with batch G (``forward`` with a leading stream axis);
+* the velocity heads velpred 1, 11 and 2, tapping the interpolated depth,
+  the decoder output or the bottleneck: ``DynamicConvNet`` -> an optional
+  ``LSTM`` over the frames (``num_recurrent[1]`` layers, hidden size the
+  encoder's feature count) -> ``VelPredictor`` with one output
+  (learner_models.py:428-472,594-614); velpred 0 emits the constant
+  velocity (1, 0, 0);
 * event-frame input forming: ``evs_min_cutoff`` zeroing, then 2-channel
   neg/pos (form_BEV 0), |x| (1) or a binary mask (2).
 
 Parameters keep the reference's state_dict keys (``unet_e11.weight``,
-``lstm.cell_list.0.conv.weight``).  ``velpred > 0`` (the velocity heads,
-``layers.py``) is not ported yet and raises.
+``lstm.cell_list.0.conv.weight``, ``convnet_velpred.layers.conv2d_0.weight``,
+``lstm_velpred.weight_hh_l0``, ``velpred_head.fcnet.layers.fc_0.bias``).
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ from torch import nn
 from ..device import DeviceLike, resolve_device
 from ..ops import imageops
 from .common import Conv2d, ConvTranspose2d
-from .recurrent import ConvLSTM, ConvState, convlstm_init_hidden
+from .layers import VelPredictor, dynamic_convnet, head_features
+from .recurrent import LSTM, ConvLSTM, convlstm_init_hidden
 
 Size = Tuple[int, int]
 
@@ -71,6 +78,8 @@ class OrigUNet(nn.Module):
         num_in_channels: int = 2,
         num_out_channels: int = 1,
         num_recurrent=(0, 0),
+        enc_params: Optional[dict] = None,
+        fc_params: Optional[dict] = None,
         input_shape=(1, 2, 260, 346),
         velpred: int = 0,
         form_BEV: int = 0,
@@ -81,11 +90,8 @@ class OrigUNet(nn.Module):
         device: DeviceLike = None,
     ):
         super().__init__()
-        if velpred > 0:
-            raise NotImplementedError(
-                f"OrigUNet velpred={velpred}: the velocity heads (models/layers.py "
-                "DynamicConvNet, VelPredictor) are not ported yet (ROADMAP §1 item 3)"
-            )
+        if velpred not in (0, 1, 11, 2):
+            raise ValueError(f"velpred {velpred}")
         if form_BEV in (1, 2):
             num_in_channels = 1
         elif form_BEV != 0:
@@ -100,6 +106,7 @@ class OrigUNet(nn.Module):
             [num_recurrent, 0] if isinstance(num_recurrent, int) else list(num_recurrent)
         )
         self.input_h, self.input_w = input_shape[-2], input_shape[-1]
+        self.velpred = velpred
         self.form_BEV = form_BEV
         self.is_deployment = is_deployment
         self.evs_min_cutoff = evs_min_cutoff
@@ -120,6 +127,18 @@ class OrigUNet(nn.Module):
         self.unet_out = Conv2d(32, num_out_channels, 1, gen, dev)
         if self.num_recurrent[0] > 0:
             self.lstm = ConvLSTM(512, [512] * self.num_recurrent[0], (1, 1), gen, dev, bias=False)
+        self.velpred_lstm_size = 0
+        if velpred > 0:
+            # the tap: the interpolated depth, the decoder output, the bottleneck
+            in_ch, in_hw = {1: (1, (self.input_h, self.input_w)), 11: (1, self.decoded_hw),
+                            2: (512, self.middle_hw)}[velpred]
+            self.convnet_velpred = dynamic_convnet(in_ch, enc_params, gen, dev)
+            c, h, w = self.convnet_velpred.output_shape(in_hw)
+            self.velpred_lstm_size = c * h * w
+            if self.num_recurrent[1] > 0:
+                self.lstm_velpred = LSTM(self.velpred_lstm_size, self.velpred_lstm_size,
+                                         self.num_recurrent[1], gen, dev, dropout=0.1)
+            self.velpred_head = VelPredictor(self.velpred_lstm_size, 1, fc_params, gen, dev)
 
     # ------------------------------------------------------------- helpers
 
@@ -154,15 +173,20 @@ class OrigUNet(nn.Module):
 
     def init_hidden(self, streams: Optional[int] = None):
         """Zero hidden state (h_unet, h_velpred) on the module's device: the
-        ConvLSTM's [(h, c)] with batch 1, or ``streams``; h_velpred is None
-        (velpred = 0)."""
-        h_unet = None
+        ConvLSTM's [(h, c)] with batch 1, or ``streams``; the head LSTM's
+        (h, c), each (L, F) or (streams, L, F), or None without one."""
+        dev = self.unet_out.weight.device
+        h_unet = h_velpred = None
         if self.num_recurrent[0] > 0:
             h_unet = convlstm_init_hidden(
                 1 if streams is None else streams, [512] * self.num_recurrent[0],
-                *self.middle_hw, device=self.unet_out.weight.device,
+                *self.middle_hw, device=dev,
             )
-        return (h_unet, None)
+        if hasattr(self, "lstm_velpred"):
+            shape = (self.num_recurrent[1], self.velpred_lstm_size)
+            shape = shape if streams is None else (streams, *shape)
+            h_velpred = (torch.zeros(shape, device=dev), torch.zeros(shape, device=dev))
+        return (h_unet, h_velpred)
 
     # ------------------------------------------------------------- forward
 
@@ -171,22 +195,27 @@ class OrigUNet(nn.Module):
         return relu(getattr(self, f"unet_{name}2")(relu(getattr(self, f"unet_{name}1")(x))))
 
     def forward(
-        self, x: torch.Tensor, hidden: Optional[Tuple[Optional[ConvState], None]] = None,
+        self, x: torch.Tensor, hidden=None, generator: Optional[torch.Generator] = None,
+        frame_mask: Optional[torch.Tensor] = None,
     ):
-        """x: event frames (N, 1, H, W), a sequence whose N axis is the
-        ConvLSTM's time axis; or (G, N, 1, H, W), G streams of N frames, the
-        ConvLSTM's batch axis G.  hidden: (h_unet, h_velpred) or None.
+        """x: event frames (N, 1, H, W), a sequence whose N axis is the time
+        axis of the ConvLSTM and the head's LSTM; or (G, N, 1, H, W), G
+        streams of N frames, their batch axis G.  hidden: (h_unet,
+        h_velpred) or None.  ``generator`` draws the head's dropout in
+        training (none without one); ``frame_mask`` (N,) marks the valid
+        frames of a padded chunk for the head's BatchNorm statistics.
 
         Returns (y_vel, (y_interp, y_upconv, (h_unet, h_velpred))) with the
-        leading axes of x: y_vel the constant (1, 0, 0) of velpred = 0,
-        y_interp the depth at the input size, y_upconv the decoder output
-        (both None when deploying without a head that needs them).
+        leading axes of x: y_vel the head's velocity, or the constant
+        (1, 0, 0) of velpred = 0; y_interp the depth at the input size,
+        y_upconv the decoder output (both None when deploying with velpred 0
+        or 2, which need neither).
         """
         lead = x.shape[:-3]
         im = x.reshape(-1, *x.shape[-3:])
         if self.num_in_channels == 2 or self.form_BEV > 0:
             im = self.form_input(im)
-        h_unet_in = hidden[0] if hidden is not None else None
+        h_unet_in, h_velpred_in = hidden if hidden is not None else (None, None)
 
         skips: List[torch.Tensor] = []
         y = im
@@ -203,17 +232,30 @@ class OrigUNet(nn.Module):
             outs, h_unet = self.lstm(seq, h_unet_in)
             y = outs.reshape(y.shape)
 
+        y_e5 = y
         y_interp = y_upconv = None
-        if not self.is_deployment:
+        if not self.is_deployment or self.velpred in (1, 11):
             for level, (name, _) in enumerate(_DECODER, start=1):
                 sk = self.skip(skips[-level], *self.skip_sizes[level - 1])
                 up = getattr(self, f"unet_upconv{level}")(y)
                 y = self._block(name, torch.cat([sk, up], dim=1) if sk is not None else up)
             y_interp, y_upconv = self.form_output(self.unet_out(y))
+
+        h_velpred = None
+        if self.velpred > 0:
+            tap = {1: y_interp, 11: y_upconv, 2: y_e5}[self.velpred]
+            feats = self.convnet_velpred(tap, frame_mask)
+            feats = feats.reshape(feats.shape[0], -1)
+            if hasattr(self, "lstm_velpred"):
+                seq, h_velpred = self.lstm_velpred(head_features(feats, lead), h_velpred_in,
+                                                   generator)
+                feats = seq.reshape(feats.shape)
+            y_vel = self.velpred_head(feats, generator).reshape(*lead, 3)
+        else:
+            # made on the device, not copied from the host, so a CUDA graph
+            # can capture the forward
+            y_vel = torch.eye(1, 3, dtype=x.dtype, device=x.device)[0].expand(*lead, 3)
+        if y_interp is not None:
             y_interp = y_interp.reshape(*lead, *y_interp.shape[1:])
             y_upconv = y_upconv.reshape(*lead, *y_upconv.shape[1:])
-
-        # made on the device, not copied from the host, so a CUDA graph can
-        # capture the forward
-        y_vel = torch.eye(1, 3, dtype=x.dtype, device=x.device)[0].expand(*lead, 3)
-        return y_vel, (y_interp, y_upconv, (h_unet, None))
+        return y_vel, (y_interp, y_upconv, (h_unet, h_velpred))

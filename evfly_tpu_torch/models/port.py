@@ -37,13 +37,17 @@ def save_state_dict(params: Mapping[str, torch.Tensor], path: str) -> None:
 def from_jax_params(params: Mapping[str, np.ndarray], device: DeviceLike = None
                     ) -> Dict[str, torch.Tensor]:
     """The JAX package's flat param dict (numpy arrays) as tensors on
-    ``device``; floating values become f32."""
+    ``device``; floating values become f32, and the BatchNorm counters
+    ``num_batches_tracked`` int64, as torch stores them (JAX holds them as
+    int32 unless x64 is on)."""
     dev = resolve_device(device)
     out: Dict[str, torch.Tensor] = {}
     for k, v in params.items():
         t = torch.from_numpy(np.array(v))
         if t.is_floating_point():
             t = t.to(torch.float32)
+        elif k.endswith("num_batches_tracked"):
+            t = t.to(torch.int64)
         out[k] = t.to(dev)
     return out
 

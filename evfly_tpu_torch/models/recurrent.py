@@ -58,14 +58,6 @@ def fused_wanted(params: Params, x: torch.Tensor, hidden, hidden_size: int,
             and not _needs_grad(params, x, hidden))
 
 
-def _dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
-    """Inverted dropout with the mask drawn from ``generator`` (on x's
-    device): keep with probability 1 - p, scale kept values by 1 / (1 - p),
-    as ``evfly_tpu.ops.imageops.dropout``."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < 1.0 - p
-    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
-
-
 def lstm_apply(
     params: Params,
     x: torch.Tensor,  # (T, input_size) or (G, T, input_size)
@@ -132,7 +124,7 @@ def lstm_loop(
         c_finals.append(c)
         seq = torch.stack(outs, -2) if outs else x_proj.new_zeros(*lead, 0, hidden_size)
         if layer < num_layers - 1 and dropout_p > 0.0 and train and generator is not None:
-            seq = _dropout(seq, dropout_p, generator)
+            seq = imageops.dropout(seq, dropout_p, generator)
     return seq, (torch.stack(h_finals, -2), torch.stack(c_finals, -2))
 
 

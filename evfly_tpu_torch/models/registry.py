@@ -2,13 +2,14 @@
 (learner.py:336-405), as ``evfly_tpu/models/registry.py``, for the families
 the port has:
 
-  'OrigUNet' (velpred 0)               -> OrigUNet
+  'OrigUNet' (velpred 0, 1, 11, 2)     -> OrigUNet
   ['OrigUNet', 'VITFLY_ViTLSTM']       -> OrigUNet_w_VITFLY_ViTLSTM
+  ['OrigUNet', 'ConvNet_w_VelPred']    -> OrigUNet_w_ConvNet_w_VelPred
   'VITFLY_ViTLSTM' / 'LSTMNetVIT'      -> LSTMNetVIT
+  'ConvNet_w_VelPred'                  -> ConvNet_w_VelPred
 
-The other vitfly models and composites raise ``NotImplementedError``
-naming the ROADMAP item that ports them; ``OrigUNet`` with a velocity head
-(velpred > 0) raises in its constructor.
+The other vitfly models raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -19,7 +20,11 @@ import torch
 
 from ..configs import EvflyConfig
 from ..device import DeviceLike
-from .composites import OrigUNet_w_VITFLY_ViTLSTM
+from .composites import (
+    ConvNet_w_VelPred,
+    OrigUNet_w_ConvNet_w_VelPred,
+    OrigUNet_w_VITFLY_ViTLSTM,
+)
 from .origunet import OrigUNet
 from .vitfly import LSTMNetVIT
 
@@ -63,19 +68,10 @@ def fc_params_from_config(cfg: EvflyConfig) -> dict:
 
 
 _VITLSTM = ("VITFLY_ViTLSTM", "LSTMNetVIT")
-# model types of the JAX package the port does not build yet -> ROADMAP item
-_NOT_PORTED = {
-    "VITFLY_ViT": 4, "ViT": 4, "VITFLY_LSTMNet": 4, "LSTMNet": 4,
-    "VITFLY_ConvNet": 4, "ConvNet": 4, "VITFLY_UNetConvLSTMNet": 4, "UNetConvLSTMNet": 4,
-    "ConvNet_w_VelPred": 3,
-}
+# model types of the JAX package the port does not build yet
+_NOT_PORTED = ("VITFLY_ViT", "ViT", "VITFLY_LSTMNet", "LSTMNet", "VITFLY_ConvNet", "ConvNet",
+               "VITFLY_UNetConvLSTMNet", "UNetConvLSTMNet")
 
-
-def _not_ported(mt, item: int) -> NotImplementedError:
-    what = ("the velocity heads (models/layers.py) and the composites on them"
-            if item == 3 else "the rest of the model zoo")
-    return NotImplementedError(
-        f"model_type {mt!r} is not ported yet: ROADMAP §1 item {item} ({what})")
 
 
 def build_model(cfg: EvflyConfig, is_deployment: bool = False, device: DeviceLike = None,
@@ -89,6 +85,8 @@ def build_model(cfg: EvflyConfig, is_deployment: bool = False, device: DeviceLik
         num_in_channels=cfg.num_in_channels,
         num_out_channels=cfg.num_out_channels,
         num_recurrent=cfg.num_recurrent,
+        enc_params=enc_params_from_config(cfg),
+        fc_params=fc_params_from_config(cfg),
         input_shape=[1, 1, resize[0], resize[1]],
         velpred=cfg.velpred,
         form_BEV=cfg.bev,
@@ -102,12 +100,23 @@ def build_model(cfg: EvflyConfig, is_deployment: bool = False, device: DeviceLik
         if mt[0] == "OrigUNet" and mt[1] == "VITFLY_ViTLSTM":
             return OrigUNet_w_VITFLY_ViTLSTM(**origunet_kwargs)
         if mt[0] == "OrigUNet" and mt[1] == "ConvNet_w_VelPred":
-            raise _not_ported(mt, 3)
+            return OrigUNet_w_ConvNet_w_VelPred(num_outputs=cfg.num_outputs, **origunet_kwargs)
         raise ValueError(f"Multi-model_type {mt} not implemented")
     if mt == "OrigUNet":
         return OrigUNet(**origunet_kwargs)
+    if mt == "ConvNet_w_VelPred":
+        return ConvNet_w_VelPred(
+            num_in_channels=1,
+            num_recurrent=cfg.num_recurrent[1] if len(cfg.num_recurrent) > 1 else 0,
+            num_outputs=cfg.num_outputs,
+            enc_params=origunet_kwargs["enc_params"],
+            fc_params=origunet_kwargs["fc_params"],
+            input_shape=[1, 1, resize[0], resize[1]],
+            generator=generator, device=device,
+        )
     if mt in _VITLSTM:
         return LSTMNetVIT(generator=generator, device=device)
     if mt in _NOT_PORTED:
-        raise _not_ported(mt, _NOT_PORTED[mt])
+        raise NotImplementedError(
+            f"model_type {mt!r} is not ported yet: ROADMAP §1 item 3 (the rest of the model zoo)")
     raise ValueError(f"Invalid model_type {mt}")

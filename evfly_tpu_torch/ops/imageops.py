@@ -1,14 +1,14 @@
 """Torch-semantics image and layer primitives, as plain tensor functions.
 
-Port of ``evfly_tpu/ops/imageops.py`` for the functions the serving and
-streaming paths need (``LSTMNetVIT``, ``OrigUNet``).  Layouts are torch's (NCHW activations, OIHW conv
-weights, (out, in) linear weights), the same as the JAX package keeps, so
-one state_dict feeds both.  These functions run at whatever precision
-PyTorch's flags give; the port's entry points set those flags for their own
-work (``evfly_tpu_torch.precision``): full f32 by default, the JAX
-package's ``Precision.HIGHEST``, or TF32 after ``set_precision("tf32")``.
-On the card, PyTorch's own default would run cuDNN's f32 convolutions in
-TF32.
+Port of ``evfly_tpu/ops/imageops.py`` for the functions the port's models
+need (``LSTMNetVIT``, ``OrigUNet`` and its velocity heads).  Layouts are
+torch's (NCHW activations, OIHW conv weights, (out, in) linear weights),
+the same as the JAX package keeps, so one state_dict feeds both.  These
+functions run at whatever precision PyTorch's flags give; the port's entry
+points set those flags for their own work (``evfly_tpu_torch.precision``):
+full f32 by default, the JAX package's ``Precision.HIGHEST``, or TF32 after
+``set_precision("tf32")``.  On the card, PyTorch's own default would run
+cuDNN's f32 convolutions in TF32.
 """
 
 from __future__ import annotations
@@ -50,6 +50,12 @@ def conv_transpose2d(
 def max_pool2d(x: torch.Tensor, kernel_size, stride=None) -> torch.Tensor:
     """torch.nn.functional.max_pool2d with floor semantics (VALID windows)."""
     return F.max_pool2d(x, kernel_size, stride if stride is not None else kernel_size)
+
+
+def avg_pool2d(x: torch.Tensor, kernel_size, stride=None) -> torch.Tensor:
+    """torch.nn.functional.avg_pool2d with floor semantics (VALID windows,
+    the window's sum over its kh * kw cells)."""
+    return F.avg_pool2d(x, kernel_size, stride if stride is not None else kernel_size)
 
 
 def _interp_axis_weights(n_in: int, n_out: int, align_corners: bool, device):
@@ -158,6 +164,59 @@ def spectral_norm_power_iteration(weight_orig: torch.Tensor, u: torch.Tensor, v:
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5):
     """torch nn.LayerNorm over the last dimension."""
     return F.layer_norm(x, (x.shape[-1],), weight, bias, eps)
+
+
+def batch_norm2d(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    running_mean: torch.Tensor,
+    running_var: torch.Tensor,
+    training: bool = False,
+    momentum: float = 0.1,
+    eps: float = 1e-5,
+    mask: Optional[torch.Tensor] = None,
+):
+    """torch nn.BatchNorm2d over x (N, C, H, W) -> (out, new_running_mean,
+    new_running_var), in plain tensor ops (``F.batch_norm`` takes no mask).
+
+    Training mode normalizes with the biased batch statistics and moves the
+    running stats by ``momentum`` toward the batch mean and the unbiased
+    variance, count / max(count - 1, 1) times the biased one.  ``mask`` (N,),
+    float 0/1, marks the valid frames of a padded chunk: the statistics are
+    taken over those frames only, so a padded chunk normalizes and updates
+    the running stats as its valid frames alone would.  Eval mode normalizes
+    with the running stats and returns them unchanged.
+    """
+    if training:
+        if mask is not None:
+            m = mask.reshape(-1, 1, 1, 1).to(x.dtype)
+            count = torch.clamp(mask.to(x.dtype).sum() * (x.shape[2] * x.shape[3]), min=1.0)
+            mean = (x * m).sum(dim=(0, 2, 3)) / count
+            var = ((x - mean.reshape(1, -1, 1, 1)).square() * m).sum(dim=(0, 2, 3)) / count
+            unbiased = var * (count / torch.clamp(count - 1.0, min=1.0))
+        else:
+            mean = x.mean(dim=(0, 2, 3))
+            var = (x - mean.reshape(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            unbiased = var * (n / max(n - 1, 1))
+        new_mean = (1 - momentum) * running_mean + momentum * mean
+        new_var = (1 - momentum) * running_var + momentum * unbiased
+    else:
+        mean, var = running_mean, running_var
+        new_mean, new_var = running_mean, running_var
+    inv = torch.rsqrt(var + eps).reshape(1, -1, 1, 1)
+    out = ((x - mean.reshape(1, -1, 1, 1)) * inv * weight.reshape(1, -1, 1, 1)
+           + bias.reshape(1, -1, 1, 1))
+    return out, new_mean, new_var
+
+
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout with the mask drawn from ``generator`` (on x's
+    device): keep with probability 1 - p, scale kept values by 1 / (1 - p),
+    as ``evfly_tpu.ops.imageops.dropout``."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01):

@@ -4,9 +4,11 @@ Port of ``evfly_tpu/stream/pipeline.py``.  The reference deployment loop
 (evfly_ros/run.py:244-414) quantile-scales each event frame, runs the joint
 model with its hidden state carried from frame to frame, and scales the
 velocity by the desired speed.  One step is ``stream_step``: raw events ->
-``event_histogram`` (kernel K1 on CUDA) -> 97th-percentile scaling ->
-``OrigUNet`` with its ConvLSTM -> ``LSTMNetVIT`` (its LSTM through K4, or
-K5 in the wavefront mode) -> velocity and depth, under
+``event_histogram`` (kernel K1 on CUDA) -> 97th-percentile scaling -> a
+model with the composite convention: the joint model, ``OrigUNet`` with its
+ConvLSTM -> ``LSTMNetVIT``, or ``OrigUNet`` -> ``ConvNet_w_VelPred`` (each
+head's LSTM through K4, or K5 in the wavefront mode) -> velocity and depth,
+under
 ``torch.inference_mode()`` and at the precision of
 ``evfly_tpu_torch.set_precision`` (full f32 by default).
 ``BatchedStreamingPipeline`` steps G streams in one forward, each with its
@@ -252,13 +254,16 @@ class _Pipeline:
 
 
 class StreamingPipeline(_Pipeline):
-    """Stateful streaming runner around the joint model
-    (``models.composites.OrigUNet_w_VITFLY_ViTLSTM``): its forward takes
-    (frames, desvel, hidden_unet, hidden_vit) with the composite hidden
-    convention ((h_unet, h_velpred), h_vitlstm), and it has
-    ``init_hidden()``.  ``hidden`` holds the state in static buffers, which
-    each step and ``reset`` write in place.  ``desvel`` may change between
-    steps.
+    """Stateful streaming runner around a two-stage model of
+    ``models.composites``: the joint ``OrigUNet_w_VITFLY_ViTLSTM`` or
+    ``OrigUNet_w_ConvNet_w_VelPred``.  Its forward takes (frames, desvel,
+    hidden_unet, hidden_head) with the composite hidden convention
+    ((h_unet, h_velpred), h_head), h_head the ViTLSTM's or the
+    ConvNet_w_VelPred LSTM's (h, c), and it has ``init_hidden(streams)``.
+    ``hidden`` holds the state in static buffers, which each step and
+    ``reset`` write in place; every ``recurrent.LSTM`` of the model is
+    packed for its kernel outside the capture and keys the graph by its
+    mode and route.  ``desvel`` may change between steps.
     """
 
     def __init__(
@@ -336,7 +341,7 @@ class BatchedStreamingPipeline(_Pipeline):
 
     Every stream carries its own recurrent state; one forward takes the G
     frames with the stream axis leading, so the ConvLSTM runs with batch G
-    and the ViTLSTM's LSTM is one launch for all G streams.  ``desvel`` is
+    and the head's LSTM is one launch for all G streams.  ``desvel`` is
     fixed at construction, as in the JAX package.
 
     Per-stream hidden reset is a mask argument (sim resets a stream when its

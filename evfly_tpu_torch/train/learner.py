@@ -628,7 +628,7 @@ class Learner:
         if c.dp_devices > 0:
             raise NotImplementedError(
                 f"dp_devices = {c.dp_devices}: data-parallel training is not ported yet "
-                "(ROADMAP §1 item 6, parallel/ as DDP)")
+                "(ROADMAP §1 item 5, parallel/ as DDP)")
         self.mylogger(f"[TRAIN] Training for {self.N_eps} epochs")
         train_start = time.time()
         traj_starts_base = self.train.traj_starts

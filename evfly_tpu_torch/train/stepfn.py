@@ -6,10 +6,16 @@ outputs feed which loss term, and which models have their z velocity set to
 chunk gather from device-resident data.  These are plain functions on
 tensors and ``nn.Module``s, run eagerly.
 
-Padding is inert: the loss is exactly masked and the recurrences are
-causal, so a padded chunk's tail never reaches its real frames (the models
-of this slice have no BatchNorm).  Each chunk starts from a zero recurrent
-state, as the reference's ``hidden=None`` per chunk.
+Padding is inert: the loss is exactly masked, the recurrences are causal,
+so a padded chunk's tail never reaches its real frames, and in training the
+chunk's frame mask reaches every BatchNorm (the velocity heads'), whose
+batch statistics and running-stat updates then cover the valid frames only.
+A padded chunk's step is the step of its valid frames alone, the
+reference's ragged chunk.  The BatchNorms write their running stats and
+counters into their buffers during the forward, where the JAX package
+merges its ``updates`` after the optimizer step; Adam never sees buffers.
+Each chunk starts from a zero recurrent state, as the reference's
+``hidden=None`` per chunk.
 
 In a train step the model is in training mode, so its LSTM runs the plain
 loop (a gradient is needed, ``recurrent.fused_wanted``) with its dropout
@@ -40,21 +46,27 @@ def _zero_z(vel: torch.Tensor) -> torch.Tensor:
 
 
 def apply_for_loss(model, kind: str, inp: torch.Tensor, desvel: torch.Tensor,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   frame_mask: Optional[torch.Tensor] = None):
     """Run the model per the reference dispatch -> (pred_vel, pred_vision or
-    None).  ``generator`` draws dropout in training; None means none."""
+    None).  ``generator`` draws dropout in training; None means none.
+    ``frame_mask`` (N,) marks the valid frames of a padded chunk for every
+    BatchNorm; None in eval."""
     if kind == "origunet":
-        vel, (y_interp, _up, _h) = model(inp)
+        vel, (y_interp, _up, _h) = model(inp, None, generator, frame_mask)
         return vel, y_interp
     if kind == "vitfly":
         vel, _h = model(inp, desvel, None, None, generator)
         return _zero_z(vel), None
     if kind == "joint_vitlstm":
-        vel, (depth, _up, _h) = model(inp, desvel, None, None, generator)
+        vel, (depth, _up, _h) = model(inp, desvel, None, None, generator, frame_mask)
         return _zero_z(vel), depth
-    if kind in ("joint_convnet", "convnet_velpred"):
-        raise NotImplementedError(
-            f"model kind {kind!r} is not ported yet: ROADMAP §1 item 3 (the velocity heads)")
+    if kind == "joint_convnet":
+        vel, (depth, _up, _h) = model(inp, desvel, None, None, generator, frame_mask)
+        return vel, depth
+    if kind == "convnet_velpred":
+        vel, _h = model(inp, desvel, None, generator, frame_mask)
+        return vel, None
     raise ValueError(kind)
 
 
@@ -84,7 +96,7 @@ def make_forward_loss(model, kind: str, loss_weights: Optional[Sequence[float]],
             inp, gt_norm_vel, gt_frames = augment_chunk(
                 generator, inp, gt_norm_vel, gt_frames, num_out_channels)
         pred_vel, pred_vision = apply_for_loss(
-            model, kind, inp, desvel, generator if train else None)
+            model, kind, inp, desvel, generator if train else None, mask if train else None)
         preds = [pred_vel, pred_vision if pred_vision is not None else torch.zeros_like(gt_frames)]
         batch_loss, values = combined_loss([gt_norm_vel, gt_frames], preds, mask,
                                            loss_weights, optional_loss_param)

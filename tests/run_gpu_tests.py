@@ -1,12 +1,12 @@
-"""Runs the port's ``gpu``-marked tests (the voxelizer kernels, the graph
-step, the deployment loop, a train step) on a machine with a CUDA card and without JAX
-(the GPU machine):
+"""Runs the port's ``gpu``-marked tests (the voxelizer kernels, K4 and K5,
+the graph step, the deployment loop, a train step, the velocity heads'
+LSTM) on a machine with a CUDA card and without JAX (the GPU machine):
 
     python3 tests/run_gpu_tests.py [REPO]
 
-The test files import ``jax`` and the JAX package at module level, for
-their CPU cases; no ``gpu`` test calls them.  So for collection alone both
-are replaced here by inert modules (any call raises), ``tests/conftest.py``
+The test files import ``jax``, ``optax`` and the JAX package at module
+level, for their CPU cases; no ``gpu`` test calls them.  So for collection
+alone all three are replaced here by inert modules (any call raises), ``tests/conftest.py``
 (which configures JAX) is skipped, and pytest runs ``-m gpu``.  REPO is the
 checkout to test, by default the one holding this file.
 """
@@ -20,8 +20,9 @@ import types
 REPO = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
                        os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 FILES = ("tests/test_torch_voxelizer.py", "tests/test_torch_voxelizer_cluster.py",
-         "tests/test_torch_stream_graph.py", "tests/test_torch_hil.py",
-         "tests/test_torch_train.py")
+         "tests/test_torch_lstm.py", "tests/test_torch_stream_graph.py",
+         "tests/test_torch_hil.py", "tests/test_torch_train.py", "tests/test_torch_heads.py")
+INERT = ("jax", "optax", "evfly_tpu")
 
 
 class _Inert(types.ModuleType):
@@ -35,11 +36,11 @@ class _Inert(types.ModuleType):
 
 
 class _InertFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
-    """``jax`` and ``evfly_tpu`` (not ``evfly_tpu_torch``) and their
-    submodules as inert modules."""
+    """The packages of ``INERT`` (``evfly_tpu``, not ``evfly_tpu_torch``)
+    and their submodules as inert modules."""
 
     def find_spec(self, name, path, target=None):
-        if any(name == top or name.startswith(top + ".") for top in ("jax", "evfly_tpu")):
+        if any(name == top or name.startswith(top + ".") for top in INERT):
             return importlib.machinery.ModuleSpec(name, self, is_package=True)
         return None
 

@@ -239,7 +239,7 @@ def test_dropout_with_a_seeded_generator_is_reproducible():
 def test_dropout_mask_keeps_one_minus_p_and_rescales():
     gen = torch.Generator().manual_seed(0)
     x = torch.full((200, 100), 2.0)
-    y = recurrent._dropout(x, 0.25, gen)
+    y = imageops.dropout(x, 0.25, gen)
     kept = y != 0
     assert abs(kept.float().mean().item() - 0.75) < 0.01
     assert torch.all(y[kept] == 2.0 / 0.75)

@@ -19,7 +19,6 @@ ViTLSTM's gates saturate so that max|c| grows by about 1 per frame.
 import pathlib
 
 import numpy as np
-import pytest
 import torch
 
 import jax
@@ -182,11 +181,6 @@ def test_policy_best_matches_jax_at_sensor_size():
     model.load_params(load_state_dict(str(CHECKPOINT)))
     assert set(model.state_dict()) == set(jparams)
     _run_and_compare(jm, jstep, jparams, model, _frames(1, 2, hw))
-
-
-def test_velpred_heads_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        origunet.OrigUNet(velpred=1, device="cpu")
 
 
 def test_stream_axis_is_independent_sequences():

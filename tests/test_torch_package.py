@@ -34,6 +34,7 @@ MODULES = sorted(
 def test_import_check_covers_every_module():
     for module in ("evfly_tpu_torch.stream", "evfly_tpu_torch.stream.pipeline",
                    "evfly_tpu_torch.models.origunet", "evfly_tpu_torch.models.composites",
+                   "evfly_tpu_torch.models.layers", "evfly_tpu_torch.models.common",
                    "evfly_tpu_torch.models.recurrent", "evfly_tpu_torch.ops.lstm_fused",
                    "evfly_tpu_torch.ops.voxelizer", "evfly_tpu_torch.precision",
                    "evfly_tpu_torch.stream.accumulator", "evfly_tpu_torch.stream.deploy",
@@ -104,8 +105,12 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     for device in ("tpu", "gpu", "cuda"):
         with pytest.raises(RuntimeError, match="CUDA"):
             Learner(EvflyConfig(device=device, dataset=None, basedir=str(tmp_path)))
+    for mt in (["OrigUNet", "VITFLY_ViTLSTM"], ["OrigUNet", "ConvNet_w_VelPred"],
+               ["ConvNet_w_VelPred"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_model(EvflyConfig(model_type=mt, bev=2))
     with pytest.raises(RuntimeError, match="CUDA"):
-        build_model(EvflyConfig(model_type=["OrigUNet", "VITFLY_ViTLSTM"], bev=2))
+        build_model(EvflyConfig(model_type=["OrigUNet"], velpred=11, bev=2))
     model = OrigUNet_w_VITFLY_ViTLSTM(input_shape=(1, 1, 196, 196), form_BEV=2, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         StreamingPipeline(model, input_hw=(196, 196))

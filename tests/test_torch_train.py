@@ -327,30 +327,51 @@ def test_config_device_reading():
     assert EvflyConfig().device == "tpu"
 
 
-@pytest.mark.parametrize("model_type,item", [
-    (["VITFLY_ViT"], 4), (["ViT"], 4), (["LSTMNet"], 4), (["VITFLY_LSTMNet"], 4),
-    (["ConvNet"], 4), (["VITFLY_UNetConvLSTMNet"], 4), (["ConvNet_w_VelPred"], 3),
-    (["OrigUNet", "ConvNet_w_VelPred"], 3),
+@pytest.mark.parametrize("model_type", [
+    ["VITFLY_ViT"], ["ViT"], ["LSTMNet"], ["VITFLY_LSTMNet"], ["ConvNet"],
+    ["VITFLY_UNetConvLSTMNet"],
 ])
-def test_registry_raises_for_families_not_ported(model_type, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}"):
+def test_registry_raises_for_families_not_ported(model_type):
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
         registry.build_model(EvflyConfig(model_type=model_type), device="cpu")
 
 
+# the enc and fc params of evfly_tpu/configs/files/eval_sim_Dtheta_vitlstm.txt
+HEAD_KEYS = dict(
+    enc_num_layers=2, enc_kernel_sizes=[5, 3], enc_kernel_strides=[2, 2],
+    enc_out_channels=[8, 32], enc_activations=["relu", "relu"], enc_pool_type="max",
+    enc_invert_pool_inputs=True, enc_pool_kernels=[2, 2], enc_pool_strides=[2, 2],
+    fc_num_layers=4, fc_layer_sizes=[1024, 128, 16, 1],
+    fc_activations=["leaky_relu", "leaky_relu", "leaky_relu", "tanh"], fc_dropout_p=0.1,
+)
+
+
 def test_registry_builds_the_ported_families_with_jax_keys():
+    """Every family the port builds, keys and shapes against the JAX
+    package's init: the joint model's family at 190x190, the velocity heads
+    at 260x346 with the shipped enc and fc params (the composite's head
+    reads the 68x148 decoder output, which the JAX composite fixes)."""
     from evfly_tpu.models.registry import build_model as jax_build_model
 
     cfg = dict(num_recurrent=[1, 0], bev=2, skip_type="interp", resize_input=list(UNET_HW),
                evs_min_cutoff=0.0)
-    for mt in (["OrigUNet"], ["VITFLY_ViTLSTM"], ["LSTMNetVIT"], ["OrigUNet", "VITFLY_ViTLSTM"]):
-        c = EvflyConfig(model_type=mt, **cfg)
+    heads = dict(cfg, resize_input=[260, 346], num_outputs=1, **HEAD_KEYS)
+    cases = [(mt, {}, cfg) for mt in (["OrigUNet"], ["VITFLY_ViTLSTM"], ["LSTMNetVIT"],
+                                      ["OrigUNet", "VITFLY_ViTLSTM"])]
+    cases += [(["OrigUNet"], dict(velpred=v, num_recurrent=[1, 1]), heads) for v in (1, 11)]
+    cases += [(["OrigUNet"], dict(velpred=2, enc_kernel_sizes=[2, 2], enc_kernel_strides=[1, 1],
+                                  enc_pool_strides=[1, 1]), heads),
+              (["ConvNet_w_VelPred"], dict(num_recurrent=[0, 0]), heads),
+              (["OrigUNet", "ConvNet_w_VelPred"], dict(num_recurrent=[1, 1]), heads)]
+    for mt, extra, base in cases:
+        c = EvflyConfig(model_type=mt, **{**base, **extra})
         model = registry.build_model(c, device="cpu")
-        ref = jax_build_model(jax_parse_config_from(c)).init(jax.random.PRNGKey(0))
+        ref = jax.eval_shape(jax_build_model(jax_parse_config_from(c)).init,
+                             jax.random.PRNGKey(0))
         assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == {
-            k: tuple(v.shape) for k, v in ref.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
-        registry.build_model(EvflyConfig(model_type=["OrigUNet"], velpred=11, **cfg),
-                             device="cpu")
+            k: tuple(v.shape) for k, v in ref.items()}, (mt, extra)
+        assert all(v.dtype == torch.int64 for k, v in model.state_dict().items()
+                   if k.endswith("num_batches_tracked"))
     deploy = registry.build_model(EvflyConfig(model_type=["OrigUNet"], **cfg),
                                   is_deployment=True, device="cpu")
     assert deploy.is_deployment
