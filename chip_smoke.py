@@ -7,10 +7,12 @@ call, cached in ``build/``), holds each of K1-K5 against its plain PyTorch
 version on the card (K1 on both of its kernels: one thread-block cluster
 per window with the frame in the cluster's shared memory, and the band
 kernel of before, for the frames no cluster holds; K2 and K3 on their
-cluster kernel, with int16 and int32 counts; K4 and K5 on both of their
-routes: one 8-CTA cluster per stream with the weights in shared memory, and
-one block per stream reading them from L2), times each pair in turns, old
-and new, beside an empty launch, sweeps the cluster sizes, checks the
+cluster kernel, with int16 and int32 counts; K4 and K5 on their three
+routes: one 8-CTA cluster per stream with the weights in shared memory, one
+cooperative grid of H/8 CTAs for all streams with each CTA's gate columns
+in its shared memory, and one block per stream reading them from L2), times
+each pair in turns, old and new, beside an empty launch, sweeps the cluster
+sizes, traps a stalled grid barrier in a child process, checks the
 port's repaired faults (precision under PyTorch's default flags, an
 eval-mode forward under autograd, more events per window than K2's and
 K3's caps through their entry points and ``scale_counts``' cluster kernels,
@@ -63,16 +65,18 @@ just before it and read just after:
   68x148 decoder output, 768 features) and B (the same D(theta) with
   ``ConvNet_w_VelPred`` and a 1-layer LSTM of hidden 768) built through
   ``registry.build_model``, D(theta) from ``policy_best.pth``, the heads
-  from a seed; K4 and K5 on the L2 route at H = 768, L = 1 against their
-  plain versions and timed beside cuDNN's LSTM; B through
-  ``StreamingPipeline.step_events`` in both modes (graph against eager, then
-  against the plain path) and ``BatchedStreamingPipeline`` with 16 streams;
+  from a seed; K4 and K5 on the grid route at H = 768, L = 1 (and on the
+  L2 route of before) against their plain versions and timed in turns
+  beside cuDNN's LSTM; B through ``StreamingPipeline.step_events`` in both
+  modes (graph against eager, then against the plain path, then its step
+  timed on the grid and the forced L2 route in turns) and
+  ``BatchedStreamingPipeline`` with 16 streams;
   ``Learner(cfg).train_loop()`` for 2 epochs on A (no kernel launches; the
   BatchNorm counters count the steps; the checkpoint carries the running
   stats and reloads bit for bit), A's step on a padded chunk on the card
   against the CPU in f64 under the training bounds and in f32 under those
   of its loss, terms, gradient norm and BatchNorm state, and B's validation
-  through K4 against the plain loop.
+  through K4's grid route against the plain loop.
 
 It then times a streaming step and the G-stream rates, each as graphs and
 eagerly in turns, in the manner of ``tools/torch_latency_bench.py``, and
@@ -123,12 +127,19 @@ from evfly_tpu_torch.ops.lstm_fused import (
     lstm_stacked,
     lstm_stacked_cluster,
     lstm_stacked_cluster_plain,
+    lstm_stacked_grid,
+    lstm_stacked_grid_plain,
     lstm_stacked_plain,
     lstm_wavefront,
     lstm_wavefront_cluster,
     lstm_wavefront_cluster_plain,
+    lstm_wavefront_grid,
+    lstm_wavefront_grid_plain,
     lstm_wavefront_plain,
+    grid_fits,
+    grid_occupancy,
     pack,
+    pack_grid,
 )
 from evfly_tpu_torch.ops.voxelizer import (
     K1_CLUSTER,
@@ -199,6 +210,12 @@ MANY_WINDOWS, FEW_EVENTS, SMALL_H, SMALL_W = 70_000, 16, 64, 86  # past grid.y's
 LSTM_CHECKS = ((1, N_WINDOWS), (1, 2), (1, 1), (16, N_WINDOWS), (16, 2), (16, 1))
 LSTM_TIMED = ((1, N_WINDOWS), (1, 1), (16, 1), (64, 1))
 TURNS = ("l2", "cluster", "cluster", "l2")  # old, new, new, old
+# the same at the serving LSTM's shape for the kernels alone, with the grid
+# route forced there
+KERNEL_TURNS = ("l2", "cluster", "grid", "grid", "cluster", "l2")
+# (G, T) of the grid route at H = 256, L = 3 (which it took from the L2
+# route), timed in turns with L2
+GRID_256_TIMED = ((1, 1), (1, 16))
 GRAPH_TURNS = (False, True, True, False)     # eager, graph, graph, eager
 STREAM_WINDOWS, STREAMS = 8, 16         # streaming steps; batched streams
 HIL_SECONDS = 2.0                       # 30 ticks of the deployment loop at 15 Hz
@@ -238,9 +255,10 @@ CONFIG_B = dict(model_type=["OrigUNet", "ConvNet_w_VelPred"], velpred=0, num_rec
                 num_outputs=1)
 HEADS_SEED, HEAD_H = 23, 768
 # (G, T) of the head LSTM's checks (streaming: T = 1 at G = 1 and 16;
-# validation: a 16-frame chunk) and of its timings
-HEAD_LSTM_CHECKS = ((1, 16), (1, 1), (16, 1), (16, 16))
-HEAD_LSTM_TIMED = ((1, 1), (16, 1), (1, 16))
+# validation: a 16-frame chunk; the grid kernel's staged chunks of 8
+# streams: a partial one at G = 3, eight at G = 64) and of its timings
+HEAD_LSTM_CHECKS = ((1, 16), (1, 1), (16, 1), (16, 16), (3, 2), (64, 2))
+HEAD_LSTM_TIMED = ((1, 1), (16, 1), (1, 16), (64, 1))
 # the card's train step against the port's on the CPU (same params and
 # chunk, no augmentation or dropout): loss, terms and gradient norm within
 # TRAIN_RTOL relative; each gradient within TRAIN_GRAD_TOL x the largest
@@ -379,7 +397,7 @@ def phase_device():
 
 def _kernel_label(mangled: str) -> str:
     """A readable name for a mangled kernel name of ptxas's log."""
-    name = next((n for n in ("lstm_cluster_kernel", "lstm_stacked_kernel",
+    name = next((n for n in ("lstm_cluster_kernel", "lstm_grid_kernel", "lstm_stacked_kernel",
                              "lstm_wavefront_kernel", "hist_scaled_cluster_kernel",
                              "hist_frame_cluster_kernel", "hist_frame_kernel",
                              "scale_counts_cluster_kernel", "empty_kernel")
@@ -387,6 +405,8 @@ def _kernel_label(mangled: str) -> str:
     m = re.search(r"ILi(\d+)ELb([01])E", mangled)
     if m:
         name += f"<H={m.group(1)}, {'wavefront' if m.group(2) == '1' else 'stacked'}>"
+    elif (m := re.search(r"lstm_grid_kernelILb([01])E", mangled)):
+        name += "<wavefront>" if m.group(1) == "1" else "<stacked>"
     elif (m := re.search(r"scale_counts_cluster_kernelILb([01])E", mangled)):
         name += "<resize>" if m.group(1) == "1" else "<frame>"
     elif (m := re.search(r"hist_scaled_cluster_kernelILb([01])ELb([01])E", mangled)):
@@ -671,13 +691,15 @@ LSTM_ROUTES = {
     ("wavefront", "cluster"): ("K5 cluster", lstm_wavefront_cluster,
                                lstm_wavefront_cluster_plain),
     ("wavefront", "l2"): ("K5 L2", lstm_wavefront, lstm_wavefront_plain),
+    ("stacked", "grid"): ("K4 grid", lstm_stacked_grid, lstm_stacked_grid_plain),
+    ("wavefront", "grid"): ("K5 grid", lstm_wavefront_grid, lstm_wavefront_grid_plain),
 }
 
 
 def _route_weights(packed, route):
     """A route's weight arguments from ``lstm_fused.pack``'s result."""
-    if route == "cluster":
-        return packed.cluster, packed.bias
+    if route in ("cluster", "grid"):
+        return getattr(packed, route), packed.bias
     return packed.whh_t, packed.wih_t, packed.bias
 
 
@@ -709,7 +731,9 @@ def forced_route(route):
 
 def _lstm_problem(dev, seed, G, T, hidden=HID, layers=L, inputs=IN):
     """cuDNN's LSTM (the yardstick only) and, from its weights, the kernels'
-    packed layouts, layer-0 gates (G, T, 4H) and a carried state (G, L, H)."""
+    packed layouts (the grid layout wherever the grid kernel takes the
+    shape, for forcing it), layer-0 gates (G, T, 4H) and a carried state
+    (G, L, H)."""
     gen = torch.Generator().manual_seed(seed)
     b = 1.0 / hidden ** 0.5
     lstm = torch.nn.LSTM(inputs, hidden, layers)
@@ -723,7 +747,10 @@ def _lstm_problem(dev, seed, G, T, hidden=HID, layers=L, inputs=IN):
     c0 = (torch.randn(G, layers, hidden, generator=gen) * 0.5).to(dev)
     with torch.no_grad():
         xp0 = x @ params["weight_ih_l0"].T + params["bias_ih_l0"] + params["bias_hh_l0"]
-    return lstm, x, xp0, pack(params, layers, hidden), h0, c0
+    packed = pack(params, layers, hidden)
+    if packed.grid is None and grid_fits(hidden, layers):
+        packed = packed._replace(grid=pack_grid(packed.whh_t, packed.wih_t, hidden, layers))
+    return lstm, x, xp0, packed, h0, c0
 
 
 def _check_lstm(name, kernel, plain, xp0, weights, h0, c0):
@@ -743,10 +770,45 @@ def _check_lstm(name, kernel, plain, xp0, weights, h0, c0):
     return max(errs)
 
 
+_STALLED_BARRIER = """
+import sys, torch
+sys.path.insert(0, {repo!r})
+from evfly_tpu_torch.ops import _build
+H, L, G, T = 768, 1, 1, 2
+dev = torch.device("cuda")
+z = lambda *s: torch.zeros(*s, device=dev)
+wgr, xp0, h0 = z(H // 8, 1, 32 * H), z(G, T, 4 * H), z(G, L, H)
+out, hn, cn, hx = z(G, T, H), z(G, L, H), z(G, L, H), z(2, G, L, H)
+# the barrier's count starts 2**31 behind the arrivals it waits for
+arrivals = torch.tensor([-2**31], dtype=torch.int32, device=dev)
+status = _build.library().evfly_lstm_grid(
+    xp0.data_ptr(), wgr.data_ptr(), 0, h0.data_ptr(), h0.data_ptr(), out.data_ptr(),
+    hn.data_ptr(), cn.data_ptr(), hx.data_ptr(), arrivals.data_ptr(), G, T, H, L, 0,
+    torch.cuda.current_stream().cuda_stream)
+print("launch status", status, flush=True)
+torch.cuda.synchronize()
+print("NO TRAP", flush=True)
+"""
+
+
+def stalled_barrier_run(timeout: float = 120.0):
+    """The grid kernel (K4, H = 768, T = 2: one barrier) launched in a child
+    process with a barrier that never opens: (exit code, output, seconds).
+    Its spin-wait must end in __trap(), which the child's synchronize
+    reports; the trap leaves that process's CUDA context unusable, hence the
+    child.  The library is built first, here."""
+    _build.library()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _STALLED_BARRIER.format(repo=REPO)],
+                          capture_output=True, text=True, timeout=timeout)
+    return proc.returncode, proc.stdout + proc.stderr, time.perf_counter() - t0
+
+
 def phase_lstm_routes(dev):
-    """K4 and K5 on both routes against their plain versions, at the
+    """K4 and K5 on their three routes against their plain versions, at the
     serving length, the wavefront's short corners and 16 streams; the route
-    each other shape takes; how many clusters fit the card."""
+    each other shape takes, the Python rules against the library's; how many
+    clusters and grid CTAs fit the card."""
     errs = dict.fromkeys(LSTM_ROUTES, 0.0)
     with torch.no_grad():
         for G, T_ in LSTM_CHECKS:
@@ -762,8 +824,8 @@ def phase_lstm_routes(dev):
                 log(f"K4 cluster vs torch.nn.LSTM (yardstick only): max|diff| "
                     f"{(lib_out - k4_out).abs().max().item():.3e}")
         # the routes of the other shapes: H = 256 fits the cluster with one
-        # layer; with three it takes the L2 route
-        for hidden, layers, route in ((256, 1, "cluster"), (256, 3, "l2")):
+        # layer, the grid with three; with four it takes the L2 route
+        for hidden, layers, route in ((256, 1, "cluster"), (256, 3, "grid"), (256, 4, "l2")):
             require(choose_route(hidden, layers) == route, f"route of H={hidden} L={layers}")
             _, _, xp0, packed, h0, c0 = _lstm_problem(dev, 30 + layers, 3, 5, hidden, layers)
             for mode in ("stacked", "wavefront"):
@@ -771,14 +833,32 @@ def phase_lstm_routes(dev):
                 err = _check_lstm(name, kernel, plain, xp0, _route_weights(packed, route),
                                   h0, c0)
                 errs[(mode, route)] = max(errs[(mode, route)], err)
-    # the route rule of lstm_fused against the library's own (csrc/lstm.cu)
-    shapes = [(h, l) for h in (64, 128, 192, 256, 384, 512) for l in (1, 2, 3, 4)]
+    # the route rules of lstm_fused against the library's own (csrc/lstm.cu)
+    lib = _build.library()
+    shapes = [(h, l) for h in (64, 128, 192, 256, 384, 512, 640, 768, 1024, 1152)
+              for l in range(1, 9)]
+    routes = ("l2", "cluster", "grid")
     differ = [s for s in shapes
-              if cluster_fits(*s) != bool(_build.library().evfly_lstm_cluster_fits(*s))]
-    log(f"cluster route rule: Python and csrc/lstm.cu agree on {len(shapes) - len(differ)} "
+              if cluster_fits(*s) != bool(lib.evfly_lstm_cluster_fits(*s))
+              or grid_fits(*s) != bool(lib.evfly_lstm_grid_fits(*s))
+              or choose_route(*s) != routes[lib.evfly_lstm_route(*s)]]
+    log(f"route rules: Python and csrc/lstm.cu agree on {len(shapes) - len(differ)} "
         f"of {len(shapes)} (H, L) shapes; cluster route: "
-        f"{[s for s in shapes if cluster_fits(*s)]}")
-    require(not differ, f"cluster_fits disagrees with csrc/lstm.cu at {differ}")
+        f"{[s for s in shapes if choose_route(*s) == 'cluster']}; grid route: "
+        f"{[s for s in shapes if choose_route(*s) == 'grid']}")
+    require(not differ, f"the route rules disagree with csrc/lstm.cu at {differ}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for hidden, layers in ((HID, L), (256, 3), (HEAD_H, 1)):
+        for mode in ("stacked", "wavefront"):
+            per_sm = grid_occupancy(hidden, layers, mode)
+            log(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor, grid {mode} H={hidden} "
+                f"L={layers}: {per_sm} CTAs per SM x {sms} SMs for {hidden // 8} CTAs")
+            require(per_sm * sms >= hidden // 8, f"the {mode} grid at H={hidden} is not resident")
+    rc, text, secs = stalled_barrier_run()
+    log(f"grid kernel with a barrier that never opens, in a child process: exit code {rc} "
+        f"after {secs:.1f}s; its last words: {text.strip().splitlines()[-1][:160]!r}")
+    require(rc != 0 and "launch status 0" in text and "NO TRAP" not in text,
+            "a stalled grid barrier did not trap")
     for hidden, layers in ((HID, L), (256, 1)):
         for mode in ("stacked", "wavefront"):
             clusters = cluster_occupancy(hidden, layers, mode)
@@ -788,42 +868,63 @@ def phase_lstm_routes(dev):
     return errs
 
 
+def _lstm_times(dev, flush, seed, G, T_, hidden, layers, inputs, order, plain_routes=()):
+    """K4 and K5 at (G, T, H, L) on the routes of ``order`` (e.g. old, new,
+    new, old) timed in its turns, beside cuDNN's LSTM, the bound and the
+    plain versions of ``plain_routes``: mode -> {route: mean ms, "turns":
+    {route: [ms, ...]}, "library_ms", "bound_ms", "bound_by",
+    "plain_<route>"}."""
+    lstm, x, xp0, packed, h0, c0 = _lstm_problem(dev, seed, G, T_, hidden, layers, inputs)
+    # cuDNN's LSTM takes (T, G, in) with (L, G, H) states
+    xs, hs, cs = (t.transpose(0, 1).contiguous() for t in (x, h0, c0))
+    library_ms = time_ms(lambda: lstm(xs, (hs, cs)), flush, 10)
+    # each input read once (the weights in the L2 layout), each output written once
+    n_bytes = sum(t.numel() * 4 for t in (xp0, packed.whh_t, packed.wih_t, packed.bias, h0,
+                                           c0)) + (G * T_ * hidden + 2 * G * layers * hidden) * 4
+    n_flops = 2 * G * T_ * hidden * 4 * hidden * (2 * layers - 1)
+    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    times = {}
+    for mode in ("stacked", "wavefront"):
+        turns = {route: [] for route in order}
+        for route in order:
+            _, kernel, _ = LSTM_ROUTES[(mode, route)]
+            w = _route_weights(packed, route)
+            turns[route].append(time_ms(lambda: kernel(xp0, *w, h0, c0), flush, 10))
+        entry = dict(library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, turns=turns,
+                     **{r: statistics.mean(v) for r, v in turns.items()})
+        for route in plain_routes:
+            _, _, plain = LSTM_ROUTES[(mode, route)]
+            w = _route_weights(packed, route)
+            entry[f"plain_{route}"] = time_ms(lambda: plain(xp0, *w, h0, c0), flush,
+                                              3 if T_ > 1 else 10, warmup=1)
+        times[mode] = entry
+        log(f"{'K4' if mode == 'stacked' else 'K5'} times H={hidden} L={layers} G={G} T={T_}, "
+            f"in turns {', '.join(order)}: "
+            + "; ".join(f"{r} " + " / ".join(f"{v:.4f}" for v in turns[r]) + " ms"
+                        for r in dict.fromkeys(order))
+            + f"; torch.nn.LSTM {library_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by}, {n_bytes} "
+            f"bytes)" + "".join(f"; plain ({r}) {entry[f'plain_{r}']:.4f} ms"
+                                for r in plain_routes))
+    return times
+
+
 def phase_lstm_times(dev, flush):
-    """Both routes of K4 and K5 timed in turns (L2, cluster, cluster, L2)
-    at each shape of LSTM_TIMED, beside cuDNN's LSTM and the bound; the
-    plain versions at the shapes of the kernels' JSON entries."""
+    """K4 and K5 timed in turns (L2, cluster, grid, grid, cluster, L2) at
+    the serving LSTM's shape (H = 128, L = 3: the grid route forced there)
+    at each (G, T) of LSTM_TIMED, and at H = 256, L = 3 (L2, grid, grid,
+    L2) at GRID_256_TIMED, beside cuDNN's LSTM and the bound; the plain
+    versions at the shapes of the kernels' JSON entries."""
     times = {}
     with torch.no_grad():
         for G, T_ in LSTM_TIMED:
-            lstm, x, xp0, packed, h0, c0 = _lstm_problem(dev, 40 + G + T_, G, T_)
-            # cuDNN's LSTM takes (T, G, in) with (L, G, H) states
-            xs, hs, cs = (t.transpose(0, 1).contiguous() for t in (x, h0, c0))
-            library_ms = time_ms(lambda: lstm(xs, (hs, cs)), flush, 10)
-            n_bytes = sum(t.numel() * 4 for t in (xp0, packed.whh_t, packed.wih_t, packed.bias,
-                                                   h0, c0)) + (G * T_ * HID + 2 * G * L * HID) * 4
-            n_flops = 2 * G * T_ * HID * 4 * HID * (2 * L - 1)
-            b_ms, b_by = bound_ms(n_bytes, n_flops)
-            for mode in ("stacked", "wavefront"):
-                turns = {"l2": [], "cluster": []}
-                for route in TURNS:
-                    _, kernel, _ = LSTM_ROUTES[(mode, route)]
-                    w = _route_weights(packed, route)
-                    turns[route].append(time_ms(lambda: kernel(xp0, *w, h0, c0), flush, 10))
-                entry = dict(library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-                             **{r: statistics.mean(v) for r, v in turns.items()})
-                if (mode, G, T_) in (("stacked", 1, N_WINDOWS), ("wavefront", 1, 1)):
-                    for route in ("l2", "cluster"):
-                        _, _, plain = LSTM_ROUTES[(mode, route)]
-                        w = _route_weights(packed, route)
-                        entry[f"plain_{route}"] = time_ms(lambda: plain(xp0, *w, h0, c0), flush,
-                                                          3 if T_ > 1 else 10, warmup=1)
-                times[(mode, G, T_)] = entry
-                log(f"{'K4' if mode == 'stacked' else 'K5'} times G={G} T={T_}, in turns L2, "
-                    f"cluster, cluster, L2: L2 {turns['l2'][0]:.4f} / {turns['l2'][1]:.4f} ms, "
-                    f"cluster {turns['cluster'][0]:.4f} / {turns['cluster'][1]:.4f} ms; "
-                    f"torch.nn.LSTM {library_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by})"
-                    + "".join(f"; plain ({r}) {entry[f'plain_{r}']:.4f} ms"
-                              for r in ("l2", "cluster") if f"plain_{r}" in entry))
+            entry_shape = (G, T_) in ((1, N_WINDOWS), (1, 1))
+            by_mode = _lstm_times(dev, flush, 40 + G + T_, G, T_, HID, L, IN, KERNEL_TURNS,
+                                  ("l2", "cluster") if entry_shape else ())
+            times.update({(mode, G, T_): t for mode, t in by_mode.items()})
+        for G, T_ in GRID_256_TIMED:
+            by_mode = _lstm_times(dev, flush, 50 + G + T_, G, T_, 256, 3, 256,
+                                  ("l2", "grid", "grid", "l2"), ("grid",))
+            times.update({(mode, G, T_, 256): t for mode, t in by_mode.items()})
     return times
 
 
@@ -967,13 +1068,16 @@ def state_errs(hidden, ref):
 
 def phase_streaming(dev, model):
     """StreamingPipeline.step_events over STREAM_WINDOWS windows, state
-    carried, in each LSTM mode, route and percentile mode, against the plain
-    path (plain K1, set_fused_lstm(False)) on the same model."""
+    carried, in each LSTM mode, its route (cluster) and the L2 route forced,
+    and each percentile mode, against the plain path (plain K1,
+    set_fused_lstm(False)) on the same model."""
     windows = stream_windows(dev, STREAM_WINDOWS)
     launches = {}
     lstm = model.vitfly_vitlstm.lstm
-    kernels = (lstm_stacked, lstm_wavefront, lstm_stacked_cluster, lstm_wavefront_cluster)
+    kernels = LSTM_KERNELS
     for (mode, route), (key, kernel, _) in LSTM_ROUTES.items():
+        if route == "grid":  # the joint model's (128, 3) packs no grid layout
+            continue
         for fast in (False, True):
             lstm.mode = mode
             pipe = StreamingPipeline(model, fast_percentile=fast, device=dev)
@@ -1616,19 +1720,20 @@ def synthetic_trajectories(seed: int = 11):
     return trajs
 
 
-LSTM_KERNELS = (lstm_stacked, lstm_wavefront, lstm_stacked_cluster, lstm_wavefront_cluster)
+LSTM_KERNELS = tuple(kernel for _, kernel, _ in LSTM_ROUTES.values())
 # every kernel wrapper, by the names of the kernels' JSON entries
 KERNELS = {"K1 cluster": hist_frame_cluster, "K1 band": hist_frame, "K2": hist_scaled,
            "K3": hist_scaled_resized, "scale_counts": scale_counts,
            "scale_counts_resized": scale_counts_resized, "K4 L2": lstm_stacked,
            "K5 L2": lstm_wavefront, "K4 cluster": lstm_stacked_cluster,
-           "K5 cluster": lstm_wavefront_cluster}
+           "K5 cluster": lstm_wavefront_cluster, "K4 grid": lstm_stacked_grid,
+           "K5 grid": lstm_wavefront_grid}
 
 
 def _recording_run_model(learner, records):
     """Wrap learner.run_model: each trajectory's mode, whether it trained,
     loss, terms, frames, synchronized seconds and the launches of each LSTM
-    kernel (K4/K5, both routes) during it."""
+    kernel (K4/K5, every route) during it."""
     inner = learner.run_model
 
     def run_model(it, starts, lengths, ids, mode, *args, **kwargs):
@@ -1820,7 +1925,7 @@ def _training(dev, smi, root):
     n_train, n_val = learner.num_training_steps, learner.num_val_steps
     chunks = lambda rs: sum(-(-r["frames"] // cfg.batch_size) for r in rs)
     k4_train = [sum(r["launches"]) for r in trained]
-    k4_val = sum(r["launches"][2] for r in validated)  # lstm_stacked_cluster
+    k4_val = sum(r["launches"][LSTM_KERNELS.index(lstm_stacked_cluster)] for r in validated)
     log(f"train_loop: {len(trained)} trajectories trained ({chunks(trained)} chunks), "
         f"{len(validated)} validated ({chunks(validated)} chunks) in {loop_s:.1f}s; LSTM "
         f"kernel launches (K4 L2, K5 L2, K4 cluster, K5 cluster): train "
@@ -1959,43 +2064,36 @@ def heads_model(dev, cfg: EvflyConfig):
     return model.eval()
 
 
-# the head LSTM's route in each mode: (label, kernel wrapper, plain version)
-HEAD_ROUTES = {mode: LSTM_ROUTES[(mode, "l2")] for mode in ("stacked", "wavefront")}
+# the head LSTM's route in each mode (the grid route by shape; the L2 route
+# of before, forced, for comparing): (label, kernel wrapper, plain version)
+HEAD_ROUTES = {mode: LSTM_ROUTES[(mode, "grid")] for mode in ("stacked", "wavefront")}
+HEAD_L2_ROUTES = {mode: LSTM_ROUTES[(mode, "l2")] for mode in ("stacked", "wavefront")}
 
 
 def phase_head_lstm(dev, flush):
-    """K4 and K5 on the L2 route at the head LSTM's shape (H = 768, L = 1:
-    empty layer-1 weights) against their plain versions at HEAD_LSTM_CHECKS,
-    zero and carried state; then timed at HEAD_LSTM_TIMED beside cuDNN's
-    LSTM(768, 768, 1) and the bound, L2 flushed."""
-    require(choose_route(HEAD_H, 1) == "l2", "the head's LSTM does not take the L2 route")
+    """K4 and K5 on the grid route at the head LSTM's shape (H = 768, L = 1:
+    empty layer-1 weights), and on the L2 route of before, against their
+    plain versions at HEAD_LSTM_CHECKS, zero and carried state; then timed
+    in turns (L2, grid, grid, L2) at HEAD_LSTM_TIMED beside cuDNN's
+    LSTM(768, 768, 1), the plain versions and the bound, L2 flushed.
+    Returns the errors by (mode, route) and the times by (mode, G, T)."""
+    require(choose_route(HEAD_H, 1) == "grid", "the head's LSTM does not take the grid route")
     errs, times = {}, {}
     with torch.no_grad():
         for G, T_ in HEAD_LSTM_CHECKS:
             _, _, xp0, packed, h0, c0 = _lstm_problem(dev, 60 + G + T_, G, T_, HEAD_H, 1, HEAD_H)
-            require(packed.wih_t.shape == (HEAD_H, 0) and packed.bias.shape == (0,),
-                    "L = 1 packs empty layer-1 weights")
-            for mode, (name, kernel, plain) in HEAD_ROUTES.items():
+            require(packed.wih_t.shape == (HEAD_H, 0) and packed.bias.shape == (0,)
+                    and packed.grid is not None, "L = 1 packs empty layer-1 weights and the grid")
+            for (mode, route), (name, kernel, plain) in LSTM_ROUTES.items():
+                if route == "cluster":
+                    continue
                 err = _check_lstm(f"{name} H={HEAD_H}", kernel, plain, xp0,
-                                  _route_weights(packed, "l2"), h0, c0)
-                errs[mode] = max(errs.get(mode, 0.0), err)
+                                  _route_weights(packed, route), h0, c0)
+                errs[(mode, route)] = max(errs.get((mode, route), 0.0), err)
         for G, T_ in HEAD_LSTM_TIMED:
-            lstm, x, xp0, packed, h0, c0 = _lstm_problem(dev, 70 + G + T_, G, T_, HEAD_H, 1,
-                                                         HEAD_H)
-            xs, hs, cs = (t.transpose(0, 1).contiguous() for t in (x, h0, c0))
-            library_ms = time_ms(lambda: lstm(xs, (hs, cs)), flush, 10)
-            w = _route_weights(packed, "l2")
-            n_bytes = sum(t.numel() * 4 for t in (xp0, *w, h0, c0)) + (
-                G * T_ * HEAD_H + 2 * G * HEAD_H) * 4
-            b_ms, b_by = bound_ms(n_bytes, 2 * G * T_ * HEAD_H * 4 * HEAD_H)
-            for mode, (name, kernel, plain) in HEAD_ROUTES.items():
-                t = dict(ms=time_ms(lambda: kernel(xp0, *w, h0, c0), flush, 10),
-                         plain_ms=time_ms(lambda: plain(xp0, *w, h0, c0), flush, 5, warmup=1),
-                         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
-                times[(mode, G, T_)] = t
-                log(f"{name} H={HEAD_H} L=1 G={G} T={T_}: {t['ms']:.4f} ms, plain "
-                    f"{t['plain_ms']:.4f} ms, torch.nn.LSTM({HEAD_H}, {HEAD_H}, 1) "
-                    f"{library_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}, {n_bytes} bytes)")
+            by_mode = _lstm_times(dev, flush, 70 + G + T_, G, T_, HEAD_H, 1, HEAD_H,
+                                  ("l2", "grid", "grid", "l2"), ("grid", "l2"))
+            times.update({(mode, G, T_): t for mode, t in by_mode.items()})
     return errs, times
 
 
@@ -2003,13 +2101,17 @@ def phase_heads_streaming(dev, model_b):
     """Configuration B through StreamingPipeline.step_events over
     STREAM_WINDOWS windows in both LSTM modes, the graph step against the
     eager one, and after them one more step against the plain path (K1's
-    plain version, set_fused_lstm(False)); then BatchedStreamingPipeline
-    with STREAMS streams over 4 steps, streams reset before the third,
-    graph against eager.  Every kernel's launches over each run, and the
-    graph step's ms per step in each mode (``_streaming_ms``)."""
+    plain version, set_fused_lstm(False)); the graph step's ms per step
+    (``_streaming_ms``) with the head LSTM on its grid route and forced onto
+    the L2 route, in turns (L2, grid, grid, L2), and a profile of graph
+    replays that names the grid kernel; then BatchedStreamingPipeline with
+    STREAMS streams over 4 steps, streams reset before the third, graph
+    against eager.  Every kernel's launches over each run (the L2 route's
+    over its forced timed runs)."""
     windows = stream_windows(dev, STREAM_WINDOWS)
     lstm = model_b.convnet_w_velpred.lstm
     require(lstm.hidden_size == HEAD_H and lstm.num_layers == 1, "the head LSTM's shape")
+    lstm_names = [LSTM_ROUTES[key][0] for key in LSTM_ROUTES]
     launches, stream_ms = {}, {}
     set_fused_lstm(True)
     for mode, (name, kernel, _) in HEAD_ROUTES.items():
@@ -2027,8 +2129,8 @@ def phase_heads_streaming(dev, model_b):
         log(f"configuration B streaming ({mode}): launches {counts}")
         require(counts["K1 cluster"] > 0 and counts[name] > 0,
                 f"a kernel of configuration B's streaming path ({mode}) never launched")
-        require(sum(counts[n] for n in ("K4 L2", "K5 L2", "K4 cluster", "K5 cluster"))
-                == counts[name], f"configuration B's streaming ({mode}) ran another LSTM kernel")
+        require(sum(counts[n] for n in lstm_names) == counts[name],
+                f"configuration B's streaming ({mode}) ran another LSTM kernel")
         set_fused_lstm(False)
         plain = StreamingPipeline(model_b, device=dev, graph=False)
         for ex, ey, ep in windows + windows[:1]:
@@ -2044,13 +2146,31 @@ def phase_heads_streaming(dev, model_b):
         require(v.shape == (3,) and d.shape == (H, W), "configuration B's shapes")
         require(max(verr, derr, herr, cerr) <= VEL_ATOL,
                 f"configuration B ({mode}) disagrees with the plain path")
+        prof = phase_profile(lambda: g.step_events(*windows[0]), {name: "lstm_grid_kernel"},
+                             f"configuration B graph ({mode})")
+        require(prof is None or prof["by_label"][name] > 0,
+                f"configuration B's replayed graph ({mode}) ran no grid kernel")
         del g, e, plain
         _free_device_memory()
-        chained, samples = _streaming_ms(StreamingPipeline(model_b, device=dev), windows)
-        stream_ms[mode] = (chained, statistics.median(samples))
-        log(f"configuration B streaming step ({mode}, graph): {chained:.3f} ms per step over "
-            f"{CHAINED_STEPS} chained steps; p50 {statistics.median(samples):.3f} ms of "
-            f"{SYNC_STEPS} synchronized")
+        # the graph step on each route, in turns; the L2 kernel's launches
+        # over its forced runs
+        l2_name, l2_kernel, _ = HEAD_L2_ROUTES[mode]
+        l2_kernel.launches = 0
+        ms = {"l2": [], "grid": []}
+        for route in ("l2", "grid", "grid", "l2"):
+            with forced_route(route):
+                chained, samples = _streaming_ms(StreamingPipeline(model_b, device=dev), windows)
+            _free_device_memory()
+            ms[route].append((chained, statistics.median(samples)))
+        launches[f"{mode} forced l2"] = {l2_name: l2_kernel.launches}
+        stream_ms[mode] = {route: statistics.mean(c for c, _ in v) for route, v in ms.items()}
+        log(f"configuration B streaming step ({mode}, graph) in turns L2, grid, grid, L2: ms per "
+            f"step over {CHAINED_STEPS} chained steps " + "; ".join(
+                f"{r} " + " / ".join(f"{c:.3f}" for c, _ in v) for r, v in ms.items())
+            + f"; p50 of {SYNC_STEPS} synchronized " + "; ".join(
+                f"{r} " + " / ".join(f"{p:.3f}" for _, p in v) for r, v in ms.items())
+            + f"; {l2_name} launches over the L2 runs {l2_kernel.launches}")
+        require(l2_kernel.launches > 0, f"the forced L2 route ({mode}) did not run")
     lstm.mode = None
     steps = 4
     frames = sparse_frames(12, (steps, STREAMS, H, W), dev)
@@ -2070,7 +2190,9 @@ def phase_heads_streaming(dev, model_b):
     torch.cuda.synchronize()
     launches["batched"] = {n: k.launches for n, k in KERNELS.items()}
     log(f"configuration B batched G={STREAMS}: launches {launches['batched']}")
-    require(launches["batched"]["K4 L2"] > 0, "the batched heads path did not run K4 L2")
+    require(launches["batched"]["K4 grid"] > 0
+            and sum(launches["batched"][n] for n in lstm_names) == launches["batched"]["K4 grid"],
+            "the batched heads path did not run K4 grid alone")
     return launches, stream_ms
 
 
@@ -2079,7 +2201,7 @@ def phase_heads_training(dev, smi):
     the training phase's synthetic dataset, D(theta) from policy_best.pth
     (a checkpoint of its weights alone, loaded with strict=False), the head
     drawn from the config's seed; configuration B validated on the same data through K4
-    (L2 route, H = 768) against the plain loop.  Data and checkpoints live
+    (grid route, H = 768) against the plain loop.  Data and checkpoints live
     under build/ and are removed after."""
     root = os.path.join(REPO, "build", f"heads_smoke_{os.getpid()}")
     shutil.rmtree(root, ignore_errors=True)
@@ -2201,15 +2323,15 @@ def _heads_training(dev, smi, root):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # configuration B: its validation through K4 on the L2 route at H = 768
+    # configuration B: its validation through K4 on the grid route at H = 768
     cfg_b = heads_config(root, **{**CONFIG_B, "checkpoint_path": [JOINT_CHECKPOINT]})
     learner_b = Learner(cfg_b)
     require(all(torch.equal(learner_b.params["origunet." + k].cpu(), v)
                 for k, v in d_theta_weights().items()), "B's Learner did not load D(theta)")
     val_err, n_fused, n_plain, val_s, val_frames = _validation_vs_plain(
-        learner_b, learner_b.run_model, lstm_stacked)
+        learner_b, learner_b.run_model, lstm_stacked_grid)
     n_chunks = sum(-(-(int(n) - 1) // cfg_b.batch_size) for n in learner_b.val.trajlength)
-    log(f"configuration B validation with K4 L2 at H={HEAD_H} ({n_fused} launches) against "
+    log(f"configuration B validation with K4 grid at H={HEAD_H} ({n_fused} launches) against "
         f"the plain loop ({n_plain}): max |diff| / max(1, |x|) over losses, terms, velocities "
         f"and depths {val_err:.3e}")
     require(n_fused == n_chunks and n_plain == 0, "configuration B's validation K4 launches")
@@ -2276,7 +2398,7 @@ def main() -> int:
         k2 = phase_k2(dev, flush)
     with Phase("K3 vs plain"):
         k3 = phase_k3(dev, flush)
-    with Phase("K4 and K5 on both routes vs plain"):
+    with Phase("K4 and K5 on their three routes vs plain"):
         lstm_errs = phase_lstm_routes(dev)
     with Phase("K4 and K5 times, routes in turns"):
         lstm_times = phase_lstm_times(dev, flush)
@@ -2365,17 +2487,26 @@ def main() -> int:
         lstm_entry("stacked", "l2", l2_launches["K4 L2"]),
         lstm_entry("wavefront", "l2", stream_launches["K5 L2"]),
     ]
-    # the head LSTM of configuration B (H = 768, L = 1) on the L2 route,
-    # timed at its streaming step's shape (one stream, T = 1); launches over
-    # B's streaming run in the kernel's mode, and B's validation for K4
-    for mode, (label, kernel, _) in HEAD_ROUTES.items():
-        kernels.append(dict(
-            name=f"{kernel.__name__} ({label}, H={HEAD_H} L=1: the velocity head's LSTM)",
-            route="cuda", source=lstm_src,
-            replaces="evfly_tpu/ops/lstm_pallas.py:" + ("111" if mode == "stacked" else "203"),
-            launches=head_stream[mode][label], training_launches=head_train[label],
-            validation_launches=head_val if mode == "stacked" else 0,
-            max_abs_err=head_errs[mode], **head_times[(mode, 1, 1)]))
+    # the head LSTM of configuration B (H = 768, L = 1) on the grid route
+    # and on the L2 route of before, timed at its streaming step's shape
+    # (one stream, T = 1); launches over B's streaming run in the kernel's
+    # mode (the L2 route's over its forced timed runs), B's batched run and
+    # B's validation
+    for route in ("grid", "l2"):
+        for mode in ("stacked", "wavefront"):
+            label, kernel, _ = LSTM_ROUTES[(mode, route)]
+            t = head_times[(mode, 1, 1)]
+            run = mode if route == "grid" else f"{mode} forced l2"
+            kernels.append(dict(
+                name=f"{kernel.__name__} ({label}, H={HEAD_H} L=1: the velocity head's LSTM"
+                     + (", forced)" if route == "l2" else ")"),
+                route="cuda", source=lstm_src,
+                replaces="evfly_tpu/ops/lstm_pallas.py:" + ("111" if mode == "stacked" else "203"),
+                launches=head_stream[run][label], batched_launches=head_stream["batched"][label],
+                training_launches=head_train[label],
+                validation_launches=head_val if (mode, route) == ("stacked", "grid") else 0,
+                max_abs_err=head_errs[(mode, route)], ms=t[route], plain_ms=t[f"plain_{route}"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"]))
     streaming = "; ".join(
         f"{mode} {route} {'graph' if graph else 'eager'} "
         + ", ".join(f"{c:.3f}" for c, _ in numbers[(mode, route, graph)])
@@ -2387,8 +2518,10 @@ def main() -> int:
         + ", ".join(f"G={G} {'graph' if graph else 'eager'} "
                     + ", ".join(f"{r:.1f}" for r in numbers[(G, graph)])
                     for G in RATE_STREAMS for graph in (True, False))
-        + f"; training {train_numbers}; velocity heads {head_numbers}, head LSTM ms "
-        + ", ".join(f"{m} G={G} T={T_} {t['ms']:.4f}" for (m, G, T_), t in head_times.items()))
+        + f"; training {train_numbers}; velocity heads {head_numbers}, head LSTM ms (grid / "
+        f"L2 / cuDNN) " + ", ".join(f"{m} G={G} T={T_} {t['grid']:.4f} / {t['l2']:.4f} / "
+                                    f"{t['library_ms']:.4f}"
+                                    for (m, G, T_), t in head_times.items()))
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -26,8 +26,11 @@
 // What bounds them on the H100: neither bytes nor operations but the serial
 // chain of dependent matrix-vector products.  Their bound by operations
 // (2 T H 4H (2L - 1) flops per stream) is a few microseconds; the chain is
-// T * L (K4) or T + L - 1 (K5) links long.  Each of the two routes below
-// does something else about the cost of one link.
+// T * L (K4) or T + L - 1 (K5) links long.  Each of the three routes below
+// does something else about the cost of one link.  Which shape takes which
+// route is one rule, `choose_route` below (ops/lstm_fused.choose_route
+// states it again for the CPU): the cluster route where its 8 SMs hold the
+// weights, else the grid route where up to 132 SMs hold them, else L2.
 //
 // The cluster route (lstm_cluster_kernel, every shape whose weights fit the
 // shared memory of 8 SMs: H = 128 with L <= 3, H = 256 with L = 1): one
@@ -45,8 +48,56 @@
 // barriers for K4, T + L - 1 for K5; that chain of barriers is the
 // practical floor of this route.
 //
+// The grid route (lstm_grid_kernel, the shapes past a cluster whose
+// weights fit up to 132 SMs: H = 768 with L = 1, the velocity head's LSTM;
+// H = 256 with L = 2 or 3; H = 128 with L = 4 to 7): one grid of H/8 (at
+// most 132) CTAs for all streams, the weights stationary across it.  CTA b
+// owns hidden units [8b, 8b + 8) of every layer and their four gate columns
+// in each of the 2L - 1 blocks (32 H floats a block, 96 KiB at H = 768),
+// loaded once per launch by bulk async copies, so W_hh is read once by H/8
+// SMs in parallel instead of once per link by one.  Warp u of the CTA owns
+// unit 8b + u; lane q sums k = i*32 + q over i < H/32.  One link, per layer
+// it advances and per chunk of up to 8 streams: stage the chunk's full h of
+// the previous link (global -> shared), form the 4 x 8 gate sums of each
+// unit, reduce them across the warp so that lane 4s + gate holds stream s's
+// gate, gather the four gates by shuffles, update the cell, and write the
+// new h slice into a global exchange buffer double-buffered by time parity;
+// then one grid-wide barrier.  c lives in cn (each element read by its
+// stream's four lanes of one warp and written by one of them), so nothing
+// in shared memory but the staged chunk depends on G, and any number of
+// streams runs in one launch.  Links and barriers:
+// T * L links for K4 and T + L - 1 for K5, one barrier between two links
+// (none at T = L = 1).  What bounds it on the H100: at T = 1 the launch
+// and the first read of the weights (H = 768: 9.4 MB, 0.0028 ms at the HBM
+// rate, over 96 SMs); each further link costs a grid barrier through L2
+// and a round trip to stage h, about 3 us (PERF.md).  What was settled on
+// the card:
+//   1. Co-residency: the launch carries cudaLaunchAttributeCooperative, so
+//      CUDA refuses a grid that cannot be resident at once (the
+//      wrapper raises; nothing falls back to another route), and every
+//      spin-wait (the weights' mbarrier, the grid barrier) gives up after
+//      kSpinLimit polls with __trap(), which the next synchronisation
+//      reports as a launch failure.  chip_smoke.py reads
+//      cudaOccupancyMaxActiveBlocksPerMultiprocessor (evfly_lstm_grid_
+//      occupancy) and traps a stalled barrier in a child process.
+//   2. CUDA graphs: the cooperative launch is captured and replayed (the
+//      streaming step's graph and tests/test_torch_lstm_grid.py); the
+//      barrier counts arrivals up from 0 and the wrapper zeroes the counter
+//      with a fill on the launch stream before each launch, which the graph
+//      captures, so every replay starts at 0.
+//   3. Many streams: h is staged in chunks of kGridStreams streams (16 KiB
+//      a chunk and layer input at H = 768), never whole; G = 16 is two
+//      chunks, G = 64 eight, and the weights stay resident.
+//   4. Memory order of the exchange: each thread's h stores (st.cg) come
+//      before a __syncthreads, after which thread 0 arrives with
+//      red.release.gpu; the wait is ld.acquire.gpu, then __syncthreads, and
+//      h and c are read back with ld.cg (L2, coherent), never __ldg.
+//   5. The reduction order differs from the plain version's (each lane's
+//      partial sums, then a 32-lane tree): within 2e-5, 3e-5 with a carried
+//      state, as the other routes.
+//
 // The L2 route (lstm_stacked_kernel, lstm_wavefront_kernel; every other
-// shape with H % 128 == 0, e.g. H = 256 with L = 3): one block per stream,
+// shape with H % 128 == 0, e.g. H = 768 with L = 2): one block per stream,
 // threads over the gate columns, h and c in shared memory and two
 // __syncthreads() per link.  The weights do not fit one SM; they are read
 // from global memory on every link, where they stay in L2, column-major per
@@ -62,8 +113,12 @@
 //                          blocks W_hh0, W_ih1, W_hh1, W_ih2, ... (ops/
 //                          lstm_fused.pack_cluster), one contiguous block
 //                          per rank                             (cluster route)
+//   wgr   (H/8, 2L - 1, 32H)  the grid layout: CTA b's slices of the same
+//                          blocks (ops/lstm_fused.pack_grid)        (grid route)
 //   bias  ((L-1) * 4H)     b_ih + b_hh of layers 1..L-1
 //   h0, c0, hn, cn (G, L, H); out (G, T, H)
+//   hx    (2, G, L, H)     the grid route's h exchange, by time parity
+//   arrivals (1) uint32    the grid barrier's count, 0 at launch
 //
 // Each C entry point returns cudaGetLastError() after its launch.
 
@@ -305,6 +360,49 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// polls of a spin-wait before it gives up with __trap() (an L2 round trip
+// each, about 2 s in all): a wait that long is a fault, never a slow link
+constexpr long long kSpinLimit = 1LL << 22;
+
+// Thread 0: the mbarrier at `bar` for one arrival, visible to the bulk
+// copies; a __syncthreads() must follow before another thread waits on it
+__device__ __forceinline__ void init_load_barrier(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Thread 0: n bulk async copies of `bytes` each (a multiple of 16), from
+// consecutive blocks of src into consecutive blocks of dst in shared memory,
+// completing on the mbarrier at `bar`
+__device__ __forceinline__ void start_bulk_load(uint32_t bar, float* dst, const float* src,
+                                                uint32_t bytes, int n) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes * n)
+               : "memory");
+  const size_t floats = bytes / sizeof(float);
+  for (int m = 0; m < n; ++m) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];" ::"r"(smem_u32(dst + m * floats)),
+        "l"(reinterpret_cast<uint64_t>(src + m * floats)), "r"(bytes), "r"(bar)
+        : "memory");
+  }
+}
+
+// Every thread: wait until the copies of start_bulk_load have landed
+__device__ __forceinline__ void wait_bulk_load(uint32_t bar) {
+  uint32_t loaded = 0;
+  for (long long spins = 0; !loaded; ++spins) {
+    if (spins > kSpinLimit) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(loaded)
+        : "r"(bar)
+        : "memory");
+  }
+}
+
 // acc[gate] += sum over this thread's k of slice(gate, k) * h[k]
 template <int kH>
 __device__ __forceinline__ void slice_dot(const float* __restrict__ slice,
@@ -367,24 +465,11 @@ lstm_cluster_kernel(const float* __restrict__ xp0, const float* __restrict__ wcl
   // 1. this rank's weight slices: bulk async copies into shared memory,
   //    completing on an mbarrier
   const uint32_t bar = smem_u32(&wbar);
-  if (tid == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
+  if (tid == 0) init_load_barrier(bar);
   __syncthreads();
   if (tid == 0) {
-    const uint32_t bytes = S::kSlice * sizeof(float);
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-                 "r"(bytes * nblocks)
-                 : "memory");
-    const float* src = wcl + static_cast<size_t>(rank) * nblocks * S::kSlice;
-    for (int m = 0; m < nblocks; ++m) {
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-          "[%3];" ::"r"(smem_u32(w + m * S::kSlice)),
-          "l"(reinterpret_cast<uint64_t>(src + m * S::kSlice)), "r"(bytes), "r"(bar)
-          : "memory");
-    }
+    start_bulk_load(bar, w, wcl + static_cast<size_t>(rank) * nblocks * S::kSlice,
+                    S::kSlice * sizeof(float), nblocks);
   }
 
   // 2. the state: the full h0 in both parities, this rank's c0 and biases
@@ -412,15 +497,7 @@ lstm_cluster_kernel(const float* __restrict__ xp0, const float* __restrict__ wcl
 
   // every CTA of the cluster runs and holds its state before h crosses CTAs
   cluster.sync();
-  uint32_t loaded = 0;
-  while (!loaded) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(loaded)
-        : "r"(bar)
-        : "memory");
-  }
+  wait_bulk_load(bar);
 
   // layer l at time t: reads h_{l-1}(t) and h_l(t-1), writes h_l(t)
   auto advance = [&](int l, int t) {
@@ -567,6 +644,324 @@ int occupancy_cluster(int L, int* clusters) {
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ------------------------------------------------------------ grid route
+
+constexpr int kGridUnits = 8;                    // hidden units per CTA, a warp each
+constexpr int kGridThreads = 32 * kGridUnits;
+constexpr int kGridStreams = 8;                  // streams staged at once
+constexpr int kGridMaxCtas = 132;                // the H100's SMs, one CTA each
+
+// floats of one CTA's slice of one weight block: 4 gates x 8 units x H
+__host__ __device__ constexpr size_t grid_slice_floats(int H) {
+  return static_cast<size_t>(4 * kGridUnits) * H;
+}
+
+// One CTA's shared memory: its slices of the 2L - 1 blocks and a chunk of
+// staged h (two layer inputs of kGridStreams streams)
+constexpr size_t grid_smem_bytes(int H, int L) {
+  return ((2 * static_cast<size_t>(L) - 1) * grid_slice_floats(H) +
+          2 * static_cast<size_t>(kGridStreams) * H) * sizeof(float);
+}
+
+// The one rule of which shapes the grid kernel takes: H % 128 == 0 (the
+// wrappers' rule), H/8 CTAs within the card's SMs, and one CTA's share
+// within a block's shared memory.  ops/lstm_fused.grid_fits states it for
+// the CPU; chip_smoke.py holds the two against each other.
+constexpr bool grid_fits(int H, int L) {
+  return H > 0 && H % 128 == 0 && L >= 1 && H / kGridUnits <= kGridMaxCtas &&
+         grid_smem_bytes(H, L) <= kSmemLimit;
+}
+
+// The route of (H, L): 1 cluster, 2 grid, 0 L2 (ops/lstm_fused.choose_route)
+constexpr int choose_route(int H, int L) {
+  return cluster_fits(H, L) ? 1 : grid_fits(H, L) ? 2 : 0;
+}
+
+struct GridArgs {
+  const float* xp0;
+  const float* bias;
+  const float* h0;
+  const float* c0;
+  float* out;
+  float* hn;
+  float* cn;
+  float* hx;
+  int G, T, H, L;
+};
+
+// The sums over a warp's 32 lanes of each lane's 4 NG values v[], from
+// lane bit log2(O) down: at a bit that indexes no value (O >= 4 NG) every
+// value is summed with the partner lane's; at the others each lane keeps
+// the half of its values that its bit selects and adds the partner's copy
+// of that half, so that at the end v[0] of lane j is the sum of value
+// j % (4 NG), in 31 shuffles for NG = 8
+template <int NG, int O>
+__device__ __forceinline__ void warp_reduce(float (&v)[4 * NG], int lane) {
+  if constexpr (O >= 1) {
+    if constexpr (O >= 4 * NG) {
+#pragma unroll
+      for (int j = 0; j < 4 * NG; ++j) v[j] += __shfl_xor_sync(0xffffffffu, v[j], O);
+    } else {
+      const bool upper = lane & O;
+#pragma unroll
+      for (int j = 0; j < O; ++j) {
+        const float send = upper ? v[j] : v[j + O];
+        const float keep = upper ? v[j + O] : v[j];
+        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+    }
+    warp_reduce<NG, O / 2>(v, lane);
+  }
+}
+
+// Warp `warp` (unit col = 8b + warp) advances layer l to time t for streams
+// g0 .. g0 + NG - 1 (those below G): stage their h inputs, sum the unit's
+// four gate columns over them, reduce, update the cells, write h and c.
+// The staged chunk `hs` is shared by the CTA's warps; ends in __syncthreads.
+template <int NG>
+__device__ __forceinline__ void grid_advance(const GridArgs& a, const float* __restrict__ w,
+                                             float* hs, int l, int t, int g0, int col,
+                                             int warp, int lane) {
+  const int H = a.H, L = a.L, G4 = 4 * H, kK = H / 32;
+  const int gc = min(NG, a.G - g0);
+  const int nin = l == 0 ? 1 : 2;  // h_l(t - 1), and h_{l-1}(t) above layer 0
+
+  // lane 4s + gate of the first 4 NG lanes owns stream g0 + s, gate `gate`
+  const int s_own = (lane >> 2) & (NG - 1), gate = lane & 3;
+  const bool owner = lane < 4 * NG && s_own < gc;
+  const int g = g0 + s_own;
+  const size_t state = (static_cast<size_t>(g) * L + l) * H + col;
+  float c_old = 0.f, xin = 0.f;
+  if (owner) {
+    c_old = t == 0 ? a.c0[state] : __ldcg(a.cn + state);
+    xin = l == 0 ? __ldg(a.xp0 + (static_cast<size_t>(g) * a.T + t) * G4 + gate * H + col)
+                 : __ldg(a.bias + (l - 1) * G4 + gate * H + col);
+  }
+
+  // 1. stage the chunk's h inputs (all CTAs wrote them in the last link)
+  const int H4 = H / 4, per_in = gc * H4;
+  for (int i = threadIdx.x; i < nin * per_in; i += kGridThreads) {
+    const int in = i / per_in, s = (i - in * per_in) / H4, k4 = i - in * per_in - s * H4;
+    const float* src;
+    if (in == 0) {
+      src = t == 0 ? a.h0 + (static_cast<size_t>(g0 + s) * L + l) * H
+                   : a.hx + ((static_cast<size_t>((t + 1) & 1) * a.G + g0 + s) * L + l) * H;
+    } else {
+      src = a.hx + ((static_cast<size_t>(t & 1) * a.G + g0 + s) * L + l - 1) * H;
+    }
+    reinterpret_cast<float4*>(hs + (in * kGridStreams + s) * H)[k4] =
+        __ldcg(reinterpret_cast<const float4*>(src) + k4);
+  }
+  __syncthreads();
+
+  // 2. this lane's partial sums of the unit's 4 gates for each stream:
+  //    block 2l (W_hh_l) on h_l(t - 1), block 2l - 1 (W_ih_l) on h_{l-1}(t)
+  float v[4 * NG];
+#pragma unroll
+  for (int j = 0; j < 4 * NG; ++j) v[j] = 0.f;
+  for (int in = 0; in < nin; ++in) {
+    const float4* wq = reinterpret_cast<const float4*>(w + (2 * l - in) * grid_slice_floats(H)) +
+                       static_cast<size_t>(warp) * kK * 32 + lane;
+    const float* hv = hs + in * kGridStreams * H + lane;
+#pragma unroll 4
+    for (int i = 0; i < kK; ++i) {  // kK = H/32, a multiple of 4
+      const float4 wi = wq[i * 32];
+#pragma unroll
+      for (int s = 0; s < NG; ++s) {
+        const float x = hv[s * H + i * 32];
+        v[4 * s] = fmaf(wi.x, x, v[4 * s]);
+        v[4 * s + 1] = fmaf(wi.y, x, v[4 * s + 1]);
+        v[4 * s + 2] = fmaf(wi.z, x, v[4 * s + 2]);
+        v[4 * s + 3] = fmaf(wi.w, x, v[4 * s + 3]);
+      }
+    }
+  }
+
+  // 3. reduce over the warp's 32 lanes: v[0] of lane j is then the sum of
+  //    value j % (4 NG)
+  warp_reduce<NG, 16>(v, lane);
+
+  // 4. gather the stream's four gates, update the cell; lane `gate` of the
+  //    stream writes h into the exchange, c, h_n, or the top layer's out
+  const float pre = v[0] + xin;
+  const int base = lane & ~3;
+  const float ig = sigmoidf_(__shfl_sync(0xffffffffu, pre, base));
+  const float fg = sigmoidf_(__shfl_sync(0xffffffffu, pre, base + 1));
+  const float gg = tanhf(__shfl_sync(0xffffffffu, pre, base + 2));
+  const float og = sigmoidf_(__shfl_sync(0xffffffffu, pre, base + 3));
+  const float cv = fg * c_old + ig * gg;
+  const float hv = og * tanhf(cv);
+  if (owner) {
+    if (gate == 0) {
+      __stcg(a.hx + ((static_cast<size_t>(t & 1) * a.G + g) * L + l) * H + col, hv);
+    } else if (gate == 1) {
+      __stcg(a.cn + state, cv);
+    } else if (gate == 2) {
+      a.hn[state] = hv;
+    } else if (l == L - 1) {
+      a.out[(static_cast<size_t>(g) * a.T + t) * H + col] = hv;
+    }
+  }
+  __syncthreads();  // every warp has read hs before it is staged again
+}
+
+// Layer l to time t for all streams, in chunks of kGridStreams
+__device__ __forceinline__ void grid_layer(const GridArgs& a, const float* w, float* hs, int l,
+                                           int t, int col, int warp, int lane) {
+  for (int g0 = 0; g0 < a.G; g0 += kGridStreams) {
+    const int gc = min(kGridStreams, a.G - g0);
+    if (gc > 4) {
+      grid_advance<8>(a, w, hs, l, t, g0, col, warp, lane);
+    } else if (gc > 2) {
+      grid_advance<4>(a, w, hs, l, t, g0, col, warp, lane);
+    } else if (gc > 1) {
+      grid_advance<2>(a, w, hs, l, t, g0, col, warp, lane);
+    } else {
+      grid_advance<1>(a, w, hs, l, t, g0, col, warp, lane);
+    }
+  }
+}
+
+// One grid-wide barrier, the n-th of the launch: every CTA has arrived n
+// times.  Thread 0 arrives with a release at gpu scope after the CTA's
+// threads have stored (__syncthreads orders their stores before it; the
+// release is cumulative, as in CUTLASS's GenericBarrier), and waits with
+// acquire loads, after which __syncthreads orders the CTA's reads.
+__device__ __forceinline__ void grid_barrier(unsigned int* arrivals, unsigned int n) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int target = n * gridDim.x;
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(arrivals) : "memory");
+    unsigned int seen = 0;
+    for (long long spins = 0;; ++spins) {
+      asm volatile("ld.global.acquire.gpu.b32 %0, [%1];" : "=r"(seen) : "l"(arrivals) : "memory");
+      if (static_cast<int>(seen - target) >= 0) break;
+      if (spins > kSpinLimit) __trap();
+    }
+  }
+  __syncthreads();
+}
+
+// kWave false: K4, links (t, l) in order; kWave true: K5, link w advances
+// every live layer l to time w - l.  grid = H/8 CTAs, cooperative.
+template <bool kWave>
+__global__ void __launch_bounds__(kGridThreads, 1)
+lstm_grid_kernel(const float* __restrict__ xp0, const float* __restrict__ wgr,
+                 const float* __restrict__ bias, const float* __restrict__ h0,
+                 const float* __restrict__ c0, float* __restrict__ out,
+                 float* __restrict__ hn, float* cn, float* hx, unsigned int* arrivals, int G,
+                 int T, int H, int L) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x, col = b * kGridUnits + warp;
+  const int nblocks = 2 * L - 1;
+  const size_t slice = grid_slice_floats(H);
+
+  extern __shared__ __align__(16) float sm[];
+  float* w = sm;                   // (2L - 1) slices
+  float* hs = w + nblocks * slice; // (2, kGridStreams, H) staged h
+  __shared__ __align__(8) uint64_t wbar;
+
+  // 1. this CTA's weight slices, once per launch
+  const uint32_t bar = smem_u32(&wbar);
+  if (tid == 0) init_load_barrier(bar);
+  __syncthreads();
+  if (tid == 0) {
+    start_bulk_load(bar, w, wgr + static_cast<size_t>(b) * nblocks * slice,
+                    static_cast<uint32_t>(slice * sizeof(float)), nblocks);
+  }
+  const GridArgs a{xp0, bias, h0, c0, out, hn, cn, hx, G, T, H, L};
+  wait_bulk_load(bar);
+
+  // 2. the links, a grid barrier between two
+  unsigned int barriers = 0;
+  if (kWave) {
+    const int links = T > 0 ? T + L - 1 : 0;
+    for (int wf = 0; wf < links; ++wf) {
+      for (int l = max(0, wf - T + 1); l <= min(L - 1, wf); ++l)
+        grid_layer(a, w, hs, l, wf - l, col, warp, lane);
+      if (wf + 1 < links) grid_barrier(arrivals, ++barriers);
+    }
+  } else {
+    for (int t = 0; t < T; ++t) {
+      for (int l = 0; l < L; ++l) {
+        grid_layer(a, w, hs, l, t, col, warp, lane);
+        if (t + 1 < T || l + 1 < L) grid_barrier(arrivals, ++barriers);
+      }
+    }
+  }
+
+  // 3. no step: h_n, c_n are h0, c0 (this CTA's units)
+  if (T == 0) {
+    for (int i = tid; i < G * L * kGridUnits; i += kGridThreads) {
+      const size_t e = static_cast<size_t>(i / kGridUnits) * H + b * kGridUnits + i % kGridUnits;
+      hn[e] = h0[e];
+      cn[e] = c0[e];
+    }
+  }
+}
+
+// The kernel's shared-memory attributes, set once per device to the most a
+// block may opt in to (a streaming step launches it hundreds of times)
+template <bool kWave>
+cudaError_t allow_grid_smem() {
+  static std::atomic<uint64_t> done{0};  // bit d: set on device d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (bit && (done.load() & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(lstm_grid_kernel<kWave>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemLimit));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(lstm_grid_kernel<kWave>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  done.fetch_or(bit);
+  return cudaSuccess;
+}
+
+template <bool kWave>
+int launch_grid(const void* xp0, const void* wgr, const void* bias, const void* h0,
+                const void* c0, void* out, void* hn, void* cn, void* hx, void* arrivals, int G,
+                int T, int H, int L, void* stream) {
+  if (!grid_fits(H, L)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_grid_smem<kWave>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (G > 0) {
+    cudaLaunchConfig_t cfg{};
+    cfg.gridDim = dim3(H / kGridUnits, 1, 1);
+    cfg.blockDim = dim3(kGridThreads, 1, 1);
+    cfg.dynamicSmemBytes = grid_smem_bytes(H, L);
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cudaLaunchAttribute attr{};
+    attr.id = cudaLaunchAttributeCooperative;
+    attr.val.cooperative = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, lstm_grid_kernel<kWave>, static_cast<const float*>(xp0),
+                             static_cast<const float*>(wgr), static_cast<const float*>(bias),
+                             static_cast<const float*>(h0), static_cast<const float*>(c0),
+                             static_cast<float*>(out), static_cast<float*>(hn),
+                             static_cast<float*>(cn), static_cast<float*>(hx),
+                             static_cast<unsigned int*>(arrivals), G, T, H, L);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kWave>
+int occupancy_grid(int H, int L, int* blocks_per_sm) {
+  if (!grid_fits(H, L)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_grid_smem<kWave>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, lstm_grid_kernel<kWave>,
+                                                      kGridThreads, grid_smem_bytes(H, L));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int evfly_lstm_stacked(const void* xp0, const void* whh_t, const void* wih_t,
@@ -621,3 +1016,30 @@ extern "C" int evfly_lstm_cluster_occupancy(int H, int L, int wave, int* cluster
 // 1 where the cluster route takes (H, L), else 0: ClusterShape's rule, for
 // holding ops/lstm_fused.cluster_fits against it
 extern "C" int evfly_lstm_cluster_fits(int H, int L) { return cluster_fits(H, L) ? 1 : 0; }
+
+// K4 (wave == 0) or K5 (wave != 0) on the grid route: H/8 cooperative CTAs
+// for all G streams; hx (2, G, L, H) the exchange, arrivals one uint32 that
+// is 0 at launch
+extern "C" int evfly_lstm_grid(const void* xp0, const void* wgr, const void* bias,
+                               const void* h0, const void* c0, void* out, void* hn, void* cn,
+                               void* hx, void* arrivals, int G, int T, int H, int L, int wave,
+                               void* stream) {
+  return wave ? launch_grid<true>(xp0, wgr, bias, h0, c0, out, hn, cn, hx, arrivals, G, T, H, L,
+                                  stream)
+              : launch_grid<false>(xp0, wgr, bias, h0, c0, out, hn, cn, hx, arrivals, G, T, H,
+                                   L, stream);
+}
+
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor of the grid kernel at (H, L)
+extern "C" int evfly_lstm_grid_occupancy(int H, int L, int wave, int* blocks_per_sm) {
+  return wave ? occupancy_grid<true>(H, L, blocks_per_sm)
+              : occupancy_grid<false>(H, L, blocks_per_sm);
+}
+
+// 1 where the grid kernel takes (H, L), else 0: for holding
+// ops/lstm_fused.grid_fits against it
+extern "C" int evfly_lstm_grid_fits(int H, int L) { return grid_fits(H, L) ? 1 : 0; }
+
+// The route of (H, L): 1 cluster, 2 grid, 0 L2, for holding
+// ops/lstm_fused.choose_route against it
+extern "C" int evfly_lstm_route(int H, int L) { return choose_route(H, L); }

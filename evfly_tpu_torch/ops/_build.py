@@ -54,6 +54,10 @@ _SIGNATURES = {
     "evfly_lstm_cluster": [_P] * 8 + [_I] * 5 + [_P],
     "evfly_lstm_cluster_occupancy": [_I] * 3 + [_P],
     "evfly_lstm_cluster_fits": [_I, _I],
+    "evfly_lstm_grid": [_P] * 10 + [_I] * 5 + [_P],
+    "evfly_lstm_grid_occupancy": [_I] * 3 + [_P],
+    "evfly_lstm_grid_fits": [_I, _I],
+    "evfly_lstm_route": [_I, _I],
     "evfly_error_string": [_I],
 }
 

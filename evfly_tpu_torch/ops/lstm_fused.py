@@ -12,16 +12,22 @@ orders:
   ``_lstm_fused_wavefront``): anti-diagonals of the (layer, time) grid, every
   live layer advancing at once on its own time index.
 
-Each order has two routes, chosen by shape (``choose_route``):
+Each order has three routes, chosen by shape (``choose_route``):
 
 - "cluster" (``lstm_stacked_cluster``, ``lstm_wavefront_cluster``): one
   8-CTA cluster per stream with the weights resident in the cluster's shared
   memory, in the layout of ``pack_cluster``; taken by every shape whose
-  weights fit (``cluster_fits``: H = 128 with L <= 3, which covers every
-  fused LSTM of the repo's models, and H = 256 with L = 1);
+  weights fit (``cluster_fits``: H = 128 with L <= 3, which covers
+  ``LSTMNetVIT``'s LSTM, and H = 256 with L = 1);
+- "grid" (``lstm_stacked_grid``, ``lstm_wavefront_grid``): one cooperative
+  grid of H/8 CTAs for all streams, each holding the gate columns of its 8
+  hidden units in shared memory (layout of ``pack_grid``), h exchanged
+  through global memory with one grid-wide barrier per link; taken by the
+  other shapes whose weights fit up to 132 SMs (``grid_fits``: the velocity
+  head's H = 768 with L = 1, H = 256 with L = 2 or 3, H = 128 with L = 4 to 7);
 - "l2" (``lstm_stacked``, ``lstm_wavefront``): one block per stream reading
   the weights from L2 on every step, in the layouts of ``pack_stacked``; the
-  other shapes with hidden_size % 128 == 0.
+  other shapes with hidden_size % 128 == 0 (e.g. H = 768 with L = 2).
 
 All take a leading stream axis: xp0 (G, T, 4H) and the state (G, L, H), what
 ``jax.vmap`` over the kernel computes for the batched streaming pipeline; an
@@ -52,6 +58,9 @@ FUSED_LSTM_MODE = os.environ.get("EVFLY_FLSTM_MODE", "stacked")
 
 CLUSTER = 8                   # CTAs per stream on the cluster route
 _CLUSTER_HIDDEN = (128, 256)  # the hidden sizes the cluster kernels are built for
+GRID_UNITS = 8                # hidden units per CTA on the grid route
+GRID_STREAMS = 8              # streams whose h one grid CTA stages at once
+GRID_MAX_CTAS = 132           # the H100's SMs: at most one grid CTA each
 # a block may opt in to 227 KB (232,448 bytes) of shared memory; keep 1 KiB
 # for the kernel's static shared variables
 _SMEM_LIMIT = 232448 - 1024
@@ -94,12 +103,32 @@ def cluster_fits(hidden_size: int, num_layers: int) -> bool:
             and cluster_smem_bytes(hidden_size, num_layers) <= _SMEM_LIMIT)
 
 
+def grid_smem_bytes(hidden_size: int, num_layers: int) -> int:
+    """Shared memory of one CTA of the grid route: its slices of the 2L - 1
+    weight blocks (4 gates x 8 units x H each) and h staged for
+    ``GRID_STREAMS`` streams, two layer inputs."""
+    H, L = hidden_size, num_layers
+    return 4 * ((2 * L - 1) * 4 * GRID_UNITS * H + 2 * GRID_STREAMS * H)
+
+
+def grid_fits(hidden_size: int, num_layers: int) -> bool:
+    """Whether the grid kernel takes (H, L): H % 128 == 0, its H/8 CTAs
+    within the card's 132 SMs, and one CTA's share within a block's shared
+    memory.  The rule of ``csrc/lstm.cu``'s ``grid_fits``, for the CPU (its
+    entry point ``evfly_lstm_grid_fits`` gives the library's)."""
+    H, L = hidden_size, num_layers
+    return (H > 0 and H % 128 == 0 and L >= 1 and H // GRID_UNITS <= GRID_MAX_CTAS
+            and grid_smem_bytes(H, L) <= _SMEM_LIMIT)
+
+
 def choose_route(hidden_size: int, num_layers: int) -> str:
     """"cluster" where the weights fit the cluster's shared memory, else
-    "l2".  Decided by (H, L) alone, before any launch: the number of streams
-    does not enter, although at 64 streams of one step the L2 route runs K5
-    a few microseconds faster (``PERF.md`` §6)."""
-    return "cluster" if cluster_fits(hidden_size, num_layers) else "l2"
+    "grid" where they fit the grid's, else "l2".  Decided by (H, L) alone,
+    before any launch: the number of streams does not enter.  The rule of
+    ``csrc/lstm.cu``'s ``choose_route`` (entry point ``evfly_lstm_route``)."""
+    if cluster_fits(hidden_size, num_layers):
+        return "cluster"
+    return "grid" if grid_fits(hidden_size, num_layers) else "l2"
 
 
 def _cluster_view(H: int):
@@ -121,12 +150,8 @@ def pack_cluster(whh_t: torch.Tensor, wih_t: torch.Tensor, hidden_size: int,
     thread (unit, q) of the kernel reads its k = i*16 + q as float4s that a
     warp loads contiguously (``csrc/lstm.cu``, ``ClusterShape``)."""
     H, L = hidden_size, num_layers
-    G = 4 * H
-    blocks = [whh_t[:, :G].T]
-    for l in range(1, L):
-        blocks += [wih_t[:, (l - 1) * G:l * G].T, whh_t[:, l * G:(l + 1) * G].T]
     slices = [b.reshape(_cluster_view(H)).permute(_TO_CLUSTER).reshape(CLUSTER, H * H // 2)
-              for b in blocks]
+              for b in _weight_blocks(whh_t, wih_t, H, L)]
     return torch.stack(slices, 1).to(torch.float32).contiguous()
 
 
@@ -136,27 +161,78 @@ def unpack_cluster(wcl: torch.Tensor, hidden_size: int, num_layers: int):
     view = [_cluster_view(H)[d] for d in _TO_CLUSTER]
     blocks = [wcl[:, m].reshape(view).permute(_FROM_CLUSTER).reshape(4 * H, H)
               for m in range(2 * L - 1)]
+    return _stacked_from_blocks(blocks, H, L, wcl)
+
+
+def _weight_blocks(whh_t: torch.Tensor, wih_t: torch.Tensor, H: int, L: int):
+    """The blocks W_hh0, W_ih1, W_hh1, W_ih2, ... in torch's (4H, H) layout
+    from ``pack_stacked``'s whh_t and wih_t."""
+    G = 4 * H
+    blocks = [whh_t[:, :G].T]
+    for l in range(1, L):
+        blocks += [wih_t[:, (l - 1) * G:l * G].T, whh_t[:, l * G:(l + 1) * G].T]
+    return blocks
+
+
+def _stacked_from_blocks(blocks, H: int, L: int, like: torch.Tensor):
+    """``pack_stacked``'s (whh_t, wih_t) from ``_weight_blocks``' list."""
     whh_t = torch.cat([blocks[0].T] + [blocks[2 * l].T for l in range(1, L)], dim=1)
     wih_t = (torch.cat([blocks[2 * l - 1].T for l in range(1, L)], dim=1) if L > 1
-             else wcl.new_zeros(H, 0))
+             else like.new_zeros(H, 0))
     return whh_t.contiguous(), wih_t.contiguous()
+
+
+def _grid_view(H: int):
+    # (gate, cta, unit, i, lane) of a block's (4H, H) torch layout: column
+    # gate*H + cta*8 + unit, k = i*32 + lane
+    return (4, H // GRID_UNITS, GRID_UNITS, H // 32, 32)
+
+
+_TO_GRID = (1, 2, 3, 4, 0)    # -> (cta, unit, i, lane, gate)
+_FROM_GRID = (4, 0, 1, 2, 3)  # and back
+
+
+def pack_grid(whh_t: torch.Tensor, wih_t: torch.Tensor, hidden_size: int,
+              num_layers: int) -> torch.Tensor:
+    """The grid route's weights (H/8, 2L - 1, 32H) from ``pack_stacked``'s
+    whh_t and wih_t: for each CTA b, one contiguous block holding its slices
+    of W_hh0, W_ih1, W_hh1, W_ih2, ... in that order.  A slice holds the four
+    gate columns of hidden units 8b .. 8b + 7, as float4s of the four gates
+    ordered (unit, i, lane) so that lane q of warp u reads k = i*32 + q as
+    one float4 and a warp's loads are 512 contiguous bytes
+    (``csrc/lstm.cu``, ``grid_advance``)."""
+    H, L = hidden_size, num_layers
+    slices = [b.reshape(_grid_view(H)).permute(_TO_GRID).reshape(H // GRID_UNITS, 32 * H)
+              for b in _weight_blocks(whh_t, wih_t, H, L)]
+    return torch.stack(slices, 1).to(torch.float32).contiguous()
+
+
+def unpack_grid(wgr: torch.Tensor, hidden_size: int, num_layers: int):
+    """(whh_t, wih_t) in ``pack_stacked``'s layouts from ``pack_grid``'s."""
+    H, L = hidden_size, num_layers
+    view = [_grid_view(H)[d] for d in _TO_GRID]
+    blocks = [wgr[:, m].reshape(view).permute(_FROM_GRID).reshape(4 * H, H)
+              for m in range(2 * L - 1)]
+    return _stacked_from_blocks(blocks, H, L, wgr)
 
 
 class Packed(NamedTuple):
     """A module's weights in the kernels' layouts: ``pack_stacked``'s and,
-    where the shape takes the cluster route, ``pack_cluster``'s."""
+    where the shape takes the cluster route, ``pack_cluster``'s, or where it
+    takes the grid route, ``pack_grid``'s."""
     whh_t: torch.Tensor
     wih_t: torch.Tensor
     bias: torch.Tensor
     cluster: Optional[torch.Tensor]
+    grid: Optional[torch.Tensor]
 
 
 def pack(params: Params, num_layers: int, hidden_size: int) -> Packed:
     whh_t, wih_t, bias = pack_stacked(params, num_layers, hidden_size)
-    wcl = None
-    if cluster_fits(hidden_size, num_layers):
-        wcl = pack_cluster(whh_t, wih_t, hidden_size, num_layers)
-    return Packed(whh_t, wih_t, bias, wcl)
+    route = choose_route(hidden_size, num_layers)
+    wcl = pack_cluster(whh_t, wih_t, hidden_size, num_layers) if route == "cluster" else None
+    wgr = pack_grid(whh_t, wih_t, hidden_size, num_layers) if route == "grid" else None
+    return Packed(whh_t, wih_t, bias, wcl, wgr)
 
 
 def _cell(gates: torch.Tensor, c: torch.Tensor, H: int):
@@ -238,11 +314,26 @@ def lstm_wavefront_cluster_plain(xp0, wcl, bias, h0, c0):
     return lstm_wavefront_plain(xp0, *unpack_cluster(wcl, H, L), bias, h0, c0)
 
 
-def _launch(name: str, fn, xp0, weights, h0, c0, *extra):
+def lstm_stacked_grid_plain(xp0, wgr, bias, h0, c0):
+    """Plain PyTorch version of K4 on the grid route: ``lstm_stacked_plain``
+    on the weights that ``wgr`` holds."""
+    L, H = h0.shape[-2], h0.shape[-1]
+    return lstm_stacked_plain(xp0, *unpack_grid(wgr, H, L), bias, h0, c0)
+
+
+def lstm_wavefront_grid_plain(xp0, wgr, bias, h0, c0):
+    """Plain PyTorch version of K5 on the grid route."""
+    L, H = h0.shape[-2], h0.shape[-1]
+    return lstm_wavefront_plain(xp0, *unpack_grid(wgr, H, L), bias, h0, c0)
+
+
+def _launch(name: str, fn, xp0, weights, h0, c0, *extra, scratch=None):
     """Check the inputs of a K4 or K5 route on CUDA, launch ``fn`` of the
     kernel library and return its outputs in the inputs' stream layout.
     ``weights(L, H)`` gives the route's weight arguments and bias as
-    {name: (tensor, expected shape)}, in the order of the C entry point."""
+    {name: (tensor, expected shape)}, in the order of the C entry point;
+    ``scratch(S, L, H, device)``, where given, the tensors the kernel works
+    in, passed after out, hn and cn and allocated on the launch stream."""
     if xp0.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {xp0.device}")
     xp0, h0, c0, squeeze = _streams(xp0, h0, c0)
@@ -261,15 +352,19 @@ def _launch(name: str, fn, xp0, weights, h0, c0, *extra):
     if torch.is_grad_enabled() and any(t.requires_grad for t, _ in expected.values()):
         raise RuntimeError(f"{name} has no backward; call it under torch.no_grad()")
     args = {arg: t.to(torch.float32).contiguous() for arg, (t, _) in expected.items()}
-    if "wcl" in args and args["wcl"].data_ptr() % 16:
-        raise ValueError(f"{name}: wcl must be 16-byte aligned (the source of bulk copies)")
-    out = torch.empty(S, T, H, dtype=torch.float32, device=xp0.device)
-    hn = torch.empty(S, L, H, dtype=torch.float32, device=xp0.device)
-    cn = torch.empty(S, L, H, dtype=torch.float32, device=xp0.device)
+    for arg in ("wcl", "wgr"):
+        if arg in args and args[arg].data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned (the source of bulk copies)")
+    if "wgr" in args and args["h0"].data_ptr() % 16:
+        args["h0"] = args["h0"].clone()  # the grid kernel stages h0 as float4s
     with torch.cuda.device(xp0.device):
+        out = torch.empty(S, T, H, dtype=torch.float32, device=xp0.device)
+        hn = torch.empty(S, L, H, dtype=torch.float32, device=xp0.device)
+        cn = torch.empty(S, L, H, dtype=torch.float32, device=xp0.device)
+        work = [] if scratch is None else scratch(S, L, H, xp0.device)
         status = fn(
             *(a.data_ptr() for a in args.values()), out.data_ptr(), hn.data_ptr(), cn.data_ptr(),
-            S, T, H, L, *extra, _build.stream_of(xp0.device),
+            *(t.data_ptr() for t in work), S, T, H, L, *extra, _build.stream_of(xp0.device),
         )
     _build.check(name, status)
     return (out[0], hn[0], cn[0]) if squeeze else (out, hn, cn)
@@ -289,6 +384,23 @@ def _cluster_weights(name, wcl, bias):
         return {"wcl": (wcl, (CLUSTER, 2 * L - 1, H * H // 2)),
                 "bias": (bias, ((L - 1) * 4 * H,))}
     return weights
+
+
+def _grid_weights(name, wgr, bias):
+    def weights(L, H):
+        if not grid_fits(H, L):
+            raise ValueError(f"{name}: (H, L) = ({H}, {L}) does not fit the grid route")
+        return {"wgr": (wgr, (H // GRID_UNITS, 2 * L - 1, 32 * H)),
+                "bias": (bias, ((L - 1) * 4 * H,))}
+    return weights
+
+
+def _grid_scratch(S: int, L: int, H: int, device):
+    """The grid kernel's h exchange (2, S, L, H), written before it is read,
+    and its barrier's arrival count, zeroed on the launch stream (inside a
+    CUDA graph, at every replay)."""
+    return [torch.empty(2, S, L, H, dtype=torch.float32, device=device),
+            torch.zeros(1, dtype=torch.int32, device=device)]
 
 
 def lstm_stacked(xp0, whh_t, wih_t, bias, h0, c0):
@@ -369,6 +481,45 @@ def lstm_wavefront_cluster(xp0, wcl, bias, h0, c0):
 lstm_wavefront_cluster.launches = 0
 
 
+def lstm_stacked_grid(xp0, wgr, bias, h0, c0):
+    """K4 on the grid route: ``lstm_stacked``'s function with the weights in
+    ``pack_grid``'s layout ``wgr``; (H, L) must satisfy ``grid_fits``.
+
+    CPU tensors take ``lstm_stacked_grid_plain``; CUDA tensors launch the
+    kernel (one cooperative grid of H/8 CTAs for all streams) or raise,
+    also where the card refuses the cooperative launch.
+    ``lstm_stacked_grid.launches`` counts launches.
+    """
+    if xp0.device.type == "cpu":
+        return lstm_stacked_grid_plain(xp0, wgr, bias, h0, c0)
+    name = "lstm_stacked_grid"
+    res = _launch(name, _build.library().evfly_lstm_grid, xp0, _grid_weights(name, wgr, bias),
+                  h0, c0, 0, scratch=_grid_scratch)
+    lstm_stacked_grid.launches += 1
+    return res
+
+
+lstm_stacked_grid.launches = 0
+
+
+def lstm_wavefront_grid(xp0, wgr, bias, h0, c0):
+    """K5 on the grid route, with ``lstm_stacked_grid``'s arguments.
+
+    CPU tensors take ``lstm_wavefront_grid_plain``; CUDA tensors launch the
+    kernel or raise.  ``lstm_wavefront_grid.launches`` counts launches.
+    """
+    if xp0.device.type == "cpu":
+        return lstm_wavefront_grid_plain(xp0, wgr, bias, h0, c0)
+    name = "lstm_wavefront_grid"
+    res = _launch(name, _build.library().evfly_lstm_grid, xp0, _grid_weights(name, wgr, bias),
+                  h0, c0, 1, scratch=_grid_scratch)
+    lstm_wavefront_grid.launches += 1
+    return res
+
+
+lstm_wavefront_grid.launches = 0
+
+
 def cluster_occupancy(hidden_size: int, num_layers: int, mode: str) -> int:
     """``cudaOccupancyMaxActiveClusters`` of the cluster kernel of ``mode``
     at (H, L) on the current device: how many 8-CTA clusters run at once."""
@@ -379,10 +530,21 @@ def cluster_occupancy(hidden_size: int, num_layers: int, mode: str) -> int:
     return n.value
 
 
+def grid_occupancy(hidden_size: int, num_layers: int, mode: str) -> int:
+    """``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` of the grid kernel
+    of ``mode`` at (H, L) on the current device: its CTAs per SM."""
+    n = ctypes.c_int(0)
+    status = _build.library().evfly_lstm_grid_occupancy(
+        hidden_size, num_layers, int(mode == "wavefront"), ctypes.byref(n))
+    _build.check("evfly_lstm_grid_occupancy", status)
+    return n.value
+
+
 _KERNELS = {
     ("stacked", "l2"): lstm_stacked, ("wavefront", "l2"): lstm_wavefront,
     ("stacked", "cluster"): lstm_stacked_cluster,
     ("wavefront", "cluster"): lstm_wavefront_cluster,
+    ("stacked", "grid"): lstm_stacked_grid, ("wavefront", "grid"): lstm_wavefront_grid,
 }
 
 
@@ -418,9 +580,9 @@ def lstm_apply_fused(
         xp0 = xp0 + params["bias_ih_l0"] + params["bias_hh_l0"]
     if packed is None:
         packed = pack(params, L, H)
-    if route == "cluster":
-        weights = (packed.cluster, packed.bias)
-    else:
-        weights = (packed.whh_t, packed.wih_t, packed.bias)
+    weights = {"cluster": (packed.cluster, packed.bias), "grid": (packed.grid, packed.bias),
+               "l2": (packed.whh_t, packed.wih_t, packed.bias)}[route]
+    if weights[0] is None:
+        raise ValueError(f"the packed weights have no {route!r} layout (lstm_fused.pack)")
     out, hn, cn = _KERNELS[(mode, route)](xp0, *weights, h0, c0)
     return out.to(x.dtype), (hn.to(x.dtype), cn.to(x.dtype))

@@ -21,7 +21,8 @@ REPO = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
                        os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 FILES = ("tests/test_torch_voxelizer.py", "tests/test_torch_voxelizer_cluster.py",
          "tests/test_torch_lstm.py", "tests/test_torch_stream_graph.py",
-         "tests/test_torch_hil.py", "tests/test_torch_train.py", "tests/test_torch_heads.py")
+         "tests/test_torch_hil.py", "tests/test_torch_train.py", "tests/test_torch_heads.py",
+         "tests/test_torch_lstm_grid.py")
 INERT = ("jax", "optax", "evfly_tpu")
 
 

@@ -299,16 +299,18 @@ def test_origunet_head_stream_axis_is_independent_sequences():
 @pytest.mark.parametrize("mode", ["stacked", "wavefront"])
 @pytest.mark.parametrize("G,T", [(1, 16), (1, 1), (16, 1)])
 def test_head_lstm_takes_the_l2_route_at_hidden_768(cuda_device, mode, G, T):
-    """One launch of K4 (stacked) or K5 (wavefront) on the L2 route, with
-    the empty layer-1 weights of L = 1, against ``lstm_loop`` on the card."""
+    """One launch of K4 (stacked) or K5 (wavefront) on the route of H = 768,
+    L = 1, the grid route since it was added (the L2 route before), with the
+    empty layer-1 weights of L = 1, against ``lstm_loop`` on the card."""
     H = 768
-    assert lstm_fused.choose_route(H, 1) == "l2"
+    assert lstm_fused.choose_route(H, 1) == "grid"
     lstm = LSTM(H, H, 1, torch.Generator().manual_seed(4), cuda_device, dropout=0.1).eval()
     lstm.mode = mode
     gen = torch.Generator().manual_seed(5)
     x, h0, c0 = (torch.randn(G, *shape, generator=gen).to(cuda_device) * scale
                  for shape, scale in (((T, H), 1.0), ((1, H), 0.5), ((1, H), 0.5)))
-    kernel = lstm_fused.lstm_stacked if mode == "stacked" else lstm_fused.lstm_wavefront
+    kernel = (lstm_fused.lstm_stacked_grid if mode == "stacked"
+              else lstm_fused.lstm_wavefront_grid)
     before = kernel.launches
     with torch.no_grad():
         got = lstm(x, (h0, c0))

@@ -285,19 +285,23 @@ def test_route_by_shape():
     assert lstm_fused.choose_route(128, 3) == "cluster"
     assert lstm_fused.choose_route(128, 1) == "cluster"
     assert lstm_fused.choose_route(256, 1) == "cluster"
-    assert lstm_fused.choose_route(256, 3) == "l2"
-    assert lstm_fused.choose_route(128, 4) == "l2"  # 224 KiB of weights per CTA
-    assert lstm_fused.choose_route(384, 1) == "l2"
+    # past a cluster's shared memory (224 KiB of weights per CTA at H = 128,
+    # L = 4), within 132 SMs' (ops/lstm_fused.grid_fits)
+    assert lstm_fused.choose_route(256, 3) == "grid"
+    assert lstm_fused.choose_route(128, 4) == "grid"
+    assert lstm_fused.choose_route(384, 1) == "grid"
+    assert lstm_fused.choose_route(768, 2) == "l2"  # 288 KiB of weights per grid CTA
     # one CTA's share at the repo's LSTM (H = 128, L = 3): 160 KiB of
     # weights and 3,776 bytes of state
     assert lstm_fused.cluster_smem_bytes(128, 3) == 5 * 32768 + 3776
 
 
-@pytest.mark.parametrize("route", ["cluster", "l2"])
+@pytest.mark.parametrize("route", ["cluster", "l2", "grid"])
 @pytest.mark.parametrize("mode", ["stacked", "wavefront"])
 def test_both_routes_match_jax(mode, route):
-    """Each route's plain version (the cluster one unpacks its layout) against
-    the JAX kernel of the same order, with a carried state and two streams."""
+    """Each route's plain version (the cluster and grid ones unpack their
+    layouts) against the JAX kernel of the same order, with a carried state
+    and two streams."""
     rng = np.random.default_rng(220)
     G, T, input_size, hidden, layers = 2, 6, 19, 128, 3
     p = _params(rng, input_size, hidden, layers)
@@ -310,9 +314,13 @@ def test_both_routes_match_jax(mode, route):
     kernel = {("stacked", "cluster"): lstm_fused.lstm_stacked_cluster,
               ("wavefront", "cluster"): lstm_fused.lstm_wavefront_cluster,
               ("stacked", "l2"): lstm_fused.lstm_stacked,
-              ("wavefront", "l2"): lstm_fused.lstm_wavefront}[(mode, route)]
-    weights = ((packed.cluster, packed.bias) if route == "cluster"
-               else (packed.whh_t, packed.wih_t, packed.bias))
+              ("wavefront", "l2"): lstm_fused.lstm_wavefront,
+              ("stacked", "grid"): lstm_fused.lstm_stacked_grid,
+              ("wavefront", "grid"): lstm_fused.lstm_wavefront_grid}[(mode, route)]
+    # (128, 3) takes the cluster route, so pack carries no grid layout there
+    wgr = lstm_fused.pack_grid(packed.whh_t, packed.wih_t, hidden, layers)
+    weights = {"cluster": (packed.cluster, packed.bias), "grid": (wgr, packed.bias),
+               "l2": (packed.whh_t, packed.wih_t, packed.bias)}[route]
     out, h, c = kernel(xp0, *weights, torch.from_numpy(h0), torch.from_numpy(c0))
     for g in range(G):
         ref = jax_lstm_apply_fused(_jax(p), jnp.asarray(x[g]),
@@ -345,8 +353,8 @@ def test_packed_weights_are_cached_until_a_parameter_changes():
     first = lstm.packed()
     assert lstm.packed() is first  # reused across calls
     ref = lstm_fused.pack({k: v.detach() for k, v in lstm.named_parameters()}, 3, 128)
-    for a, b in zip(first, ref):
-        assert torch.equal(a, b)
+    for a, b in zip(first, ref):  # the layouts of the other routes are None
+        assert (a is None and b is None) or torch.equal(a, b)
 
     # load_state_dict copies into the parameters in place: a new pack
     state = {k: torch.randn_like(v) for k, v in lstm.state_dict().items()}
@@ -389,7 +397,7 @@ def test_packed_cache_made_under_inference_mode_is_an_ordinary_tensor():
     lstm = recurrent.LSTM(17, 128, 3, gen, torch.device("cpu"))
     with torch.inference_mode():
         packed = lstm.packed()
-    assert not any(t.is_inference() for t in packed)
+    assert not any(t.is_inference() for t in packed if t is not None)
 
 
 @pytest.mark.gpu
