@@ -76,7 +76,28 @@ just before it and read just after:
   stats and reloads bit for bit), A's step on a padded chunk on the card
   against the CPU in f64 under the training bounds and in f32 under those
   of its loss, terms, gradient norm and BatchNorm state, and B's validation
-  through K4's grid route against the plain loop.
+  through K4's grid route against the plain loop;
+- the rest of the model zoo: the serving windows through K3 into
+  ``ConvNet``, ``LSTMNet``, ``ViT``, ``UNetConvLSTMNet`` and
+  ``LegacyTransformer`` (weights from a seed), each on the card against
+  the same model on the CPU, its parameter count, its windows/s and K3's
+  launches (K4's and K5's none: hidden 395 and 200 take the plain loop);
+- the dataset path: a Prophesee-like 640x480 recording (3 s at 960,000
+  events/s, ns epoch stamps, {0, 1} polarity) encoded to EVT3, decoded by the port's native
+  decoder and packaged by ``package_real_sequence`` on the card, K1 over
+  all its windows in one launch (the cluster kernel, and with two
+  thresholds the band kernel), the trajectory equal to the CPU's key by
+  key; K1's window launch bit for bit against its plain version on a
+  DAVIS-like stream of 2,000,000 events over 60 windows (sorted,
+  shuffled, overlapping, empty, two thresholds, 640x480) and timed in
+  turns against the padded (B, N_max) launch, beside the plain version,
+  ``torch.bincount`` (with weights +pos/-neg for two thresholds) and the
+  bytes bound, the sort timed alone;
+- event generation: a 49-frame trajectory at 260x346 (a texture
+  translating with its exact flow, adaptive factors 1 to 16) through
+  ``to_events.trajectory_events`` by the esim, esim_flow and difflog
+  schemes on the card against the CPU, equal away from quantization
+  crossings (``esim_margins``, ``difflog_margins``), ms per trajectory.
 
 It then times a streaming step and the G-stream rates, each as graphs and
 eagerly in turns, in the manner of ``tools/torch_latency_bench.py``, and
@@ -110,15 +131,18 @@ import numpy as np
 import torch
 
 from evfly_tpu_torch.configs import EvflyConfig
+from evfly_tpu_torch.data import evt3, realdata, to_events
 from evfly_tpu_torch.data.dataloading import cache_dataset
 from evfly_tpu_torch.models import port
 from evfly_tpu_torch.models.composites import OrigUNet_w_VITFLY_ViTLSTM
 from evfly_tpu_torch.models.port import load_state_dict
 from evfly_tpu_torch.models.recurrent import set_fused_lstm
+from evfly_tpu_torch.models import legacy_vit, vitfly
+from evfly_tpu_torch.models.common import param_count
 from evfly_tpu_torch.models.registry import build_model
 from evfly_tpu_torch.models.vitfly import LSTMNetVIT
 from evfly_tpu_torch.precision import get_precision, set_precision
-from evfly_tpu_torch.ops import _build, lstm_fused, voxelizer
+from evfly_tpu_torch.ops import _build, esim, lstm_fused, upsample, voxelizer
 from evfly_tpu_torch.ops.imageops import interpolate_bilinear
 from evfly_tpu_torch.ops.lstm_fused import (
     choose_route,
@@ -147,6 +171,7 @@ from evfly_tpu_torch.ops.voxelizer import (
     K3_CLUSTER,
     SCALE_CLUSTER,
     _frame_cluster_launch,
+    _frame_windows_launch,
     _resized_cluster_launch,
     _scale_launch,
     _scaled_cluster_launch,
@@ -158,6 +183,8 @@ from evfly_tpu_torch.ops.voxelizer import (
     hist_frame_cluster,
     hist_frame_plain,
     hist_frame_routed,
+    hist_frame_windows,
+    hist_frame_windows_plain,
     hist_scaled,
     hist_scaled_plain,
     hist_scaled_resized,
@@ -175,6 +202,7 @@ from evfly_tpu_torch.ops.voxelizer import (
     scale_counts_resized,
     scale_counts_resized_plain,
     scaled_route,
+    window_offsets,
 )
 from evfly_tpu_torch.ops.voxelizer import cluster_occupancy as vox_cluster_occupancy
 from evfly_tpu_torch.stream import BatchedStreamingPipeline, StreamingPipeline, hil
@@ -292,6 +320,31 @@ HEADS_F32_CHECKED = ("loss", "terms", "gradnorm", "uv", "bn")
 # (tests/test_fused_voxelizer.py:34,68, tests/test_lstm_pallas.py:53,79) and
 # the velocity bound of the port's tests; K1's counts are exact
 K2_ATOL, K3_ATOL, K4_ATOL, K4_ATOL_CARRIED, VEL_ATOL = 2e-5, 3e-5, 2e-5, 3e-5, 1e-4
+
+# the model zoo served: each model's parameter count
+# (evfly_tpu/models/vitfly.py's docstrings; LegacyTransformer's from its
+# layers at its defaults), weights from ZOO_SEED + its index
+ZOO = {"ConvNet": 235_269, "LSTMNet": 2_949_937, "ViT": 3_101_199,
+       "UNetConvLSTMNet": 2_955_822, "LegacyTransformer": 353_283}
+ZOO_SEED = 40
+# the dataset path: a Prophesee-like recording (640x480, ns epoch
+# stamps, {0, 1} polarity) of REC_FRAMES depth frames at 30 Hz (3 s), a
+# grating of REC_EDGES edges at REC_SPEED px/s, REC_ROWS events at each
+# column an edge crosses: 8 x 300 x 400 = 960,000 events/s; K1 over time
+# windows checked and timed on a DAVIS-like stream of DAVIS_EVENTS events
+# at 260x346 over DAVIS_WINDOWS windows of 1/30 s
+REC_H, REC_W, REC_FRAMES = 480, 640, 91
+REC_EDGES, REC_SPEED, REC_ROWS = 8, 300.0, 400
+DAVIS_EVENTS, DAVIS_WINDOWS = 2_000_000, 60
+# event generation: one trajectory of GEN_FRAMES frames at 260x346
+# (the training phase's length), a texture translating at GEN_SPEEDS px a
+# frame, so that adaptive_factor takes every factor from 1 to 16
+GEN_FRAMES, GEN_DT = 49, 1.0 / 30.0
+GEN_SPEEDS = np.linspace(0.5, 15.9, GEN_FRAMES)
+# a frame of ESIM or difflog may differ card against CPU only where the
+# CPU's quotient came within GEN_MARGIN of an integer (FLOW_MARGIN on
+# flow-upsampled frames), by one quantum, the sums within 1e-5 + a quantum
+GEN_MARGIN, FLOW_MARGIN = 1e-5, 1e-3
 
 BUDGET_S = 600  # the whole run, cold build included
 # H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s
@@ -913,13 +966,14 @@ def phase_lstm_times(dev, flush):
     the serving LSTM's shape (H = 128, L = 3: the grid route forced there)
     at each (G, T) of LSTM_TIMED, and at H = 256, L = 3 (L2, grid, grid,
     L2) at GRID_256_TIMED, beside cuDNN's LSTM and the bound; the plain
-    versions at the shapes of the kernels' JSON entries."""
+    versions (of each route's layout) at the shapes of the kernels' JSON
+    entries."""
     times = {}
     with torch.no_grad():
         for G, T_ in LSTM_TIMED:
             entry_shape = (G, T_) in ((1, N_WINDOWS), (1, 1))
             by_mode = _lstm_times(dev, flush, 40 + G + T_, G, T_, HID, L, IN, KERNEL_TURNS,
-                                  ("l2", "cluster") if entry_shape else ())
+                                  ("l2", "cluster", "grid") if entry_shape else ())
             times.update({(mode, G, T_): t for mode, t in by_mode.items()})
         for G, T_ in GRID_256_TIMED:
             by_mode = _lstm_times(dev, flush, 50 + G + T_, G, T_, 256, 3, 256,
@@ -1722,7 +1776,8 @@ def synthetic_trajectories(seed: int = 11):
 
 LSTM_KERNELS = tuple(kernel for _, kernel, _ in LSTM_ROUTES.values())
 # every kernel wrapper, by the names of the kernels' JSON entries
-KERNELS = {"K1 cluster": hist_frame_cluster, "K1 band": hist_frame, "K2": hist_scaled,
+KERNELS = {"K1 cluster": hist_frame_cluster, "K1 band": hist_frame,
+           "K1 windows": hist_frame_windows, "K2": hist_scaled,
            "K3": hist_scaled_resized, "scale_counts": scale_counts,
            "scale_counts_resized": scale_counts_resized, "K4 L2": lstm_stacked,
            "K5 L2": lstm_wavefront, "K4 cluster": lstm_stacked_cluster,
@@ -2370,6 +2425,355 @@ def phase_velocity_heads(dev, flush, smi):
     return errs, times, stream_launches, train_launches, val_launches, numbers
 
 
+# ------------------------------------ the model zoo and the dataset path
+
+def _zoo_model(name: str, i: int, dev):
+    """(card model, CPU model) of the zoo with the same weights from a seed."""
+    module = legacy_vit if name == "LegacyTransformer" else vitfly
+    cpu = getattr(module, name)(generator=torch.Generator().manual_seed(ZOO_SEED + i),
+                                device="cpu").eval()
+    card = getattr(module, name)(device=dev).eval()
+    card.load_state_dict(cpu.state_dict())
+    return card, cpu
+
+
+def phase_zoo(dev, smi):
+    """The rest of the model zoo served: 256 windows x 5,000 events ->
+    K3 -> 60x90 -> each model, on the card against the same model on the
+    CPU (velocity and (h, c) within VEL_ATOL x max(1, |x|)); parameter
+    counts; windows/s (median of 5 reps x 10 steps); K3's launches per
+    step, and none of K4's or K5's (LSTMNet's hidden 395 and
+    UNetConvLSTMNet's 200 take the plain loop)."""
+    ex, ey, ep = make_events(21, N_WINDOWS, N_EVENTS, dev)
+    desvel = torch.full((N_WINDOWS, 1), 4.0, device=dev)
+    out = {}
+    for i, (name, count) in enumerate(ZOO.items()):
+        card, cpu = _zoo_model(name, i, dev)
+        n = param_count(card.state_dict())
+        require(n == count, f"{name}: {n} parameters, expected {count}")
+
+        def step(card=card, name=name):
+            small = event_histogram_scaled_resized(ex, ey, ep, H, W, H_OUT, W_OUT, device=dev)
+            if name == "LegacyTransformer":
+                return small, (card(small[:, None]), None)
+            return small, card(small[:, None], desvel)
+
+        with torch.inference_mode():
+            for k in (hist_scaled_resized, *LSTM_KERNELS):
+                k.launches = 0
+            small, (vel, hidden) = step()
+            torch.cuda.synchronize()
+            launches = {"K3": hist_scaled_resized.launches,
+                        "K4/K5": sum(k.launches for k in LSTM_KERNELS)}
+            require(launches["K3"] == 1 and launches["K4/K5"] == 0,
+                    f"{name}: launches {launches}")
+            if name == "LegacyTransformer":
+                ref, ref_hidden = cpu(small.cpu()[:, None]), None
+            else:
+                ref, ref_hidden = cpu(small.cpu()[:, None], desvel.cpu())
+            errs = {"velocity": (vel.cpu() - ref).abs().max().item()}
+            bounds = {"velocity": VEL_ATOL * max(1.0, ref.abs().max().item())}
+            if ref_hidden is not None:
+                for key, g, r in zip(("h", "c"), hidden, ref_hidden):
+                    errs[key] = (g.cpu() - r).abs().max().item()
+                    bounds[key] = VEL_ATOL * max(1.0, r.abs().max().item())
+            require(bool(torch.isfinite(vel).all()) and vel.shape[-1] == 3,
+                    f"{name}: velocity {tuple(vel.shape)} not finite")
+            require(all(errs[k] <= bounds[k] for k in errs),
+                    f"{name}: card against CPU {errs} past {bounds}")
+            rates = serving_rate(lambda: step()[1])
+        out[name] = statistics.median(rates)
+        log(f"zoo {name}: {n:,} params; card vs CPU max|diff| "
+            + ", ".join(f"{k} {v:.2e} (bound {bounds[k]:.2e})" for k, v in errs.items())
+            + f"; launches per step {launches}; windows/s median {out[name]:.1f} (5 reps x 10 "
+            f"steps: {', '.join(f'{r:.1f}' for r in rates)}) on {smi}, f32, TF32 off")
+        del card, cpu
+    return out
+
+
+def prophesee_recording(rng, H=REC_H, W=REC_W, fps=30.0):
+    """A grating of REC_EDGES vertical edges, W / REC_EDGES px apart,
+    moving at REC_SPEED px/s and wrapping round a 640x480 sensor: each
+    column an edge crosses fires REC_ROWS events at distinct rows at the
+    moment it is crossed (ns since the UNIX epoch, polarity {0, 1}); depth
+    frames from the distance to the grating's first edge.  This is
+    tests/test_realdata_e2e.py's generator (one edge, 160 rows) with more
+    edges and rows, so that the stream runs at about 1 M events/s."""
+    t0_ns, n_frames = 1_700_000_000_000_000_000, REC_FRAMES
+    depth_ts = t0_ns + (np.arange(n_frames) / fps * 1e9).astype(np.int64)
+    edge0, span = 40.0, (n_frames - 1) / fps  # px, s
+    # the grating's unwrapped offset passes each integer u at (u - edge0) / speed
+    u = np.arange(int(np.ceil(edge0)), int(edge0 + REC_SPEED * span) + 1)
+    cross_t = np.repeat((u - edge0) / REC_SPEED, REC_EDGES)
+    cross_c = ((u[:, None] + np.arange(REC_EDGES) * (W // REC_EDGES)) % W).reshape(-1)
+    rows = np.argsort(rng.random((len(cross_c), H)), axis=1)[:, :REC_ROWS]
+    ts = np.repeat(t0_ns + cross_t * 1e9, REC_ROWS)
+    order = np.argsort(ts, kind="stable")
+    events = (ts[order], np.repeat(cross_c, REC_ROWS).astype(np.int32)[order],
+              rows.reshape(-1).astype(np.int32)[order],
+              rng.integers(0, 2, size=len(ts)).astype(np.int8)[order])
+    xx = np.arange(W)
+    depths = np.stack([np.broadcast_to(np.clip(
+        np.abs(xx - (edge0 + REC_SPEED * (t - t0_ns) / 1e9)) / W, 0, 1), (H, W))
+        for t in depth_ts]).astype(np.float32)
+    return events, depths, depth_ts.astype(np.float64), t0_ns
+
+
+def encode_evt3(t_us, x, y, p) -> bytes:
+    """Prophesee EVT 3.0 words for each event: TIME_HIGH, TIME_LOW, ADDR_Y,
+    ADDR_X (a copy of tests/test_evt3.py's independent encoder, vectorized
+    with numpy)."""
+    t = np.asarray(t_us, np.int64)
+    words = np.empty((len(t), 4), np.uint16)
+    words[:, 0] = (0x8 << 12) | ((t >> 12) & 0x0FFF)
+    words[:, 1] = (0x6 << 12) | (t & 0x0FFF)
+    words[:, 2] = (0x0 << 12) | (np.asarray(y, np.int64) & 0x0FFF)
+    words[:, 3] = (0x2 << 12) | np.where(np.asarray(p) > 0, 0x0800, 0) | np.asarray(x, np.int64)
+    return words.astype("<u2").tobytes()
+
+
+def davis_stream(seed, dev):
+    """(t, x, y, p) sorted by time on the card: DAVIS_EVENTS uniform events
+    at 260x346 over DAVIS_WINDOWS / 30 s, and the window edges
+    (DAVIS_WINDOWS + 1,)."""
+    n, windows = DAVIS_EVENTS, DAVIS_WINDOWS
+    rng = np.random.default_rng(seed)
+    span = windows / 30.0
+    t = np.sort(rng.uniform(0, span, n)).astype(np.float32)
+    x, y, p = make_events(seed, 1, n, dev)
+    edges = torch.tensor(np.arange(windows + 1) / 30.0, dtype=torch.float32, device=dev)
+    return torch.tensor(t, device=dev), x[0], y[0], p[0], edges
+
+
+def _windows_check(label, t, x, y, p, starts, ends, h, w, thresholds, errs):
+    """K1's window launch (through its wrapper: one launch) on a stream cut
+    by window_offsets against hist_frame_windows_plain, bit for bit."""
+    order, begin, end = window_offsets(t, starts, ends)
+    args = (x[order], y[order], p[order], begin, end, h, w, *thresholds)
+    n0 = hist_frame_windows.launches
+    got = hist_frame_windows(*args)
+    torch.cuda.synchronize()
+    ref = hist_frame_windows_plain(*args)
+    bad = int((got != ref).sum().item())
+    errs.append((got - ref).abs().max().item())
+    route = voxelizer.k1_route(h, w, thresholds[0] != thresholds[1])
+    log(f"K1 windows ({route}) {label}: {len(starts)} windows, "
+        f"{int((end - begin).clamp_min(0).sum().item()):,} window events, {bad} cells differ "
+        f"from plain of {ref.numel():,}; max|frame| {ref.abs().max().item():.1f}")
+    require(hist_frame_windows.launches == n0 + 1, "K1 windows: not one launch per call")
+    require(bad == 0, f"K1 windows disagrees with its plain version ({label})")
+
+
+def phase_dataset(dev, flush, smi):
+    """A real recording to a training trajectory: a Prophesee-like 640x480
+    recording encoded to EVT3, decoded, and packaged on the card
+    (package_real_sequence: K1 over all windows in one launch), the dict
+    equal to the CPU path's key by key, with one threshold (the cluster
+    kernel) and two (the band kernel); K1's window launch against its
+    plain version on a DAVIS-like stream (sorted, shuffled, overlapping and
+    empty windows, two thresholds at 640x480); timed in turns against
+    today's (B, N_max) padded launch, the plain version and torch.bincount
+    over (window, cell) keys, beside the bytes bound; the sort timed alone."""
+    rng = np.random.default_rng(31)
+    (et, ex, ey, ep), depths, dts, t0_ns = prophesee_recording(rng)
+    t_us = np.round((et - t0_ns) / 1e3).astype(np.int64)
+    raw = encode_evt3(t_us, ex, ey, ep)
+    evt3.decode_evt3_bytes(raw[:8])  # builds the decoder's library (first use) outside the timing
+    t0 = time.perf_counter()
+    ev = evt3.decode_evt3_bytes(raw)
+    decode_s = time.perf_counter() - t0
+    require(np.array_equal(ev["t"], t_us) and np.array_equal(ev["x"], ex)
+            and np.array_equal(ev["y"], ey) and np.array_equal(ev["p"], ep * 2 - 1),
+            "EVT3 decode differs from the encoded events")
+    # the decoder's us since the recording's start, back on the epoch's ns
+    event_ns = t0_ns + ev["t"].astype(np.float64) * 1e3
+    p01 = (ev["p"] > 0).astype(np.int8)  # the camera's {0, 1} polarity
+    launches = {}
+    for thresholds, route in (((0.2, 0.2), "cluster"), ((0.2, 0.3), "band")):
+        require(voxelizer.k1_route(REC_H, REC_W, thresholds[0] != thresholds[1]) == route,
+                f"K1 at {REC_H}x{REC_W}, thresholds {thresholds}: not the {route} route")
+        args = ("real_000", event_ns, ev["x"], ev["y"], p01, depths, dts)
+        kw = dict(pos_thresh=thresholds[0], neg_thresh=thresholds[1])
+        hist_frame_windows.launches = 0
+        t0 = time.perf_counter()
+        traj = realdata.package_real_sequence(*args, **kw, device=dev)
+        card_s = time.perf_counter() - t0
+        launches[route] = hist_frame_windows.launches
+        ref = realdata.package_real_sequence(*args, **kw, device="cpu")
+        same = {k: bool(np.array_equal(np.asarray(traj[k]), np.asarray(ref[k]))
+                        and np.asarray(traj[k]).dtype == np.asarray(ref[k]).dtype)
+                for k in ref}
+        log(f"recording -> trajectory ({route}, thresholds {thresholds}): {len(t_us):,} events "
+            f"({len(raw) / 1e6:.2f} MB of EVT3, decoded in {decode_s:.3f} s), evs "
+            f"{traj['evs'].shape}, K1 windows launches {launches[route]}, equal to the CPU's "
+            f"{same}; packaged in {card_s:.3f} s on the card (host clock)")
+        require(all(same.values()), f"the card's trajectory differs from the CPU's: {same}")
+        require(launches[route] == 1, "package_real_sequence: not one K1 launch")
+        require(traj["evs"].shape == (REC_FRAMES - 1, REC_H, REC_W)
+                and bool(np.isfinite(traj["evs"]).all())
+                and (np.abs(traj["evs"]).sum(axis=(1, 2)) > 0).all(),
+                "the trajectory's event frames")
+
+    t, x, y, p, edges = davis_stream(33, dev)
+    errs = []
+    starts, ends = edges[:-1], edges[1:]
+    _windows_check(f"{DAVIS_EVENTS:,} events at {H}x{W}", t, x, y, p, starts, ends, H, W,
+                   (0.2, 0.2), errs)
+    perm = torch.randperm(DAVIS_EVENTS, device=dev, generator=torch.Generator(dev).manual_seed(3))
+    _windows_check("shuffled", t[perm], x[perm], y[perm], p[perm], starts, ends, H, W,
+                   (0.2, 0.2), errs)
+    lap = torch.tensor([0.0, 0.5, 0.25, 1.0, 1.9], device=dev)
+    _windows_check("overlapping and nested", t, x, y, p, lap, lap + 0.5, H, W, (0.2, 0.2), errs)
+    empty = torch.tensor([0.3, 0.7, 1.5, 2.5, -1.0], device=dev)
+    _windows_check("empty (t1 <= t0, after and before the stream)", t, x, y, p, empty,
+                   torch.tensor([0.3, 0.6, 1.6, 3.0, 0.0], device=dev), H, W, (0.2, 0.2), errs)
+    _windows_check("two thresholds", t, x, y, p, starts, ends, H, W, (0.2, 0.3), errs)
+    rx = x * (REC_W / W)
+    ry = y * (REC_H / H)
+    _windows_check(f"two thresholds at {REC_W}x{REC_H}", t, rx, ry, p, starts, ends, REC_H,
+                   REC_W, (0.2, 0.3), errs)
+
+    # timings, in turns, on the sorted stream (its window offsets found once)
+    torch.cuda.synchronize()
+    sort_ms = time_ms(lambda: window_offsets(t[perm], starts, ends), flush, 10)
+    order, begin, end = window_offsets(t, starts, ends)
+    counts = (end - begin).tolist()
+    n_max = max(counts)
+    pad = lambda a, fill: torch.stack([torch.cat([a[b:e], a.new_full((n_max - (e - b),), fill)])
+                                       for b, e in zip(begin.tolist(), end.tolist())])
+    px, py, pp = pad(x, 0.0), pad(y, 0.0), pad(p, 0)
+    require(torch.equal(hist_frame_routed(px, py, pp, H, W),
+                        _frame_windows_launch(x, y, p, begin, end, H, W, 0.2, 0.2)),
+            "the padded (B, N_max) K1 launch and the window launch disagree")
+    xi, yi, sign = bin_events(x, y, p, H, W)
+    win = torch.repeat_interleave(torch.arange(DAVIS_WINDOWS, device=dev), end - begin)
+    keys = win * (H * W) + (yi * W + xi)[begin[0]:end[-1]]
+    weights = sign[begin[0]:end[-1]]
+    require(torch.equal(torch.bincount(keys, weights, minlength=DAVIS_WINDOWS * H * W)
+                        .float().reshape(-1, H, W) * 0.2,
+                        _frame_windows_launch(x, y, p, begin, end, H, W, 0.2, 0.2)),
+            "torch.bincount over (window, cell) keys disagrees with the window launch")
+    fns = {"windows": lambda: _frame_windows_launch(x, y, p, begin, end, H, W, 0.2, 0.2),
+           "padded": lambda: hist_frame_routed(px, py, pp, H, W)}
+    turns = in_turns(fns, ("padded", "windows", "windows", "padded"), flush)
+    plain_ms = time_ms(lambda: hist_frame_windows_plain(x, y, p, begin, end, H, W), flush, 5)
+    library_ms = time_ms(lambda: torch.bincount(keys, weights, minlength=DAVIS_WINDOWS * H * W),
+                         flush, 10)
+    n_win = sum(counts)
+    b_ms, b_by = bound_ms(12 * n_win + 4 * DAVIS_WINDOWS * H * W, n_win + DAVIS_WINDOWS * H * W)
+    band_ms = time_ms(lambda: _frame_windows_launch(rx, ry, p, begin, end, REC_H, REC_W, 0.2,
+                                                    0.3), flush, 10)
+    band_plain_ms = time_ms(lambda: hist_frame_windows_plain(rx, ry, p, begin, end, REC_H,
+                                                             REC_W, 0.2, 0.3), flush, 5)
+    band_bound, band_by = bound_ms(12 * n_win + 4 * DAVIS_WINDOWS * REC_H * REC_W,
+                                   2 * n_win + 3 * DAVIS_WINDOWS * REC_H * REC_W)
+    # the band entry's library call: one bincount whose weights are +pos,
+    # -neg or 0 gives pos * pos_counts - neg * neg_counts per (window,
+    # cell); its f32 sums in another order agree with the kernel within
+    # n * eps * sum |w| at a cell of n events
+    rxi, ryi, rsign = bin_events(rx, ry, p, REC_H, REC_W)
+    n_cells = DAVIS_WINDOWS * REC_H * REC_W
+    rkeys = win * (REC_H * REC_W) + (ryi * REC_W + rxi)[begin[0]:end[-1]]
+    rsign = rsign[begin[0]:end[-1]]
+    rweights = rsign * torch.where(rsign > 0, 0.2, 0.3)
+    band_lib = torch.bincount(rkeys, rweights, minlength=n_cells).float().reshape(-1, REC_H, REC_W)
+    band_ref = _frame_windows_launch(rx, ry, p, begin, end, REC_H, REC_W, 0.2, 0.3)
+    band_tol = (torch.bincount(rkeys, minlength=n_cells)
+                * torch.bincount(rkeys, rweights.abs(), minlength=n_cells).double()
+                * float(np.finfo(np.float32).eps)).reshape(-1, REC_H, REC_W)
+    band_lib_err = (band_lib - band_ref).abs()
+    require(bool((band_lib_err <= band_tol).all()),
+            "torch.bincount with weights +pos/-neg disagrees with the band kernel's window launch")
+    band_lib_ms = time_ms(lambda: torch.bincount(rkeys, rweights, minlength=n_cells), flush, 10)
+    log(f"K1 windows at {H}x{W}, {DAVIS_WINDOWS} windows of {min(counts):,}-{n_max:,} events "
+        f"({n_win:,}), in turns padded, windows, windows, padded: windows "
+        f"{turns['windows'][0]:.4f} / {turns['windows'][1]:.4f} ms, padded (B, N_max) K1 "
+        f"{turns['padded'][0]:.4f} / {turns['padded'][1]:.4f} ms; plain {plain_ms:.4f} ms; "
+        f"torch.bincount over (window, cell) keys {library_ms:.4f} ms; bound {b_ms:.6f} ms "
+        f"({b_by}); the stable sort and searchsorted {sort_ms:.4f} ms; band kernel, two "
+        f"thresholds at {REC_W}x{REC_H}: {band_ms:.4f} ms (plain {band_plain_ms:.4f}, "
+        f"torch.bincount with weights +pos/-neg {band_lib_ms:.4f} (max|diff| "
+        f"{band_lib_err.max().item():.2e}), bound {band_bound:.6f} {band_by}) on {smi}")
+    base = dict(max_abs_err=max(errs), library_ms=library_ms)
+    return launches, {
+        "cluster": dict(base, ms=statistics.mean(turns["windows"]), plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, padded_ms=statistics.mean(turns["padded"]),
+                        sort_ms=sort_ms),
+        "band": dict(base, ms=band_ms, plain_ms=band_plain_ms, bound_ms=band_bound,
+                     bound_by=band_by, library_ms=band_lib_ms)}
+
+
+def texture_trajectory(n=GEN_FRAMES, h=H, w=W, dt=GEN_DT, speeds=GEN_SPEEDS, seed=41):
+    """A smooth texture translating along x by ``speeds`` px a frame with
+    its exact flow field: (frames (n, h, w) in [0.05, 0.95], flows (n, h, w,
+    2) px/s, times (n,) s)."""
+    rng = np.random.default_rng(seed)
+    shift = np.concatenate([[0.0], np.cumsum(speeds[1:])])
+    a, b, c = rng.uniform(0.1, 0.3, 3)
+    yy, xx = np.meshgrid(np.arange(h, dtype=np.float64), np.arange(w, dtype=np.float64),
+                         indexing="ij")
+    frames = np.stack([
+        0.5 + 0.3 * np.sin(a * (xx - s)) * np.cos(b * yy) + 0.15 * np.sin(c * (xx - s + yy))
+        for s in shift]).astype(np.float32)
+    flows = np.zeros((n, h, w, 2), np.float32)
+    flows[..., 0] = (speeds / dt)[:, None, None]
+    return frames, flows, np.arange(n) * dt
+
+
+def _quantized_diff(got, ref, margins, quantum, margin):
+    """(differing pixels, pixels that differ away from a crossing, max |diff|,
+    max |sum diff|) of card against CPU event frames."""
+    diff = got != ref
+    return (int(diff.sum()), int((diff & (margins >= margin)).sum()),
+            float(np.abs(got - ref).max(initial=0.0)),
+            float(np.abs(got.sum(0) - ref.sum(0)).max(initial=0.0)))
+
+
+def phase_event_generation(dev, smi):
+    """One 49-frame trajectory at 260x346 through to_events.trajectory_events
+    by each scheme on the card against the CPU: equal wherever the CPU's
+    quotient lay farther than GEN_MARGIN from an integer (FLOW_MARGIN on
+    upsampled frames), each differing pixel within one quantum, per-pixel
+    sums within 1e-5 + a quantum; ms per trajectory (host clock, median of
+    3 after one)."""
+    frames, flows, ts = texture_trajectory()
+    factors = [upsample.adaptive_factor(flows[i - 1], flows[i], ts[i] - ts[i - 1])
+               for i in range(1, GEN_FRAMES)]
+    require(min(factors) == 1 and max(factors) == 16 and len(set(factors)) == 16,
+            f"adaptive factors {factors} do not span 1-16")
+    fine, _, ks = upsample.upsample_sequence(frames, flows, ts, return_factors=True,
+                                             device="cpu")
+    margins = {
+        "esim": esim.esim_margins(frames, device="cpu").numpy(),
+        "esim_flow": esim.esim_margins(fine, device="cpu").numpy()[np.cumsum(ks) - 1],
+        "difflog": voxelizer.difflog_margins(frames[1:], frames[:-1], device="cpu").numpy(),
+    }
+    ms = {}
+    for scheme in to_events.SCHEMES:
+        run = lambda d: to_events.trajectory_events(frames, scheme, 0.2, flows, ts, device=d)
+        got = run(dev).cpu().numpy()
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(dev)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[scheme] = statistics.median(times[1:])
+        ref = run("cpu").numpy()
+        margin = FLOW_MARGIN if scheme == "esim_flow" else GEN_MARGIN
+        n_diff, n_far, dmax, smax = _quantized_diff(got, ref, margins[scheme], 0.2, margin)
+        log(f"event generation {scheme}: {got.shape}, {int((got != 0).sum()):,} nonzero "
+            f"pixels; card vs CPU: {n_diff} pixels differ ({n_far} away from a crossing), max "
+            f"|diff| {dmax:.3g}, max |sum diff| {smax:.3g}; {ms[scheme]:.2f} ms per trajectory "
+            f"({', '.join(f'{t:.2f}' for t in times)}) on {smi}")
+        require(got.shape == (GEN_FRAMES - 1, H, W) and bool(np.isfinite(got).all())
+                and (got != 0).any(), f"{scheme}: event frames")
+        require(n_far == 0 and dmax <= 0.2 + 1e-6 and smax <= 1e-5 + 0.2,
+                f"{scheme}: the card disagrees with the CPU past the crossings' bound")
+    return ms
+
+
 def _on_alarm(signum, frame):
     raise TimeoutError(f"chip_smoke exceeded its {BUDGET_S}s budget")
 
@@ -2446,6 +2850,15 @@ def main() -> int:
     with Phase("velocity heads: configurations A and B at full width"):
         (head_errs, head_times, head_stream, head_train, head_val,
          head_numbers) = phase_velocity_heads(dev, flush, smi)
+    _free_device_memory()
+    with Phase("model zoo served: ConvNet, LSTMNet, ViT, UNetConvLSTMNet, LegacyTransformer"):
+        zoo_rates = phase_zoo(dev, smi)
+    with Phase("real recording -> training trajectory: EVT3, package_real_sequence, "
+               "K1 over time windows"):
+        dataset_launches, k1w = phase_dataset(dev, flush, smi)
+    _free_device_memory()
+    with Phase("event generation: esim, esim_flow, difflog on a 49-frame trajectory"):
+        gen_ms = phase_event_generation(dev, smi)
     signal.alarm(0)
 
     def entry(name, source, replaces, n, key, **times):
@@ -2507,6 +2920,16 @@ def main() -> int:
                 validation_launches=head_val if (mode, route) == ("stacked", "grid") else 0,
                 max_abs_err=head_errs[(mode, route)], ms=t[route], plain_ms=t[f"plain_{route}"],
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    # K1 over time windows: launches on the dataset path
+    # (package_real_sequence of the recording), one threshold on the
+    # cluster kernel, two on the band kernel
+    for route, kernel in (("cluster", "hist_frame_cluster_kernel"),
+                          ("band", "hist_frame_kernel")):
+        kernels.append(dict(
+            name=f"hist_frame_windows (K1 over time windows, {kernel}, window offsets)",
+            route="cuda", source=vox, replaces="evfly_tpu/ops/voxelizer.py:153",
+            launches=dataset_launches[route], training_launches=train_launches["K1 windows"],
+            **k1w[route]))
     streaming = "; ".join(
         f"{mode} {route} {'graph' if graph else 'eager'} "
         + ", ".join(f"{c:.3f}" for c, _ in numbers[(mode, route, graph)])
@@ -2518,6 +2941,7 @@ def main() -> int:
         + ", ".join(f"G={G} {'graph' if graph else 'eager'} "
                     + ", ".join(f"{r:.1f}" for r in numbers[(G, graph)])
                     for G in RATE_STREAMS for graph in (True, False))
+        + f"; zoo windows/s {zoo_rates}; event generation ms per trajectory {gen_ms}"
         + f"; training {train_numbers}; velocity heads {head_numbers}, head LSTM ms (grid / "
         f"L2 / cuDNN) " + ", ".join(f"{m} G={G} T={T_} {t['grid']:.4f} / {t['l2']:.4f} / "
                                     f"{t['library_ms']:.4f}"

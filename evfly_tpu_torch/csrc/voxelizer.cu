@@ -70,6 +70,25 @@
 // Frames that no cluster of K1 holds keep K1's band kernel
 // (`hist_frame_kernel`), chosen by the wrappers by shape.
 //
+// K1 over time windows (`event_frames_from_windows` of the JAX package, a
+// lax.map of K1 over the windows with every window masking the whole
+// stream by time, T x N work): both K1 kernels take an optional pair of
+// int64 offset arrays `begin`, `end` (T,).  With them, window b reads the
+// events [begin[b], end[b]) of one (N,) stream, which the wrapper has
+// sorted by time, so the T windows of a recording are one launch that
+// reads each event once per window holding it.  Windows may overlap, come
+// in any order or be empty (end <= begin).  A window's first event has any
+// alignment: `event_slice` reads one by one up to the first 16-byte
+// boundary that x, y and pol share.  Without offsets, window b reads
+// events [b * N, (b + 1) * N) of a (B, N) batch, as before.  The host
+// checks that every offset is below 2^31.  With two thresholds the window
+// launch writes fma(pos, pos_counts, -(neg * neg_counts)), one rounding
+// fewer than K1's pos * pos_counts - neg * neg_counts: that is the value
+// of the JAX package's event_frames_from_windows, whose compiler contracts
+// the multiply and the subtract into one FMA inside its lax.map (its
+// event_histogram has no FMA), so both ports equal their JAX function bit
+// for bit.
+//
 // K1's band kernel: the frame cut into bands of rows of 32 KiB, one block
 // per (window, band), windows on grid.x (up to 2^31 - 1 of them; grid.y
 // stops at 65,535) and bands on grid.y.  Each block reads all of the
@@ -166,12 +185,37 @@ __device__ __forceinline__ int bin_event(float xf, float yf, int p, int H, int W
   return yi * W + xi;
 }
 
+// The first event and the count of window b: [win_begin[b], win_end[b])
+// of one stream with offsets, else [b * N, (b + 1) * N) of a (B, N) batch
+struct WindowRange {
+  size_t first;
+  int n;
+};
+
+__device__ __forceinline__ WindowRange window_range(const long long* win_begin,
+                                                    const long long* win_end, int b, int N) {
+  if (win_begin == nullptr) return {static_cast<size_t>(b) * N, N};
+  const long long e0 = win_begin[b], e1 = win_end[b];
+  return {static_cast<size_t>(e0), static_cast<int>(e1 > e0 ? e1 - e0 : 0)};
+}
+
+// A cell's value with two thresholds: pos * pc - neg * nc, each product
+// rounded (K1), or with `fused` fma(pos, pc, -(neg * nc)) (K1 over time
+// windows); no contraction by the compiler either way
+__device__ __forceinline__ float two_pass_value(float pos_thresh, float neg_thresh, int pc,
+                                                int nc, bool fused) {
+  const float neg = __fmul_rn(neg_thresh, static_cast<float>(nc));
+  if (fused) return __fmaf_rn(pos_thresh, static_cast<float>(pc), -neg);
+  return __fsub_rn(__fmul_rn(pos_thresh, static_cast<float>(pc)), neg);
+}
+
 // ---------------------------------------------------------------- K1
 
 __global__ void __launch_bounds__(kBandThreads)
 hist_frame_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                  const int* __restrict__ pol, float* __restrict__ out, int N, int H, int W,
-                  int rows_per_band, float pos_thresh, float neg_thresh, int two_pass) {
+                  const int* __restrict__ pol, const long long* __restrict__ win_begin,
+                  const long long* __restrict__ win_end, float* __restrict__ out, int N, int H,
+                  int W, int rows_per_band, float pos_thresh, float neg_thresh, int two_pass) {
   extern __shared__ int band[];  // (rows_per_band, W) counts; two_pass: pos then neg
   const int b = blockIdx.x;
   const int row0 = blockIdx.y * rows_per_band;
@@ -184,10 +228,11 @@ hist_frame_kernel(const float* __restrict__ x, const float* __restrict__ y,
   for (int i = tid; i < (two_pass ? 2 : 1) * rows_per_band * W; i += nthreads) band[i] = 0;
   __syncthreads();
 
-  const float* xb = x + static_cast<size_t>(b) * N;
-  const float* yb = y + static_cast<size_t>(b) * N;
-  const int* pb = pol + static_cast<size_t>(b) * N;
-  for (int e = tid; e < N; e += nthreads) {
+  const WindowRange win = window_range(win_begin, win_end, b, N);
+  const float* xb = x + win.first;
+  const float* yb = y + win.first;
+  const int* pb = pol + win.first;
+  for (int e = tid; e < win.n; e += nthreads) {
     int s = 0;
     const int idx = bin_event(xb[e], yb[e], pb[e], H, W, &s) - first;
     if (idx < 0 || idx >= cells) continue;  // dropped, or another block's band
@@ -200,10 +245,10 @@ hist_frame_kernel(const float* __restrict__ x, const float* __restrict__ y,
   __syncthreads();
 
   float* ob = out + static_cast<size_t>(b) * H * W + first;
+  const bool fused = win_begin != nullptr;
   for (int i = tid; i < cells; i += nthreads) {
     if (two_pass) {
-      ob[i] = __fsub_rn(__fmul_rn(pos_thresh, static_cast<float>(pos_counts[i])),
-                        __fmul_rn(neg_thresh, static_cast<float>(neg_counts[i])));
+      ob[i] = two_pass_value(pos_thresh, neg_thresh, pos_counts[i], neg_counts[i], fused);
     } else {
       ob[i] = __fmul_rn(pos_thresh, static_cast<float>(band[i]));
     }
@@ -490,8 +535,9 @@ __device__ __forceinline__ void add_to(int* base, int offset, int owner, int ran
 
 __global__ void __launch_bounds__(kFrameThreads)
 hist_frame_cluster_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                          const int* __restrict__ pol, float* __restrict__ out, int N, int H,
-                          int W, float pos_thresh, float neg_thresh, int two_pass) {
+                          const int* __restrict__ pol, const long long* __restrict__ win_begin,
+                          const long long* __restrict__ win_end, float* __restrict__ out, int N,
+                          int H, int W, float pos_thresh, float neg_thresh, int two_pass) {
   // one band array, or pos then neg counts; cell i of CTA r's band at
   // lead(r) + i, lead(r) being the output's word offset of that cell mod 4
   extern __shared__ int4 smem4[];
@@ -511,8 +557,9 @@ hist_frame_cluster_kernel(const float* __restrict__ x, const float* __restrict__
 
   // 1. this thread's first group of events in flight; zero the band(s);
   //    no event lands before every band is zero
-  const size_t ev0 = static_cast<size_t>(b) * N;
-  const EventSlice slice = event_slice(x + ev0, y + ev0, pol + ev0, N, C, rank);
+  const WindowRange win = window_range(win_begin, win_end, b, N);
+  const size_t ev0 = win.first;
+  const EventSlice slice = event_slice(x + ev0, y + ev0, pol + ev0, win.n, C, rank);
   EventGroup first = {};
   if (tid < slice.groups) first = load_group(x + ev0, y + ev0, pol + ev0, slice, tid);
   const int n4 = (two_pass ? 2 : 1) * stride / 4;
@@ -540,10 +587,10 @@ hist_frame_cluster_kernel(const float* __restrict__ x, const float* __restrict__
   const int cells = max(0, min(rows, H - row0)) * W;
   const int lead = lead_of(rank);
   float* dst = out + frame0 + static_cast<size_t>(row0) * W - lead;
+  const bool fused = win_begin != nullptr;
   auto value = [&](int s) {
     if (two_pass) {
-      return __fsub_rn(__fmul_rn(pos_thresh, static_cast<float>(band[s])),
-                       __fmul_rn(neg_thresh, static_cast<float>(band[stride + s])));
+      return two_pass_value(pos_thresh, neg_thresh, band[s], band[stride + s], fused);
     }
     return __fmul_rn(pos_thresh, static_cast<float>(band[s]));
   };
@@ -555,15 +602,10 @@ hist_frame_cluster_kernel(const float* __restrict__ x, const float* __restrict__
     const int4 v = smem4[g];
     if (two_pass) {
       const int4 n = smem4[stride / 4 + g];
-      dst4[g] = make_float4(
-          __fsub_rn(__fmul_rn(pos_thresh, static_cast<float>(v.x)),
-                    __fmul_rn(neg_thresh, static_cast<float>(n.x))),
-          __fsub_rn(__fmul_rn(pos_thresh, static_cast<float>(v.y)),
-                    __fmul_rn(neg_thresh, static_cast<float>(n.y))),
-          __fsub_rn(__fmul_rn(pos_thresh, static_cast<float>(v.z)),
-                    __fmul_rn(neg_thresh, static_cast<float>(n.z))),
-          __fsub_rn(__fmul_rn(pos_thresh, static_cast<float>(v.w)),
-                    __fmul_rn(neg_thresh, static_cast<float>(n.w))));
+      dst4[g] = make_float4(two_pass_value(pos_thresh, neg_thresh, v.x, n.x, fused),
+                            two_pass_value(pos_thresh, neg_thresh, v.y, n.y, fused),
+                            two_pass_value(pos_thresh, neg_thresh, v.z, n.z, fused),
+                            two_pass_value(pos_thresh, neg_thresh, v.w, n.w, fused));
     } else {
       dst4[g] = make_float4(__fmul_rn(pos_thresh, static_cast<float>(v.x)),
                             __fmul_rn(pos_thresh, static_cast<float>(v.y)),
@@ -1231,10 +1273,13 @@ int launch_scaled_cluster(const void* x, const void* y, const void* pol, const v
 
 }  // namespace
 
-extern "C" int evfly_hist_frame(const void* x, const void* y, const void* pol, void* out,
-                                int B, int N, int H, int W, int rows_per_band,
-                                float pos_thresh, float neg_thresh, int two_pass,
-                                void* stream) {
+namespace {
+
+// K1's band kernel over B windows: of a (B, N) batch, or with offsets
+// (begin, end non-null) the windows [begin[b], end[b]) of one stream
+int launch_hist_frame(const void* x, const void* y, const void* pol, const void* begin,
+                      const void* end, void* out, int B, int N, int H, int W, int rows_per_band,
+                      float pos_thresh, float neg_thresh, int two_pass, void* stream) {
   const size_t smem =
       static_cast<size_t>((two_pass ? 2 : 1) * rows_per_band * W) * sizeof(int);
   if (smem > static_cast<size_t>(kSmemLimit)) return static_cast<int>(cudaErrorInvalidValue);
@@ -1244,10 +1289,56 @@ extern "C" int evfly_hist_frame(const void* x, const void* y, const void* pol, v
     const dim3 grid(B, (H + rows_per_band - 1) / rows_per_band);
     hist_frame_kernel<<<grid, kBandThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(y),
-        static_cast<const int*>(pol), static_cast<float*>(out), N, H, W, rows_per_band,
+        static_cast<const int*>(pol), static_cast<const long long*>(begin),
+        static_cast<const long long*>(end), static_cast<float*>(out), N, H, W, rows_per_band,
         pos_thresh, neg_thresh, two_pass);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K1's cluster kernel over B windows, as launch_hist_frame
+int launch_hist_frame_cluster(const void* x, const void* y, const void* pol, const void* begin,
+                              const void* end, void* out, int B, int N, int H, int W,
+                              int cluster, float pos_thresh, float neg_thresh, int two_pass,
+                              void* stream) {
+  if (!frame_cluster_fits(H, W, two_pass, cluster)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = prepare_once(hist_frame_cluster_kernel, &g_frame_cluster_done, true);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B > 0) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(
+        B, cluster, kFrameThreads, frame_cluster_smem(H, W, two_pass, cluster), stream, &attr);
+    err = cudaLaunchKernelEx(&cfg, hist_frame_cluster_kernel, static_cast<const float*>(x),
+                             static_cast<const float*>(y), static_cast<const int*>(pol),
+                             static_cast<const long long*>(begin),
+                             static_cast<const long long*>(end), static_cast<float*>(out), N,
+                             H, W, pos_thresh, neg_thresh, two_pass);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int evfly_hist_frame(const void* x, const void* y, const void* pol, void* out,
+                                int B, int N, int H, int W, int rows_per_band,
+                                float pos_thresh, float neg_thresh, int two_pass,
+                                void* stream) {
+  return launch_hist_frame(x, y, pol, nullptr, nullptr, out, B, N, H, W, rows_per_band,
+                           pos_thresh, neg_thresh, two_pass, stream);
+}
+
+// K1's band kernel over T time windows of one sorted stream: window b is
+// the events [begin[b], end[b]) (int64, each below 2^31)
+extern "C" int evfly_hist_frame_windows(const void* x, const void* y, const void* pol,
+                                        const void* begin, const void* end, void* out, int T,
+                                        int H, int W, int rows_per_band, float pos_thresh,
+                                        float neg_thresh, int two_pass, void* stream) {
+  if (begin == nullptr || end == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_hist_frame(x, y, pol, begin, end, out, T, 0, H, W, rows_per_band, pos_thresh,
+                           neg_thresh, two_pass, stream);
 }
 
 // K2's (resize == 0) or K3's (resize != 0) function over K1's counts (B, H,
@@ -1286,22 +1377,20 @@ extern "C" int evfly_hist_frame_cluster(const void* x, const void* y, const void
                                         void* out, int B, int N, int H, int W, int cluster,
                                         float pos_thresh, float neg_thresh, int two_pass,
                                         void* stream) {
-  if (!frame_cluster_fits(H, W, two_pass, cluster)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = prepare_once(hist_frame_cluster_kernel, &g_frame_cluster_done, true);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (B > 0) {
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_config(
-        B, cluster, kFrameThreads, frame_cluster_smem(H, W, two_pass, cluster), stream, &attr);
-    err = cudaLaunchKernelEx(&cfg, hist_frame_cluster_kernel, static_cast<const float*>(x),
-                             static_cast<const float*>(y), static_cast<const int*>(pol),
-                             static_cast<float*>(out), N, H, W, pos_thresh, neg_thresh,
-                             two_pass);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_hist_frame_cluster(x, y, pol, nullptr, nullptr, out, B, N, H, W, cluster,
+                                   pos_thresh, neg_thresh, two_pass, stream);
+}
+
+// K1's cluster kernel over T time windows of one sorted stream, as
+// evfly_hist_frame_windows
+extern "C" int evfly_hist_frame_cluster_windows(const void* x, const void* y, const void* pol,
+                                                const void* begin, const void* end, void* out,
+                                                int T, int H, int W, int cluster,
+                                                float pos_thresh, float neg_thresh,
+                                                int two_pass, void* stream) {
+  if (begin == nullptr || end == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_hist_frame_cluster(x, y, pol, begin, end, out, T, 0, H, W, cluster,
+                                   pos_thresh, neg_thresh, two_pass, stream);
 }
 
 // K2 on clusters of `cluster` CTAs, one cluster per window, N events each

@@ -1,15 +1,15 @@
 """Model construction from a config: the reference's ``model_type`` dispatch
-(learner.py:336-405), as ``evfly_tpu/models/registry.py``, for the families
-the port has:
+(learner.py:336-405), as ``evfly_tpu/models/registry.py``:
 
   'OrigUNet' (velpred 0, 1, 11, 2)     -> OrigUNet
   ['OrigUNet', 'VITFLY_ViTLSTM']       -> OrigUNet_w_VITFLY_ViTLSTM
   ['OrigUNet', 'ConvNet_w_VelPred']    -> OrigUNet_w_ConvNet_w_VelPred
   'VITFLY_ViTLSTM' / 'LSTMNetVIT'      -> LSTMNetVIT
+  'VITFLY_ViT' / 'ViT'                 -> ViT
+  'VITFLY_LSTMNet' / 'LSTMNet'         -> LSTMNet
+  'VITFLY_ConvNet' / 'ConvNet'         -> ConvNet
+  'VITFLY_UNetConvLSTMNet' / 'UNetConvLSTMNet' -> UNetConvLSTMNet
   'ConvNet_w_VelPred'                  -> ConvNet_w_VelPred
-
-The other vitfly models raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from .composites import (
     OrigUNet_w_VITFLY_ViTLSTM,
 )
 from .origunet import OrigUNet
-from .vitfly import LSTMNetVIT
+from .vitfly import ConvNet, LSTMNet, LSTMNetVIT, UNetConvLSTMNet, ViT
 
 
 def enc_params_from_config(cfg: EvflyConfig) -> dict:
@@ -67,11 +67,18 @@ def fc_params_from_config(cfg: EvflyConfig) -> dict:
     }
 
 
-_VITLSTM = ("VITFLY_ViTLSTM", "LSTMNetVIT")
-# model types of the JAX package the port does not build yet
-_NOT_PORTED = ("VITFLY_ViT", "ViT", "VITFLY_LSTMNet", "LSTMNet", "VITFLY_ConvNet", "ConvNet",
-               "VITFLY_UNetConvLSTMNet", "UNetConvLSTMNet")
-
+_VITFLY = {
+    "VITFLY_ViTLSTM": LSTMNetVIT,
+    "LSTMNetVIT": LSTMNetVIT,
+    "VITFLY_ViT": ViT,
+    "ViT": ViT,
+    "VITFLY_LSTMNet": LSTMNet,
+    "LSTMNet": LSTMNet,
+    "VITFLY_ConvNet": ConvNet,
+    "ConvNet": ConvNet,
+    "VITFLY_UNetConvLSTMNet": UNetConvLSTMNet,
+    "UNetConvLSTMNet": UNetConvLSTMNet,
+}
 
 
 def build_model(cfg: EvflyConfig, is_deployment: bool = False, device: DeviceLike = None,
@@ -114,9 +121,6 @@ def build_model(cfg: EvflyConfig, is_deployment: bool = False, device: DeviceLik
             input_shape=[1, 1, resize[0], resize[1]],
             generator=generator, device=device,
         )
-    if mt in _VITLSTM:
-        return LSTMNetVIT(generator=generator, device=device)
-    if mt in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model_type {mt!r} is not ported yet: ROADMAP §1 item 3 (the rest of the model zoo)")
+    if mt in _VITFLY:
+        return _VITFLY[mt](generator=generator, device=device)
     raise ValueError(f"Invalid model_type {mt}")

@@ -1,8 +1,8 @@
 """Build and load the port's host-side native libraries.
 
-``evstream.cpp`` (the event accumulator) and ``flightcore.cpp`` (the
-flight-stack core) are copies of the JAX package's sources in
-``evfly_tpu/native/``.  Each builds with one ``g++ -O3 -fPIC -std=c++17
+``evstream.cpp`` (the event accumulator), ``flightcore.cpp`` (the
+flight-stack core) and ``evt3.cpp`` (the Prophesee EVT3 decoder) are copies
+of the JAX package's sources in ``evfly_tpu/native/``.  Each builds with one ``g++ -O3 -fPIC -std=c++17
 -shared`` into ``build/`` at the repository root (git-ignored), named by a
 sha256 of the source and the flags, at its first use; a library whose hash
 matches is reused.  A build writes to a name of its own and renames it into
@@ -25,7 +25,7 @@ import threading
 SRC_DIR = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR.parent.parent / "build"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
-LIBRARIES = ("evstream", "flightcore")
+LIBRARIES = ("evstream", "flightcore", "evt3")
 
 
 def _cxx() -> str:

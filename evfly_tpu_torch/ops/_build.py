@@ -42,6 +42,8 @@ _SIGNATURES = {
     "evfly_hist_frame": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P],
     "evfly_scale_counts": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
     "evfly_hist_frame_cluster": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P],
+    "evfly_hist_frame_windows": [_P] * 6 + [_I] * 4 + [_F, _F, _I, _P],
+    "evfly_hist_frame_cluster_windows": [_P] * 6 + [_I] * 4 + [_F, _F, _I, _P],
     "evfly_hist_scaled_cluster": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
     "evfly_hist_scaled_resized_cluster": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
     "evfly_hist_frame_cluster_fits": [_I] * 4,

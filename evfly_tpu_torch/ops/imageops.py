@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..precision import precision_scope
+
 
 def conv2d(
     x: torch.Tensor,
@@ -114,6 +116,28 @@ def resize_matrix(n_in: int, n_out: int, align_corners: bool = False, n_out_pad:
     np.add.at(R, (np.arange(n_out), i1), w1.astype(np.float32))
     R.setflags(write=False)  # lru_cache shares this array across callers
     return R
+
+
+def interpolate_bilinear_mm(
+    x: torch.Tensor, size: Tuple[int, int], align_corners: bool = False
+) -> torch.Tensor:
+    """``interpolate_bilinear`` as two matrix products, out = R_h @ x @ R_w^T,
+    with ``resize_matrix``'s dense operators (``imageops.interpolate_bilinear_mm``).
+    The products run in full f32 whatever PyTorch's TF32 flag says, as the
+    JAX package runs them at HIGHEST.  x: (..., H, W)."""
+    h_out, w_out = int(size[0]), int(size[1])
+    h_in, w_in = x.shape[-2], x.shape[-1]
+    xf = x.to(torch.float32)
+    with precision_scope("highest"):
+        if h_in != h_out:
+            rh = torch.as_tensor(resize_matrix(h_in, h_out, align_corners).copy(),
+                                 device=x.device)
+            xf = torch.matmul(rh, xf)
+        if w_in != w_out:
+            rw = torch.as_tensor(resize_matrix(w_in, w_out, align_corners).copy(),
+                                 device=x.device)
+            xf = torch.matmul(xf, rw.T)
+    return xf.to(x.dtype)
 
 
 def pixel_shuffle(x: torch.Tensor, upscale_factor: int) -> torch.Tensor:

@@ -11,7 +11,12 @@ with ``counts`` the signed event count frame under np.histogram2d binning:
 - ``event_histogram_scaled``: ``clip(counts / quantile(|counts|, 0.97),
   +-1)``, through kernel K2 (``hist_scaled_routed``);
 - ``event_histogram_scaled_resized``: the same frame resized bilinearly to
-  (h_out, w_out), through kernel K3 (``hist_scaled_resized_routed``).
+  (h_out, w_out), through kernel K3 (``hist_scaled_resized_routed``);
+- ``event_frames_from_windows``: many time windows of one stream -> (T, H,
+  W) frames, the stream sorted by time once and every window binned in one
+  launch of K1 over offsets into it (``hist_frame_windows``);
+- ``difflog_events``: the quantized log difference of two frames (torch
+  ops).
 
 The kernels are in ``csrc/voxelizer.cu``.  Each wrapper ``hist_*`` has a
 plain PyTorch version ``hist_*_plain``, which CPU tensors take and against
@@ -451,6 +456,136 @@ def hist_frame_routed(
     return hist_frame(x, y, pol, H, W, pos_thresh, neg_thresh)
 
 
+def hist_frame_windows_plain(
+    x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, begin: torch.Tensor,
+    end: torch.Tensor, H: int, W: int, pos_thresh: float = 0.2, neg_thresh: float = 0.2,
+) -> torch.Tensor:
+    """Plain PyTorch version of K1 over time windows: (N,) events of one
+    stream and (T,) int64 offsets -> (T, H, W) frames, window b the events
+    [begin[b], end[b]) (none where end <= begin).  One ``index_add_`` over
+    (window, cell) keys, each event repeated once per window that holds it
+    (``repeat_interleave``), so windows may overlap."""
+    T = begin.shape[0]
+    dev = x.device
+    lengths = (end - begin).clamp_min(0)
+    total = int(lengths.sum().item())
+    win = torch.repeat_interleave(torch.arange(T, device=dev), lengths, output_size=total)
+    first = torch.repeat_interleave(torch.cumsum(lengths, 0) - lengths - begin, lengths,
+                                    output_size=total)
+    idx = torch.arange(total, device=dev) - first
+    xi, yi, sign = bin_events(x[idx], y[idx], pol[idx], H, W)
+    key = win * (H * W) + yi * W + xi
+    zeros = torch.zeros(T * H * W, dtype=torch.float32, device=dev)
+    if pos_thresh == neg_thresh:
+        return (pos_thresh * zeros.index_add_(0, key, sign)).reshape(T, H, W)
+    pos_counts = zeros.clone().index_add_(0, key, sign.clamp_min(0.0))
+    neg_counts = zeros.index_add_(0, key, (-sign).clamp_min(0.0))
+    return fused_two_pass(pos_counts, neg_counts, pos_thresh, neg_thresh).reshape(T, H, W)
+
+
+def fused_two_pass(pos_counts: torch.Tensor, neg_counts: torch.Tensor, pos_thresh: float,
+                   neg_thresh: float) -> torch.Tensor:
+    """fma(pos, pos_counts, -(neg * neg_counts)) in f32: the two-threshold
+    frame of the JAX package's ``event_frames_from_windows``, whose
+    compiler contracts ``pos * pos_counts - neg * neg_counts`` into one FMA
+    inside its lax.map (its ``event_histogram`` rounds both products).  In
+    f64 the product of the f32 threshold and a count below 2^29 is exact,
+    and so is its difference with the rounded f32 product at the magnitudes
+    of a count frame, so one rounding to f32 gives the FMA's value."""
+    pos64 = torch.tensor(pos_thresh, dtype=torch.float32).to(torch.float64)
+    neg = (neg_thresh * neg_counts).to(torch.float64)
+    return (pos64 * pos_counts.to(torch.float64) - neg).to(torch.float32)
+
+
+def _window_events(x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, begin: torch.Tensor,
+                   end: torch.Tensor):
+    """The events and offsets as K1's window launch takes them: (N,) f32 x,
+    y and int32 pol and (T,) int64 begin, end, contiguous on one CUDA
+    device, N below 2^31; raises on anything else."""
+    name = "hist_frame_windows"
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dim() != 1 or y.shape != x.shape or pol.shape != x.shape:
+        raise ValueError(f"{name}: x, y, pol must share one (N,) shape, got "
+                         f"{tuple(x.shape)}, {tuple(y.shape)}, {tuple(pol.shape)}")
+    if begin.dim() != 1 or end.shape != begin.shape:
+        raise ValueError(f"{name}: begin and end must share one (T,) shape, got "
+                         f"{tuple(begin.shape)}, {tuple(end.shape)}")
+    if any(t.device != x.device for t in (y, pol, begin, end)):
+        raise ValueError(f"{name}: events and offsets must be on one device")
+    if x.shape[0] >= 2 ** 31:
+        raise ValueError(f"{name}: {x.shape[0]} events; the kernels index fewer than 2^31")
+    pc = pol if pol.dtype == torch.int32 else torch.where(
+        pol > 0, 1, torch.where(pol < 0, -1, 0)).to(torch.int32)
+    return (x.to(torch.float32).contiguous(), y.to(torch.float32).contiguous(),
+            pc.contiguous(), begin.to(torch.int64).contiguous(),
+            end.to(torch.int64).contiguous())
+
+
+def _frame_windows_launch(x, y, pol, begin, end, H: int, W: int, pos_thresh: float,
+                          neg_thresh: float) -> torch.Tensor:
+    """One launch of K1 over the T windows [begin[b], end[b]) of a stream,
+    on ``k1_route``'s kernel.  The offsets must lie in [0, N];
+    ``hist_frame_windows`` checks them."""
+    x, y, pol, begin, end = _window_events(x, y, pol, begin, end)
+    T = begin.shape[0]
+    two_pass = pos_thresh != neg_thresh
+    route = k1_route(H, W, two_pass)
+    out = torch.empty(T, H, W, dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    args = (x.data_ptr(), y.data_ptr(), pol.data_ptr(), begin.data_ptr(), end.data_ptr(),
+            out.data_ptr(), T, H, W)
+    with torch.cuda.device(x.device):
+        if route == "cluster":
+            if T * K1_CLUSTER >= 2 ** 31:
+                raise ValueError(f"hist_frame_windows: {T} windows x {K1_CLUSTER} CTAs pass "
+                                 f"grid.x")
+            status = lib.evfly_hist_frame_cluster_windows(
+                *args, K1_CLUSTER, pos_thresh, neg_thresh, int(two_pass),
+                _build.stream_of(x.device))
+        else:
+            arrays = 2 if two_pass else 1
+            rows_per_band = max(1, min(H, _BAND_INTS // (W * arrays)))
+            status = lib.evfly_hist_frame_windows(
+                *args, rows_per_band, pos_thresh, neg_thresh, int(two_pass),
+                _build.stream_of(x.device))
+    _build.check(f"evfly_hist_frame{'_cluster' if route == 'cluster' else ''}_windows", status)
+    return out
+
+
+def hist_frame_windows(
+    x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, begin: torch.Tensor,
+    end: torch.Tensor, H: int, W: int, pos_thresh: float = 0.2, neg_thresh: float = 0.2,
+) -> torch.Tensor:
+    """K1 over time windows: (N,) events of one stream and (T,) int64
+    offsets -> (T, H, W) frames, window b the events [begin[b], end[b])
+    (none where end <= begin; windows may overlap and come in any order),
+    in one launch for all T windows on ``k1_route``'s kernel: the cluster
+    kernel, or the band kernel for frames no cluster holds.  Each frame is
+    ``hist_frame``'s of its window's events, except that two thresholds give
+    ``fused_two_pass``'s value, as the JAX package's
+    ``event_frames_from_windows``.
+
+    CPU tensors take ``hist_frame_windows_plain``; CUDA tensors launch the
+    kernel or raise.  The offsets are checked to lie in [0, N] before the
+    launch (one read of their extremes to the host).
+    ``hist_frame_windows.launches`` counts the launches.
+    """
+    if x.device.type == "cpu":
+        return hist_frame_windows_plain(x, y, pol, begin, end, H, W, pos_thresh, neg_thresh)
+    if begin.numel():
+        lo, hi = torch.aminmax(torch.stack([begin, end]).to(torch.int64))
+        if lo.item() < 0 or hi.item() > x.shape[0]:
+            raise ValueError(f"hist_frame_windows: offsets must lie in [0, {x.shape[0]}], "
+                             f"got [{lo.item()}, {hi.item()}]")
+    out = _frame_windows_launch(x, y, pol, begin, end, H, W, pos_thresh, neg_thresh)
+    hist_frame_windows.launches += 1
+    return out
+
+
+hist_frame_windows.launches = 0
+
+
 def _scaled_cluster_launch(x, y, pol, H: int, W: int, thresh: float, q: float, iters: int,
                            cluster: int):
     """Launch K2's cluster kernel on clusters of ``cluster`` CTAs; raises
@@ -720,6 +855,95 @@ def event_histogram_reference(
     flat = torch.zeros(x.shape[0], H * W, dtype=torch.float32, device=x.device)
     frame = flat.scatter_add_(1, yi * W + xi, vals.to(torch.float32)).reshape(-1, H, W)
     return frame[0] if single else frame
+
+
+def window_offsets(t: torch.Tensor, window_starts: torch.Tensor, window_ends: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(order, begin, end): the stable sort of f32 times ``t`` and each
+    window's [begin, end) in the sorted stream, by ``searchsorted`` (left
+    for both edges), which is exactly ``t >= t0 & t < t1``.  NaN times sort
+    last and lie in no window; a window with a NaN edge is empty."""
+    t = t.to(torch.float32)
+    t0 = window_starts.to(torch.float32)
+    t1 = window_ends.to(torch.float32)
+    ts, order = torch.sort(t, stable=True)
+    # searchsorted may place a finite edge past the NaNs sorted last
+    finite = (~torch.isnan(ts)).sum()
+    begin = torch.minimum(torch.searchsorted(ts, t0, side="left"), finite)
+    end = torch.minimum(torch.searchsorted(ts, t1, side="left"), finite)
+    end = torch.where(torch.isnan(t0) | torch.isnan(t1), begin, end)
+    return order, begin, end
+
+
+def event_frames_from_windows(
+    t, x, y, pol, window_starts, window_ends, H: int, W: int, pos_thresh: float = 0.2,
+    neg_thresh: float = 0.2, device: DeviceLike = None,
+) -> torch.Tensor:
+    """Voxelize many time windows of one event stream -> (T, H, W) frames,
+    as the JAX package's ``event_frames_from_windows``: frame b is
+    ``event_histogram`` of the events with ``window_starts[b] <= t <
+    window_ends[b]``, compared in f32 (the reference's per-inter-frame
+    slicing, to_events.py:398-412); with two thresholds each cell is
+    ``fused_two_pass``'s value, as the JAX function computes it.  The events may come in any order and
+    the windows may overlap, come in any order or be empty.
+
+    Where the JAX package masks the whole stream once per window (T x N
+    work), the port sorts the stream by its f32 time once (stable), finds
+    each window's run of events by ``searchsorted`` (``window_offsets``),
+    and bins all T windows in one launch of K1 (``hist_frame_windows``),
+    each event read once per window holding it.  Runs on ``device`` (CUDA
+    unless the caller names another).
+    """
+    dev = resolve_device(device)
+    t, x, y, pol, t0, t1 = (torch.as_tensor(v, device=dev) for v in
+                            (t, x, y, pol, window_starts, window_ends))
+    order, begin, end = window_offsets(t, t0.reshape(-1), t1.reshape(-1))
+    return hist_frame_windows(x[order], y[order], pol[order], begin, end, H, W, pos_thresh,
+                              neg_thresh)
+
+
+def difflog_events(
+    im, prev_im, pos_thresh: float = 0.2, neg_thresh: float = 0.2, eps: float = 1e-5,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Difflog event approximation between intensity frames, as the JAX
+    package's ``difflog_events`` (run_competition.py:603-635,
+    to_events.py:419-439): difflog = log(im + eps) - log(prev + eps),
+    quantized by the thresholds (floor division toward -inf), and zeroed
+    wholly where max |difflog| < max(pos_thresh, neg_thresh).  (H, W) frames
+    -> (H, W); a (B, H, W) batch of pairs -> (B, H, W), each pair zeroed on
+    its own.  Elementwise torch ops on ``device`` (CUDA unless the caller
+    names another)."""
+    dev = resolve_device(device)
+    im = torch.as_tensor(im, device=dev, dtype=torch.float32)
+    prev_im = torch.as_tensor(prev_im, device=dev, dtype=torch.float32)
+    difflog = torch.log(im + eps) - torch.log(prev_im + eps)
+    pos = torch.floor(difflog / pos_thresh) * pos_thresh
+    neg = torch.floor(difflog / -neg_thresh) * -neg_thresh
+    zero = torch.zeros_like(difflog)
+    ev = torch.where(difflog > 0.0, pos, torch.where(difflog < 0.0, neg, zero))
+    peak = difflog.abs().amax(dim=(-2, -1), keepdim=True)
+    return torch.where(peak >= max(pos_thresh, neg_thresh), ev, zero)
+
+
+def difflog_margins(
+    im, prev_im, pos_thresh: float = 0.2, neg_thresh: float = 0.2, eps: float = 1e-5,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """For each pixel of ``difflog_events``, the distance of the quotient
+    its floor takes (difflog / pos_thresh, or difflog / -neg_thresh) from an
+    integer, or, where it is less, the distance of the frame's max |difflog|
+    / max(pos_thresh, neg_thresh) from 1 (the whole frame's zeroing).  Where
+    it is small (below 1e-5, say), another implementation of ``log`` may
+    give one quantum more or less, or zero the frame or not."""
+    dev = resolve_device(device)
+    im = torch.as_tensor(im, device=dev, dtype=torch.float32)
+    prev_im = torch.as_tensor(prev_im, device=dev, dtype=torch.float32)
+    difflog = torch.log(im + eps) - torch.log(prev_im + eps)
+    q = torch.where(difflog >= 0, difflog / pos_thresh, difflog / -neg_thresh)
+    peak = difflog.abs().amax(dim=(-2, -1), keepdim=True)
+    frame = (peak / max(pos_thresh, neg_thresh) - 1.0).abs()
+    return torch.minimum((q - torch.round(q)).abs(), frame)
 
 
 def event_histogram_scaled(

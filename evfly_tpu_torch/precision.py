@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+from typing import Optional
 
 import torch
 
@@ -35,12 +36,16 @@ def get_precision() -> str:
 
 
 @contextlib.contextmanager
-def precision_scope():
-    """Set cuDNN's and the matmuls' TF32 flags from ``set_precision`` for
-    the block; restore the global flags as they were on exit."""
+def precision_scope(precision: Optional[str] = None):
+    """Set cuDNN's and the matmuls' TF32 flags from ``set_precision`` (or
+    from ``precision`` where given, for work that runs at one precision
+    whatever the setting) for the block; restore the global flags as they
+    were on exit."""
+    if precision is not None and precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     saved = (cudnn.allow_tf32, matmul.allow_tf32)
-    tf32 = _precision == "tf32"
+    tf32 = (precision or _precision) == "tf32"
     cudnn.allow_tf32 = matmul.allow_tf32 = tf32
     try:
         yield

@@ -56,7 +56,7 @@ def apply_for_loss(model, kind: str, inp: torch.Tensor, desvel: torch.Tensor,
         vel, (y_interp, _up, _h) = model(inp, None, generator, frame_mask)
         return vel, y_interp
     if kind == "vitfly":
-        vel, _h = model(inp, desvel, None, None, generator)
+        vel, _h = model(inp, desvel, None, None, generator, frame_mask)
         return _zero_z(vel), None
     if kind == "joint_vitlstm":
         vel, (depth, _up, _h) = model(inp, desvel, None, None, generator, frame_mask)

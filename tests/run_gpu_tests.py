@@ -1,6 +1,6 @@
-"""Runs the port's ``gpu``-marked tests (the voxelizer kernels, K4 and K5,
-the graph step, the deployment loop, a train step, the velocity heads'
-LSTM) on a machine with a CUDA card and without JAX (the GPU machine):
+"""Runs the port's ``gpu``-marked tests (the voxelizer kernels, K1 over
+time windows, K4 and K5, the graph step, the deployment loop, a train step,
+the velocity heads' LSTM, the model zoo, the real-data path) on a machine with a CUDA card and without JAX (the GPU machine):
 
     python3 tests/run_gpu_tests.py [REPO]
 
@@ -22,7 +22,8 @@ REPO = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
 FILES = ("tests/test_torch_voxelizer.py", "tests/test_torch_voxelizer_cluster.py",
          "tests/test_torch_lstm.py", "tests/test_torch_stream_graph.py",
          "tests/test_torch_hil.py", "tests/test_torch_train.py", "tests/test_torch_heads.py",
-         "tests/test_torch_lstm_grid.py")
+         "tests/test_torch_lstm_grid.py", "tests/test_torch_zoo.py", "tests/test_torch_events.py",
+         "tests/test_torch_realdata.py")
 INERT = ("jax", "optax", "evfly_tpu")
 
 

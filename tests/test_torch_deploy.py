@@ -118,8 +118,9 @@ def test_library_name_follows_source_and_flags(monkeypatch):
     assert path.parent == _build.BUILD_DIR and path.name.startswith("libevstream_")
     monkeypatch.setattr(_build, "CXX_FLAGS", _build.CXX_FLAGS + ("-DX",))
     assert _build.library_path("evstream") != path
+    assert _build.library_path("evt3").name.startswith("libevt3_")
     with pytest.raises(ValueError, match="unknown"):
-        _build.library_path("evt3")
+        _build.library_path("nosuchlib")
 
 
 class ScriptedPipeline:

@@ -149,6 +149,32 @@ def test_precision_scope_restores_flags_after_an_exception(restore_flags):
     assert torch.backends.cudnn.allow_tf32 is True
 
 
+def test_precision_scope_forces_a_given_precision(restore_flags, monkeypatch):
+    """A precision named to the scope (``interpolate_bilinear_mm``'s
+    "highest") holds whatever ``set_precision`` chose, and the flags come
+    back as they were."""
+    evfly_tpu_torch.set_precision("tf32")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, True
+    seen = []
+    matmul = torch.matmul
+
+    def spy(*args):
+        seen.append(_flags())
+        return matmul(*args)
+
+    with precision.precision_scope("highest"):
+        assert _flags() == (False, False)
+    with precision.precision_scope():
+        assert _flags() == (True, True)
+    with pytest.raises(ValueError):
+        with precision.precision_scope("fp16"):
+            pass
+    monkeypatch.setattr(torch, "matmul", spy)
+    imageops.interpolate_bilinear_mm(torch.ones(1, 4, 6), (8, 12))
+    assert seen == [(False, False)] * 2
+    assert _flags() == (True, True)
+
+
 # ------------------------------------------------------------------- autograd
 
 

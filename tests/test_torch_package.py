@@ -47,7 +47,12 @@ def test_import_check_covers_every_module():
                    "evfly_tpu_torch.train", "evfly_tpu_torch.train.__main__",
                    "evfly_tpu_torch.train.losses", "evfly_tpu_torch.train.stepfn",
                    "evfly_tpu_torch.train.learner", "evfly_tpu_torch.train.evaluation_tools",
-                   "evfly_tpu_torch.utils", "evfly_tpu_torch.utils.ev_vis", "chip_smoke",
+                   "evfly_tpu_torch.utils", "evfly_tpu_torch.utils.ev_vis",
+                   "evfly_tpu_torch.models.legacy_vit", "evfly_tpu_torch.ops.esim",
+                   "evfly_tpu_torch.ops.upsample", "evfly_tpu_torch.data.to_events",
+                   "evfly_tpu_torch.data.package_h5", "evfly_tpu_torch.data.evt3",
+                   "evfly_tpu_torch.data.realdata", "evfly_tpu_torch.utils.calibration",
+                   "chip_smoke",
                    "tools.k2_phase_stamps", "tools.path_rates", "tools.torch_latency_bench"):
         assert module in MODULES
 

@@ -35,8 +35,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from evfly_tpu.configs import EvflyConfig as JaxEvflyConfig
 from evfly_tpu.configs import parse_config_file as jax_parse_config_file
 from evfly_tpu.data import augment as jaug
+from evfly_tpu.models import registry as jax_registry
+from evfly_tpu.models.common import param_count as jax_param_count
 from evfly_tpu.models.vitfly import LSTMNetVIT as JaxLSTMNetVIT
 from evfly_tpu.ops import imageops as jimageops
 from evfly_tpu.train import losses as jlosses
@@ -44,6 +47,7 @@ from evfly_tpu.train import stepfn as jstepfn
 from evfly_tpu_torch.configs import EvflyConfig, config_device, parse_config_file
 from evfly_tpu_torch.data import augment
 from evfly_tpu_torch.models import registry
+from evfly_tpu_torch.models.common import param_count
 from evfly_tpu_torch.models.port import from_jax_params
 from evfly_tpu_torch.models.vitfly import LSTMNetVIT
 from evfly_tpu_torch.ops import imageops
@@ -329,11 +333,17 @@ def test_config_device_reading():
 
 @pytest.mark.parametrize("model_type", [
     ["VITFLY_ViT"], ["ViT"], ["LSTMNet"], ["VITFLY_LSTMNet"], ["ConvNet"],
-    ["VITFLY_UNetConvLSTMNet"],
+    ["VITFLY_UNetConvLSTMNet"], ["VITFLY_ConvNet"], ["UNetConvLSTMNet"],
 ])
-def test_registry_raises_for_families_not_ported(model_type):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
-        registry.build_model(EvflyConfig(model_type=model_type), device="cpu")
+def test_registry_builds_the_zoo_with_jax_param_counts(model_type):
+    """Every vitfly family the JAX registry builds, with its parameter count
+    and state_dict keys."""
+    model = registry.build_model(EvflyConfig(model_type=model_type), device="cpu")
+    jmodel = jax_registry.build_model(JaxEvflyConfig(model_type=model_type))
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    assert type(model).__name__ == type(jmodel).__name__
+    assert param_count(model.state_dict()) == jax_param_count(jparams)
+    assert set(model.state_dict()) == set(jparams)
 
 
 # the enc and fc params of evfly_tpu/configs/files/eval_sim_Dtheta_vitlstm.txt

@@ -1,7 +1,7 @@
 """Shared cases of the port's train-step tests (tests/test_torch_train_*.py,
-tests/test_torch_velpred.py): the three model kinds of
-tools/train_policy.py and the velocity heads (D(theta) at velpred 11,
-``ConvNet_w_VelPred``) at small frames, seeded padded batches, and train
+tests/test_torch_velpred.py, tests/test_torch_zoo.py): the three model
+kinds of tools/train_policy.py, the velocity heads (D(theta) at velpred 11,
+``ConvNet_w_VelPred``) and the zoo's ``ConvNet`` at small frames, seeded padded batches, and train
 steps of the port against the JAX package's.
 
 The JAX step and gradient run under ``jax.jit`` without donation (op by op
@@ -39,12 +39,13 @@ from evfly_tpu.models.common import is_trainable_key
 from evfly_tpu.models.composites import ConvNet_w_VelPred as JaxConvNetVelPred
 from evfly_tpu.models.composites import OrigUNet_w_VITFLY_ViTLSTM as JaxJoint
 from evfly_tpu.models.origunet import OrigUNet as JaxOrigUNet
+from evfly_tpu.models.vitfly import ConvNet as JaxConvNet
 from evfly_tpu.models.vitfly import LSTMNetVIT as JaxLSTMNetVIT
 from evfly_tpu.train import stepfn as jstepfn
 from evfly_tpu_torch.models.composites import ConvNet_w_VelPred, OrigUNet_w_VITFLY_ViTLSTM
 from evfly_tpu_torch.models.origunet import OrigUNet
 from evfly_tpu_torch.models.port import from_jax_params
-from evfly_tpu_torch.models.vitfly import LSTMNetVIT
+from evfly_tpu_torch.models.vitfly import ConvNet, LSTMNetVIT
 from evfly_tpu_torch.train import stepfn
 
 ENC = {
@@ -104,9 +105,10 @@ STEP_CASES = {
     "joint_vitlstm": (3, UNET_HW, 2, False, 1.0, [10.0, 1.0], [5.0, -1.0]),
     "origunet_velpred": (3, UNET_HW, 2, False, 1.0, [10.0, 1.0], [5.0, -1.0]),
     "convnet_velpred": (4, CV_HW, 3, True, 1.0, [1.0, 0.0], [5.0, 0.0]),
+    "vitfly_convnet": (4, VIT_HW, 3, True, 1.0, [1.0, 0.0], [5.0, 0.0]),
 }
 # the stepfn kind of a case, where it is not the case's name
-CASE_KIND = {"origunet_velpred": "origunet"}
+CASE_KIND = {"origunet_velpred": "origunet", "vitfly_convnet": "vitfly"}
 
 
 def make_batch(seed, n, hw, n_valid, depth_input=False):
@@ -130,6 +132,8 @@ def make_models(case):
         jm, pm = JaxOrigUNet(enc_params=ENC, fc_params=FC, **UNET), OrigUNet(device="cpu", **UNET)
     elif case == "vitfly":
         jm, pm = JaxLSTMNetVIT(), LSTMNetVIT(device="cpu")
+    elif case == "vitfly_convnet":
+        jm, pm = JaxConvNet(), ConvNet(device="cpu")
     elif case == "origunet_velpred":
         heads = dict(UNET, velpred=11, enc_params=HEAD_ENC, fc_params=HEAD_FC)
         jm, pm = JaxOrigUNet(**heads), OrigUNet(device="cpu", **heads)
