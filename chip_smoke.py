@@ -4,9 +4,11 @@
 
 Builds the port's CUDA kernels from ``evfly_tpu_torch/csrc`` (one ``nvcc``
 call, cached in ``build/``), holds each of K1-K5 against its plain PyTorch
-version on the card (K1 on both of its kernels: one thread-block cluster
-per window with the frame in the cluster's shared memory, and the band
-kernel of before, for the frames no cluster holds; K2 and K3 on their
+version on the card (K1 on its three routes: one thread-block cluster of
+8 CTAs per window with the frame in the cluster's shared memory, one of 16
+where 8 do not hold the frame, and for the frames no cluster holds the band
+route, a partition pass that sorts each window's events by band of the
+frame and a pass of one block per (window, band); K2 and K3 on their
 cluster kernel, with int16 and int32 counts; K4 and K5 on their three
 routes: one 8-CTA cluster per stream with the weights in shared memory, one
 cooperative grid of H/8 CTAs for all streams with each CTA's gate columns
@@ -16,7 +18,7 @@ sizes, traps a stalled grid barrier in a child process, checks the
 port's repaired faults (precision under PyTorch's default flags, an
 eval-mode forward under autograd, more events per window than K2's and
 K3's caps through their entry points and ``scale_counts``' cluster kernels,
-more than 65,535 windows through K1), then drives the
+more than 65,535 windows through every K1 route), then drives the
 port's paths through the entry points a user calls, each compared with its
 plain path on the card and each with the kernels' launch counts set to 0
 just before it and read just after:
@@ -33,7 +35,7 @@ just before it and read just after:
   clusters) ->
   97th-percentile scale -> OrigUNet with its ConvLSTM -> LSTMNetVIT through
   K4 (mode "stacked") or K5 (mode "wavefront"), on each route, and once
-  with K1's band kernel;
+  with K1's band route;
 - batched streaming: ``BatchedStreamingPipeline`` with 16 streams over 4
   steps, some streams reset before the third, against 16 single streams;
 - the graph step: each streaming step replays one CUDA graph on the card
@@ -85,14 +87,15 @@ just before it and read just after:
 - the dataset path: a Prophesee-like 640x480 recording (3 s at 960,000
   events/s, ns epoch stamps, {0, 1} polarity) encoded to EVT3, decoded by the port's native
   decoder and packaged by ``package_real_sequence`` on the card, K1 over
-  all its windows in one launch (the cluster kernel, and with two
-  thresholds the band kernel), the trajectory equal to the CPU's key by
-  key; K1's window launch bit for bit against its plain version on a
-  DAVIS-like stream of 2,000,000 events over 60 windows (sorted,
-  shuffled, overlapping, empty, two thresholds, 640x480) and timed in
-  turns against the padded (B, N_max) launch, beside the plain version,
-  ``torch.bincount`` (with weights +pos/-neg for two thresholds) and the
-  bytes bound, the sort timed alone;
+  all its windows in one launch (8 CTAs, and with two thresholds 16), the
+  trajectory equal to the CPU's key by key; K1's window launch bit for bit
+  against its plain version on a DAVIS-like stream of 2,000,000 events over
+  60 windows (sorted, shuffled, overlapping, empty) on each route (at
+  260x346, and scaled to 640x480 and 1280x720) and at every alignment,
+  timed in turns against the padded (B, N_max) launch at 260x346, and the
+  16-CTA route against the band route at 640x480 and 1280x720 (shapes A
+  and B), beside the plain version, ``torch.bincount`` (with weights
+  +pos/-neg) and the bytes bound, the sort timed alone;
 - event generation: a 49-frame trajectory at 260x346 (a texture
   translating with its exact flow, adaptive factors 1 to 16) through
   ``to_events.trajectory_events`` by the esim, esim_flow and difflog
@@ -167,6 +170,7 @@ from evfly_tpu_torch.ops.lstm_fused import (
 )
 from evfly_tpu_torch.ops.voxelizer import (
     K1_CLUSTER,
+    K1_WIDE_CLUSTER,
     K2_CLUSTER,
     K3_CLUSTER,
     SCALE_CLUSTER,
@@ -176,8 +180,14 @@ from evfly_tpu_torch.ops.voxelizer import (
     _scale_launch,
     _scaled_cluster_launch,
     bin_events,
+    event_frames_from_windows,
+    event_histogram,
     event_histogram_scaled,
     event_histogram_scaled_resized,
+    BAND_ROUTE,
+    K1Route,
+    band_route_cells,
+    band_route_layout,
     frame_cluster_fits,
     hist_frame,
     hist_frame_cluster,
@@ -191,6 +201,7 @@ from evfly_tpu_torch.ops.voxelizer import (
     hist_scaled_resized_plain,
     hist_scaled_resized_routed,
     hist_scaled_routed,
+    k1_route,
     resized_cluster_cap,
     resized_cluster_smem,
     resized_packed,
@@ -334,6 +345,7 @@ ZOO_SEED = 40
 # windows checked and timed on a DAVIS-like stream of DAVIS_EVENTS events
 # at 260x346 over DAVIS_WINDOWS windows of 1/30 s
 REC_H, REC_W, REC_FRAMES = 480, 640, 91
+HD_H, HD_W = 720, 1280  # the 1280x720 Prophesee sensor (IMX636)
 REC_EDGES, REC_SPEED, REC_ROWS = 8, 300.0, 400
 DAVIS_EVENTS, DAVIS_WINDOWS = 2_000_000, 60
 # event generation: one trajectory of GEN_FRAMES frames at 260x346
@@ -452,7 +464,8 @@ def _kernel_label(mangled: str) -> str:
     """A readable name for a mangled kernel name of ptxas's log."""
     name = next((n for n in ("lstm_cluster_kernel", "lstm_grid_kernel", "lstm_stacked_kernel",
                              "lstm_wavefront_kernel", "hist_scaled_cluster_kernel",
-                             "hist_frame_cluster_kernel", "hist_frame_kernel",
+                             "hist_frame_cluster_kernel", "hist_band_partition_kernel",
+                             "hist_band_kernel",
                              "scale_counts_cluster_kernel", "empty_kernel")
                  if n in mangled), mangled)
     m = re.search(r"ILi(\d+)ELb([01])E", mangled)
@@ -485,7 +498,8 @@ def _route_rules():
     """The CPU copies of K1's, K2's and K3's cluster rules (ops/voxelizer.py)
     against the library's (csrc/voxelizer.cu), on a grid of shapes."""
     lib = _build.library()
-    shapes = [(h, w) for h in (1, 7, 64, 260, 480, 720) for w in (1, 86, 346, 640, 1280)]
+    shapes = [(h, w) for h in (1, 7, 64, 260, 480, 720, 1080) for w in (1, 86, 346, 640, 1280,
+                                                                       1920)]
     differ = []
     for (h, w) in shapes:
         for cluster in (1, 2, 4, 8, 16):
@@ -500,11 +514,21 @@ def _route_rules():
             if scaled_cluster_cap(h, w, cluster) != \
                     lib.evfly_hist_scaled_cluster_cap(h, w, cluster):
                 differ.append(("K2", h, w, cluster))
-    n_cases = len(shapes) * 5 * 6
+        # K1's route and its cluster size, and the band route's band
+        for two_pass in (False, True):
+            if k1_route(h, w, two_pass).cluster != lib.evfly_hist_frame_route(h, w, int(two_pass)):
+                differ.append(("K1 route", h, w, two_pass))
+            if band_route_cells(h, w, two_pass) != \
+                    lib.evfly_hist_band_cells(h, w, int(two_pass)):
+                differ.append(("K1 band", h, w, two_pass))
+    n_cases = len(shapes) * (5 * 6 + 4)
     log(f"cluster route rules: Python and csrc/voxelizer.cu agree on "
         f"{n_cases - len(differ)} of {n_cases} cases; K3's cap at {H}x{W} -> {H_OUT}x{W_OUT}: "
         f"{resized_cluster_cap(H, W, H_OUT, W_OUT)} events per window on {K3_CLUSTER} CTAs; "
-        f"K2's at {H}x{W}: {scaled_cluster_cap(H, W)} on {K2_CLUSTER} CTAs")
+        f"K2's at {H}x{W}: {scaled_cluster_cap(H, W)} on {K2_CLUSTER} CTAs; K1's routes: "
+        + ", ".join(f"{h}x{w} {'two' if tp else 'one'} threshold(s) {k1_route(h, w, tp)}"
+                    for h, w in ((260, 346), (480, 640), (720, 1280), (1080, 1920))
+                    for tp in (False, True)))
     require(not differ, f"the cluster rules disagree with csrc/voxelizer.cu at {differ[:5]}")
 
 
@@ -608,45 +632,72 @@ def phase_k3(dev, flush):
                 max_abs_err=max_err, ms=statistics.mean(turns))
 
 
-def phase_k1(dev, flush):
-    """K1's cluster kernel and its band kernel exactly equal to their plain
-    version in every case; old and new timed in turns at the streaming
-    path's shape (1 x 5,000) and the batch shape (256 x 5,000), beside the
-    empty-launch floor; the cluster size swept."""
+def _k1_cases(dev, h, w):
+    """(label, events, thresholds) of K1's checks at h x w."""
     cases = []
-    ex, ey, ep = make_events(10, 1, N_EVENTS, dev)
+    ex, ey, ep = make_events(10, 1, N_EVENTS, dev, h, w)
     cases.append(("5,000 uniform events", (ex, ey, ep), (0.2, 0.2)))
     cases.append(("pos 0.2 / neg 0.3", (ex, ey, ep), (0.2, 0.3)))
-    bx, by, bp = make_events(11, 1, BIG_EVENTS, dev)
+    bx, by, bp = make_events(11, 1, BIG_EVENTS, dev, h, w)
     bx[:, :HOT_EVENTS], by[:, :HOT_EVENTS], bp[:, :HOT_EVENTS] = 100.5, 130.5, 1
     cases.append((f"{BIG_EVENTS:,} events, {HOT_EVENTS:,} on one pixel", (bx, by, bp),
                   (0.2, 0.2)))
     cases.append((f"{BIG_EVENTS:,} events, two-pass", (bx, by, bp), (0.2, 0.3)))
-    mx, my, mp = make_events(14, N_WINDOWS, N_EVENTS, dev)
+    mx, my, mp = make_events(14, N_WINDOWS, N_EVENTS, dev, h, w)
     cases.append((f"{N_WINDOWS} windows x {N_EVENTS:,} events", (mx, my, mp), (0.2, 0.2)))
     # a window of 4,999 events: the slices of the windows after the first
     # start off 16-byte alignment
-    ox, oy, op = make_events(17, 3, N_EVENTS - 1, dev)
+    ox, oy, op = make_events(17, 3, N_EVENTS - 1, dev, h, w)
     cases.append((f"3 windows x {N_EVENTS - 1:,} events, two-pass", (ox, oy, op), (0.2, 0.3)))
-    errs = {"cluster": 0.0, "band": 0.0}
-    for label, events, thresholds in cases:
-        ref = hist_frame_plain(*events, H, W, *thresholds)
-        bad = {}
-        for route, kernel in (("cluster", hist_frame_cluster), ("band", hist_frame)):
-            got = kernel(*events, H, W, *thresholds)
-            torch.cuda.synchronize()
-            bad[route] = int((got != ref).sum().item())
-            errs[route] = max(errs[route], (got - ref).abs().max().item())
-            require(got.shape == ref.shape and bool(torch.isfinite(got).all()), "K1 output")
-        log(f"K1 {label}: cells that differ from plain, of {ref.numel()}: {bad}; max|frame| "
-            f"{ref.abs().max().item():.1f}")
-        require(not any(bad.values()), f"K1 disagrees with its plain version ({label})")
+    return cases
+
+
+def _k1_bincount(x, y, p, h, w, thresholds):
+    """torch.bincount over the (B, N) events' (window, cell) keys, weights
+    +pos/-neg (the sign times pos with one threshold): one library call
+    computing K1's frame, its f32 sums in another order."""
+    xi, yi, sign = bin_events(x, y, p, h, w)
+    keys = (torch.arange(x.shape[0], device=x.device)[:, None] * (h * w) + yi * w + xi).ravel()
+    weights = (sign * torch.where(sign > 0, thresholds[0], thresholds[1])).ravel()
+    return lambda: torch.bincount(keys, weights, minlength=x.shape[0] * h * w)
+
+
+def phase_k1(dev, flush):
+    """K1 on each route exactly equal to its plain version in every case:
+    at 260x346 the 8-CTA cluster kernel and the band route, at 640x480 and
+    1280x720 the route each shape takes (16 CTAs with two thresholds at
+    640x480 and one at 1280x720, the band route with two at 1280x720) and
+    the band route; old and new timed in turns at the streaming path's
+    shape (1 x 5,000) and the batch shape (256 x 5,000), beside the
+    empty-launch floor; the cluster size swept.  Shape C (one window of
+    5,000 events, two thresholds, through ``event_histogram``) at 640x480
+    and 1280x720 on each route, in turns, beside torch.bincount and the
+    bound; each route's launches through the entry point; the 16-CTA
+    clusters resident at once."""
+    errs = {"cluster8": 0.0, "cluster16": 0.0, "band": 0.0}
+    for h, w in ((H, W), (REC_H, REC_W), (HD_H, HD_W)):
+        for label, events, thresholds in _k1_cases(dev, h, w):
+            ref = hist_frame_plain(*events, h, w, *thresholds)
+            route = str(k1_route(h, w, thresholds[0] != thresholds[1]))
+            bad = {}
+            for name, kernel in ((route, hist_frame_routed), ("band", hist_frame)):
+                got = kernel(*events, h, w, *thresholds)
+                torch.cuda.synchronize()
+                bad[name] = int((got != ref).sum().item())
+                errs[name] = max(errs[name], (got - ref).abs().max().item())
+                require(got.shape == ref.shape and bool(torch.isfinite(got).all()), "K1 output")
+            log(f"K1 {h}x{w} {label}: cells that differ from plain, of {ref.numel()}: {bad}; "
+                f"max|frame| {ref.abs().max().item():.1f}")
+            require(not any(bad.values()), f"K1 disagrees with its plain version ({label})")
+    ex, ey, ep = make_events(10, 1, N_EVENTS, dev)
+    mx, my, mp = make_events(14, N_WINDOWS, N_EVENTS, dev)
 
     lib, stream = _build.library(), _build.stream_of(dev)
     empty = {c: time_ms(lambda: _build.check("evfly_empty", lib.evfly_empty(c, stream)), flush,
-                        20) for c in (1, K1_CLUSTER)}
+                        20) for c in (1, K1_CLUSTER, K1_WIDE_CLUSTER)}
     log(f"empty kernel, the floor of one launch: {empty[1]:.4f} ms (1 block), "
-        f"{empty[K1_CLUSTER]:.4f} ms (a cluster of {K1_CLUSTER} CTAs)")
+        f"{empty[K1_CLUSTER]:.4f} ms (a cluster of {K1_CLUSTER} CTAs), "
+        f"{empty[K1_WIDE_CLUSTER]:.4f} ms ({K1_WIDE_CLUSTER} CTAs)")
     results = {}
     kernels = {"band": hist_frame, "cluster": hist_frame_cluster}
     for B, (x_, y_, p_) in ((1, (ex, ey, ep)), (N_WINDOWS, (mx, my, mp))):
@@ -661,15 +712,22 @@ def phase_k1(dev, flush):
             require(torch.equal(_frame_cluster_launch(x_, y_, p_, H, W, 0.2, 0.2, c),
                                 hist_frame_plain(x_, y_, p_, H, W)),
                     f"K1 on {c} CTAs disagrees with its plain version")
-        log(f"K1 times {B} x {N_EVENTS} events, in turns band, cluster, cluster, band: band "
-            f"{turns['band'][0]:.4f} / {turns['band'][1]:.4f} ms, cluster "
+        log(f"K1 times {B} x {N_EVENTS} events at {H}x{W}, in turns band, cluster, cluster, "
+            f"band: band route {turns['band'][0]:.4f} / {turns['band'][1]:.4f} ms, cluster "
             f"{turns['cluster'][0]:.4f} / {turns['cluster'][1]:.4f} ms; bound {b_ms:.6f} ms "
             f"({b_by}); cluster sizes: "
             + ", ".join(f"{c} CTAs {t:.4f} ms" for c, t in sweep.items()))
         results[B] = dict(turns=turns, bound_ms=b_ms, bound_by=b_by)
     for kind in ("k1", "k1_two_pass"):
-        log(f"K1 cluster kernel ({kind}): {vox_cluster_occupancy(kind, H, W)} clusters of "
-            f"{K1_CLUSTER} CTAs resident at once")
+        log(f"K1 cluster kernel ({kind}) at {H}x{W}: {vox_cluster_occupancy(kind, H, W)} "
+            f"clusters of {K1_CLUSTER} CTAs resident at once")
+    # the 16-CTA route's shapes: a non-portable cluster, one CTA per SM
+    for kind, h, w in (("k1_two_pass", REC_H, REC_W), ("k1", HD_H, HD_W)):
+        resident = vox_cluster_occupancy(kind, h, w, cluster=K1_WIDE_CLUSTER)
+        log(f"K1 cluster kernel ({kind}) at {h}x{w}: {resident} clusters of "
+            f"{K1_WIDE_CLUSTER} CTAs resident at once")
+        require(resident > 0, f"no {K1_WIDE_CLUSTER}-CTA cluster of K1 ({kind}) at {h}x{w} "
+                              f"fits the card")
 
     xi, yi, sign = bin_events(ex, ey, ep, H, W)
     idx = (yi * W + xi)[0]
@@ -678,10 +736,54 @@ def phase_k1(dev, flush):
                          flush, 10)
     log(f"K1 at 1 x {N_EVENTS}: plain {plain_ms:.4f} ms, torch.bincount {library_ms:.4f} ms")
     one = results[1]
-    return {route: dict(max_abs_err=errs[route], ms=statistics.mean(one["turns"][route]),
-                        plain_ms=plain_ms, bound_ms=one["bound_ms"], bound_by=one["bound_by"],
-                        library_ms=library_ms)
-            for route in kernels}
+    entries = {"cluster8": dict(max_abs_err=errs["cluster8"],
+                                ms=statistics.mean(one["turns"]["cluster"]), plain_ms=plain_ms,
+                                bound_ms=one["bound_ms"], bound_by=one["bound_by"],
+                                library_ms=library_ms)}
+
+    # shape C: one window of 5,000 events, two thresholds, each route in
+    # turns, and each route's launches through event_histogram
+    launches = {}
+    for h, w, thresholds, turns_of in (
+            (REC_H, REC_W, (0.2, 0.3), ("cluster16", "band", "band", "cluster16")),
+            (HD_H, HD_W, (0.2, 0.3), ("band", "cluster16", "cluster16", "band"))):
+        cx, cy, cp = make_events(10, 1, N_EVENTS, dev, h, w)
+        # at 1280x720 the 16-CTA route holds one threshold only
+        forced = {"cluster16": (0.2, 0.2) if h == HD_H else thresholds, "band": thresholds}
+        fns = {"cluster16": lambda t=forced["cluster16"]: _frame_cluster_launch(
+                   cx, cy, cp, h, w, *t, K1_WIDE_CLUSTER),
+               "band": lambda: hist_frame(cx, cy, cp, h, w, *thresholds)}
+        turns = in_turns(fns, turns_of, flush)
+        route = str(k1_route(h, w, True))
+        hist_frame.launches = hist_frame_cluster.launches = 0
+        hist_frame_cluster.by_route.clear()
+        for t in {thresholds, (0.2, 0.2)}:
+            frame = event_histogram(cx[0], cy[0], cp[0], h, w, *t, device=dev)
+            torch.cuda.synchronize()
+            require(torch.equal(frame, hist_frame_plain(cx, cy, cp, h, w, *t)[0]),
+                    f"event_histogram at {h}x{w}, thresholds {t}, disagrees with plain")
+        launches[(h, w)] = {"band": hist_frame.launches, **hist_frame_cluster.by_route}
+        plain_c = time_ms(lambda: hist_frame_plain(cx, cy, cp, h, w, *thresholds), flush, 10)
+        lib_c = time_ms(_k1_bincount(cx, cy, cp, h, w, thresholds), flush, 10)
+        # each event read once, the frame written once; per event one add,
+        # per cell two multiplies and a subtract
+        b_c, by_c = bound_ms(12 * N_EVENTS + 4 * h * w, N_EVENTS + 3 * h * w)
+        log(f"K1 shape C, 1 x {N_EVENTS} events at {h}x{w}, thresholds {thresholds} (route "
+            f"{route}), in turns {', '.join(turns_of)}: "
+            + "; ".join(f"{r} " + " / ".join(f"{v:.4f}" for v in turns[r]) + " ms"
+                        + (" (one threshold)" if forced[r] != thresholds else "")
+                        for r in dict.fromkeys(turns_of))
+            + f"; plain {plain_c:.4f} ms; torch.bincount with weights +pos/-neg {lib_c:.4f} ms; "
+            f"bound {b_c:.6f} ms ({by_c}); launches through event_histogram "
+            f"{launches[(h, w)]}")
+        entries[route] = dict(max_abs_err=errs[route], ms=statistics.mean(turns[route]),
+                              plain_ms=plain_c, bound_ms=b_c, bound_by=by_c, library_ms=lib_c)
+    require(launches[(REC_H, REC_W)] == {"band": 0, "cluster16": 1, "cluster8": 1}
+            and launches[(HD_H, HD_W)] == {"band": 1, "cluster16": 1},
+            f"event_histogram did not take the routes of its shapes: {launches}")
+    entries["cluster16"]["launches"] = launches[(REC_H, REC_W)].get("cluster16", 0)
+    entries["band"]["launches"] = launches[(HD_H, HD_W)]["band"]
+    return entries
 
 
 def phase_k2(dev, flush):
@@ -758,11 +860,11 @@ def _route_weights(packed, route):
 
 @contextlib.contextmanager
 def forced_voxel_routes():
-    """K1 takes its band kernel where the shape would pick its cluster
+    """K1 takes its band route where the shape would pick its cluster
     kernel, for driving a path through it in this script; the port itself
     always routes by shape."""
     k1 = voxelizer.k1_route
-    voxelizer.k1_route = lambda h, w, two_pass: "band"
+    voxelizer.k1_route = lambda h, w, two_pass: BAND_ROUTE
     try:
         yield
     finally:
@@ -1168,7 +1270,7 @@ def phase_streaming(dev, model):
                         for v, d in outs), "streaming output not finite")
             require(max(verr, derr, herr, cerr) <= VEL_ATOL,
                     f"streaming path ({mode}, {route}, fast={fast}) disagrees with the plain path")
-    # once more with K1's band kernel: its launches, the outputs as the
+    # once more with K1's band route: its launches, the outputs as the
     # cluster kernel's (the frames are the same bit for bit)
     lstm.mode = "stacked"
     pipe = StreamingPipeline(model, fast_percentile=True, device=dev)
@@ -1182,12 +1284,12 @@ def phase_streaming(dev, model):
     launches["K1 band"] = hist_frame.launches
     berr = max((a - b).abs().max().item()
                for o, ob in zip(outs, outs_band) for a, b in zip(o, ob))
-    log(f"streaming with K1's band kernel: {hist_frame.launches} launches (cluster kernel "
+    log(f"streaming with K1's band route: {hist_frame.launches} launches (cluster kernel "
         f"{n_cluster} in the run beside it); velocity and depth max|diff| vs the cluster "
         f"kernel's {berr:.3e}")
     require(hist_frame.launches > 0 and n_cluster == hist_frame.launches,
-            "K1's band kernel did not run")
-    require(berr <= VEL_ATOL, "the streaming path through K1's band kernel disagrees")
+            "K1's band route did not run")
+    require(berr <= VEL_ATOL, "the streaming path through K1's band route disagrees")
     lstm.mode = None
     return launches, windows
 
@@ -1729,14 +1831,26 @@ def phase_event_cap(dev, flush):
 
 def phase_many_windows(dev):
     """Fault 4: K1 with MANY_WINDOWS windows, more than grid.y's 65,535,
-    of FEW_EVENTS events at SMALL_H x SMALL_W, through the entry's route
-    (the cluster kernel, windows x 8 CTAs on grid.x) and the band kernel:
-    exactly equal to plain."""
+    of FEW_EVENTS events at SMALL_H x SMALL_W, through every K1 route:
+    (B, N) windows through the entry's route (the 8-CTA cluster kernel,
+    windows x 8 CTAs on grid.x), on 16 CTAs and on the band route, and the
+    same windows as offsets into one stream through the window launch on
+    each route: exactly equal to plain."""
     ex, ey, ep = make_events(13, MANY_WINDOWS, FEW_EVENTS, dev, SMALL_H, SMALL_W)
     ref = hist_frame_plain(ex, ey, ep, SMALL_H, SMALL_W)
     hist_frame_cluster.launches = 0
-    for name, kernel in (("routed", hist_frame_routed), ("band", hist_frame)):
-        got = kernel(ex, ey, ep, SMALL_H, SMALL_W)
+    begin = torch.arange(MANY_WINDOWS, device=dev, dtype=torch.int64) * FEW_EVENTS
+    stream = tuple(t.reshape(-1) for t in (ex, ey, ep))
+    runs = [("routed", lambda: hist_frame_routed(ex, ey, ep, SMALL_H, SMALL_W)),
+            ("cluster16", lambda: _frame_cluster_launch(ex, ey, ep, SMALL_H, SMALL_W, 0.2, 0.2,
+                                                        K1_WIDE_CLUSTER)),
+            ("band", lambda: hist_frame(ex, ey, ep, SMALL_H, SMALL_W))]
+    runs += [(f"windows {r}", lambda r=r: _frame_windows_launch(
+                 *stream, begin, begin + FEW_EVENTS, SMALL_H, SMALL_W, 0.2, 0.2, r))
+             for r in (K1Route("cluster", K1_CLUSTER), K1Route("cluster", K1_WIDE_CLUSTER),
+                       BAND_ROUTE)]
+    for name, run in runs:
+        got = run()
         torch.cuda.synchronize()
         bad = int((got != ref).sum().item())
         log(f"K1 ({name}) with {MANY_WINDOWS:,} windows of {FEW_EVENTS} events at "
@@ -1774,10 +1888,32 @@ def synthetic_trajectories(seed: int = 11):
     return trajs
 
 
+class RouteLaunches:
+    """One K1 route's launches through a wrapper that takes several (its
+    ``by_route`` counter), read and set as ``launches``, as a wrapper's."""
+
+    def __init__(self, wrapper, route: str):
+        self.wrapper, self.route = wrapper, route
+
+    @property
+    def launches(self) -> int:
+        return self.wrapper.by_route[self.route]
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.wrapper.by_route[self.route] = n
+
+
 LSTM_KERNELS = tuple(kernel for _, kernel, _ in LSTM_ROUTES.values())
-# every kernel wrapper, by the names of the kernels' JSON entries
+# every kernel wrapper, and every K1 route of a wrapper that takes several,
+# by the names of the kernels' JSON entries
 KERNELS = {"K1 cluster": hist_frame_cluster, "K1 band": hist_frame,
-           "K1 windows": hist_frame_windows, "K2": hist_scaled,
+           "K1 cluster8": RouteLaunches(hist_frame_cluster, "cluster8"),
+           "K1 cluster16": RouteLaunches(hist_frame_cluster, "cluster16"),
+           "K1 windows": hist_frame_windows,
+           **{f"K1 windows {r}": RouteLaunches(hist_frame_windows, r)
+              for r in ("cluster8", "cluster16", "band")},
+           "K2": hist_scaled,
            "K3": hist_scaled_resized, "scale_counts": scale_counts,
            "scale_counts_resized": scale_counts_resized, "K4 L2": lstm_stacked,
            "K5 L2": lstm_wavefront, "K4 cluster": lstm_stacked_cluster,
@@ -2546,8 +2682,9 @@ def davis_stream(seed, dev):
 
 
 def _windows_check(label, t, x, y, p, starts, ends, h, w, thresholds, errs):
-    """K1's window launch (through its wrapper: one launch) on a stream cut
-    by window_offsets against hist_frame_windows_plain, bit for bit."""
+    """K1's window launch (through its wrapper: one launch, on the route of
+    the shape or the one ``forced_voxel_routes`` gives) on a stream cut by
+    window_offsets against hist_frame_windows_plain, bit for bit."""
     order, begin, end = window_offsets(t, starts, ends)
     args = (x[order], y[order], p[order], begin, end, h, w, *thresholds)
     n0 = hist_frame_windows.launches
@@ -2555,8 +2692,8 @@ def _windows_check(label, t, x, y, p, starts, ends, h, w, thresholds, errs):
     torch.cuda.synchronize()
     ref = hist_frame_windows_plain(*args)
     bad = int((got != ref).sum().item())
-    errs.append((got - ref).abs().max().item())
-    route = voxelizer.k1_route(h, w, thresholds[0] != thresholds[1])
+    route = str(voxelizer.k1_route(h, w, thresholds[0] != thresholds[1]))
+    errs[route] = max(errs.get(route, 0.0), (got - ref).abs().max().item())
     log(f"K1 windows ({route}) {label}: {len(starts)} windows, "
         f"{int((end - begin).clamp_min(0).sum().item()):,} window events, {bad} cells differ "
         f"from plain of {ref.numel():,}; max|frame| {ref.abs().max().item():.1f}")
@@ -2564,16 +2701,70 @@ def _windows_check(label, t, x, y, p, starts, ends, h, w, thresholds, errs):
     require(bad == 0, f"K1 windows disagrees with its plain version ({label})")
 
 
+def _window_bincount(x, y, p, begin, end, h, w, thresholds):
+    """torch.bincount over the (window, cell) keys of contiguous windows
+    [begin[0], end[-1]), weights +pos/-neg (the sign times pos with one
+    threshold): one library call computing K1's frames, and the bound
+    n * eps * sum |w| of its f32 sums' distance from the kernel's exact
+    counts at a cell of n events."""
+    xi, yi, sign = bin_events(x, y, p, h, w)
+    win = torch.repeat_interleave(torch.arange(len(begin), device=x.device), end - begin)
+    keys = win * (h * w) + (yi * w + xi)[begin[0]:end[-1]]
+    sign = sign[begin[0]:end[-1]]
+    weights = sign * torch.where(sign > 0, thresholds[0], thresholds[1])
+    n_cells = len(begin) * h * w
+    tol = (torch.bincount(keys, minlength=n_cells)
+           * torch.bincount(keys, weights.abs(), minlength=n_cells).double()
+           * float(np.finfo(np.float32).eps)).reshape(-1, h, w)
+    return (lambda: torch.bincount(keys, weights, minlength=n_cells)), tol
+
+
+def _windows_timed(label, fns, order, plain, x, y, p, begin, end, h, w, thresholds, flush):
+    """Routes of K1's window launch (name -> call) timed in the turns of
+    ``order``, each torch.equal to the plain version first, beside the
+    plain version, torch.bincount and the bytes bound: name -> mean ms,
+    with "plain_ms", "library_ms", "bound_ms", "bound_by"."""
+    ref = plain()
+    for name, fn in fns.items():
+        require(torch.equal(fn(), ref), f"K1 windows ({name}, {label}) disagrees with plain")
+    lib_fn, tol = _window_bincount(x, y, p, begin, end, h, w, thresholds)
+    lib_err = (lib_fn().float().reshape(ref.shape) - ref).abs()
+    require(bool((lib_err <= tol).all()),
+            f"torch.bincount with weights +pos/-neg disagrees with K1 windows ({label})")
+    turns = in_turns(fns, order, flush, 10)
+    plain_ms = time_ms(plain, flush, 3, warmup=1)
+    library_ms = time_ms(lib_fn, flush, 10)
+    n_win = int((end - begin).sum().item())
+    two = thresholds[0] != thresholds[1]
+    # each window's events read once (12 bytes), its frame written once; an
+    # add per event, per cell a multiply (two and a subtract)
+    b_ms, b_by = bound_ms(12 * n_win + 4 * len(begin) * h * w,
+                          n_win + (3 if two else 1) * len(begin) * h * w)
+    log(f"K1 windows {label}, {len(begin)} windows, {n_win:,} events at {w}x{h}, thresholds "
+        f"{thresholds}, in turns {', '.join(order)}: "
+        + "; ".join(f"{r} " + " / ".join(f"{v:.4f}" for v in turns[r]) + " ms"
+                    for r in dict.fromkeys(order))
+        + f"; plain {plain_ms:.4f} ms; torch.bincount {library_ms:.4f} ms (max|diff| "
+        f"{lib_err.max().item():.2e}); bound {b_ms:.6f} ms ({b_by})")
+    return {**{r: statistics.mean(v) for r, v in turns.items()}, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
 def phase_dataset(dev, flush, smi):
     """A real recording to a training trajectory: a Prophesee-like 640x480
     recording encoded to EVT3, decoded, and packaged on the card
     (package_real_sequence: K1 over all windows in one launch), the dict
-    equal to the CPU path's key by key, with one threshold (the cluster
-    kernel) and two (the band kernel); K1's window launch against its
-    plain version on a DAVIS-like stream (sorted, shuffled, overlapping and
-    empty windows, two thresholds at 640x480); timed in turns against
-    today's (B, N_max) padded launch, the plain version and torch.bincount
-    over (window, cell) keys, beside the bytes bound; the sort timed alone."""
+    equal to the CPU path's key by key, with one threshold (the 8-CTA
+    cluster route) and two (the 16-CTA route); K1's window launch against
+    its plain version on a DAVIS-like stream on each route (sorted,
+    shuffled, overlapping and empty windows at 260x346 on 8 CTAs, at 640x480
+    with two thresholds on 16, at 1280x720 with two on the band route, and
+    windows at every alignment); timed in turns against today's (B, N_max)
+    padded launch at 260x346, and at shape A (the stream at 640x480, two
+    thresholds: 16 CTAs and the band route forced) and shape B (at 1280x720:
+    one threshold on 16 CTAs, two on the band route, one on the band route
+    forced), each beside the plain version, torch.bincount over (window,
+    cell) keys and the bytes bound; the sort timed alone."""
     rng = np.random.default_rng(31)
     (et, ex, ey, ep), depths, dts, t0_ns = prophesee_recording(rng)
     t_us = np.round((et - t0_ns) / 1e3).astype(np.int64)
@@ -2589,49 +2780,68 @@ def phase_dataset(dev, flush, smi):
     event_ns = t0_ns + ev["t"].astype(np.float64) * 1e3
     p01 = (ev["p"] > 0).astype(np.int8)  # the camera's {0, 1} polarity
     launches = {}
-    for thresholds, route in (((0.2, 0.2), "cluster"), ((0.2, 0.3), "band")):
-        require(voxelizer.k1_route(REC_H, REC_W, thresholds[0] != thresholds[1]) == route,
+    for thresholds, route in (((0.2, 0.2), "cluster8"), ((0.2, 0.3), "cluster16")):
+        require(str(voxelizer.k1_route(REC_H, REC_W, thresholds[0] != thresholds[1])) == route,
                 f"K1 at {REC_H}x{REC_W}, thresholds {thresholds}: not the {route} route")
         args = ("real_000", event_ns, ev["x"], ev["y"], p01, depths, dts)
         kw = dict(pos_thresh=thresholds[0], neg_thresh=thresholds[1])
         hist_frame_windows.launches = 0
+        hist_frame_windows.by_route.clear()
         t0 = time.perf_counter()
         traj = realdata.package_real_sequence(*args, **kw, device=dev)
         card_s = time.perf_counter() - t0
-        launches[route] = hist_frame_windows.launches
+        launches[route] = hist_frame_windows.by_route[route]
         ref = realdata.package_real_sequence(*args, **kw, device="cpu")
         same = {k: bool(np.array_equal(np.asarray(traj[k]), np.asarray(ref[k]))
                         and np.asarray(traj[k]).dtype == np.asarray(ref[k]).dtype)
                 for k in ref}
         log(f"recording -> trajectory ({route}, thresholds {thresholds}): {len(t_us):,} events "
             f"({len(raw) / 1e6:.2f} MB of EVT3, decoded in {decode_s:.3f} s), evs "
-            f"{traj['evs'].shape}, K1 windows launches {launches[route]}, equal to the CPU's "
-            f"{same}; packaged in {card_s:.3f} s on the card (host clock)")
+            f"{traj['evs'].shape}, K1 windows launches {dict(hist_frame_windows.by_route)}, "
+            f"equal to the CPU's {same}; packaged in {card_s:.3f} s on the card (host clock)")
         require(all(same.values()), f"the card's trajectory differs from the CPU's: {same}")
-        require(launches[route] == 1, "package_real_sequence: not one K1 launch")
+        require(hist_frame_windows.launches == 1 and launches[route] == 1,
+                f"package_real_sequence: not one K1 launch on the {route} route")
         require(traj["evs"].shape == (REC_FRAMES - 1, REC_H, REC_W)
                 and bool(np.isfinite(traj["evs"]).all())
                 and (np.abs(traj["evs"]).sum(axis=(1, 2)) > 0).all(),
                 "the trajectory's event frames")
 
     t, x, y, p, edges = davis_stream(33, dev)
-    errs = []
+    errs = {}
     starts, ends = edges[:-1], edges[1:]
-    _windows_check(f"{DAVIS_EVENTS:,} events at {H}x{W}", t, x, y, p, starts, ends, H, W,
-                   (0.2, 0.2), errs)
     perm = torch.randperm(DAVIS_EVENTS, device=dev, generator=torch.Generator(dev).manual_seed(3))
-    _windows_check("shuffled", t[perm], x[perm], y[perm], p[perm], starts, ends, H, W,
-                   (0.2, 0.2), errs)
     lap = torch.tensor([0.0, 0.5, 0.25, 1.0, 1.9], device=dev)
-    _windows_check("overlapping and nested", t, x, y, p, lap, lap + 0.5, H, W, (0.2, 0.2), errs)
     empty = torch.tensor([0.3, 0.7, 1.5, 2.5, -1.0], device=dev)
-    _windows_check("empty (t1 <= t0, after and before the stream)", t, x, y, p, empty,
-                   torch.tensor([0.3, 0.6, 1.6, 3.0, 0.0], device=dev), H, W, (0.2, 0.2), errs)
-    _windows_check("two thresholds", t, x, y, p, starts, ends, H, W, (0.2, 0.3), errs)
-    rx = x * (REC_W / W)
-    ry = y * (REC_H / H)
-    _windows_check(f"two thresholds at {REC_W}x{REC_H}", t, rx, ry, p, starts, ends, REC_H,
-                   REC_W, (0.2, 0.3), errs)
+    empty_ends = torch.tensor([0.3, 0.6, 1.6, 3.0, 0.0], device=dev)
+    # the stream scaled to each frame, each on its route: 8 CTAs at
+    # 260x346, 16 at 640x480 with two thresholds, the band route at
+    # 1280x720 with two
+    rx, ry = x * (REC_W / W), y * (REC_H / H)
+    hx, hy = x * (HD_W / W), y * (HD_H / H)
+    for h, w, sx, sy, thresholds in ((H, W, x, y, (0.2, 0.2)), (H, W, x, y, (0.2, 0.3)),
+                                     (REC_H, REC_W, rx, ry, (0.2, 0.3)),
+                                     (HD_H, HD_W, hx, hy, (0.2, 0.2)),
+                                     (HD_H, HD_W, hx, hy, (0.2, 0.3))):
+        at = f"{DAVIS_EVENTS:,} events at {w}x{h}, thresholds {thresholds}"
+        _windows_check(at, t, sx, sy, p, starts, ends, h, w, thresholds, errs)
+        _windows_check(f"{at}, shuffled", t[perm], sx[perm], sy[perm], p[perm], starts, ends, h,
+                       w, thresholds, errs)
+        _windows_check(f"{at}, overlapping and nested", t, sx, sy, p, lap, lap + 0.5, h, w,
+                       thresholds, errs)
+        _windows_check(f"{at}, empty (t1 <= t0, after and before the stream)", t, sx, sy, p,
+                       empty, empty_ends, h, w, thresholds, errs)
+    # windows starting at every offset mod 4 and of 0 to 9 events, each route
+    off_begin = torch.arange(200, device=dev, dtype=torch.int64)
+    off_end = off_begin + torch.arange(200, device=dev) % 10
+    for route, thresholds in ((K1Route("cluster", K1_CLUSTER), (0.2, 0.3)),
+                              (K1Route("cluster", K1_WIDE_CLUSTER), (0.2, 0.3)),
+                              (BAND_ROUTE, (0.2, 0.3))):
+        got = _frame_windows_launch(x, y, p, off_begin, off_end, H, W, *thresholds, route)
+        require(torch.equal(got, hist_frame_windows_plain(x, y, p, off_begin, off_end, H, W,
+                                                          *thresholds)),
+                f"K1 windows ({route}) at every alignment disagrees with plain")
+    log("K1 windows at every alignment (offsets 0-199, 0-9 events), each route: equal to plain")
 
     # timings, in turns, on the sorted stream (its window offsets found once)
     torch.cuda.synchronize()
@@ -2645,62 +2855,76 @@ def phase_dataset(dev, flush, smi):
     require(torch.equal(hist_frame_routed(px, py, pp, H, W),
                         _frame_windows_launch(x, y, p, begin, end, H, W, 0.2, 0.2)),
             "the padded (B, N_max) K1 launch and the window launch disagree")
-    xi, yi, sign = bin_events(x, y, p, H, W)
-    win = torch.repeat_interleave(torch.arange(DAVIS_WINDOWS, device=dev), end - begin)
-    keys = win * (H * W) + (yi * W + xi)[begin[0]:end[-1]]
-    weights = sign[begin[0]:end[-1]]
-    require(torch.equal(torch.bincount(keys, weights, minlength=DAVIS_WINDOWS * H * W)
-                        .float().reshape(-1, H, W) * 0.2,
-                        _frame_windows_launch(x, y, p, begin, end, H, W, 0.2, 0.2)),
-            "torch.bincount over (window, cell) keys disagrees with the window launch")
-    fns = {"windows": lambda: _frame_windows_launch(x, y, p, begin, end, H, W, 0.2, 0.2),
-           "padded": lambda: hist_frame_routed(px, py, pp, H, W)}
-    turns = in_turns(fns, ("padded", "windows", "windows", "padded"), flush)
-    plain_ms = time_ms(lambda: hist_frame_windows_plain(x, y, p, begin, end, H, W), flush, 5)
-    library_ms = time_ms(lambda: torch.bincount(keys, weights, minlength=DAVIS_WINDOWS * H * W),
-                         flush, 10)
-    n_win = sum(counts)
-    b_ms, b_by = bound_ms(12 * n_win + 4 * DAVIS_WINDOWS * H * W, n_win + DAVIS_WINDOWS * H * W)
-    band_ms = time_ms(lambda: _frame_windows_launch(rx, ry, p, begin, end, REC_H, REC_W, 0.2,
-                                                    0.3), flush, 10)
-    band_plain_ms = time_ms(lambda: hist_frame_windows_plain(rx, ry, p, begin, end, REC_H,
-                                                             REC_W, 0.2, 0.3), flush, 5)
-    band_bound, band_by = bound_ms(12 * n_win + 4 * DAVIS_WINDOWS * REC_H * REC_W,
-                                   2 * n_win + 3 * DAVIS_WINDOWS * REC_H * REC_W)
-    # the band entry's library call: one bincount whose weights are +pos,
-    # -neg or 0 gives pos * pos_counts - neg * neg_counts per (window,
-    # cell); its f32 sums in another order agree with the kernel within
-    # n * eps * sum |w| at a cell of n events
-    rxi, ryi, rsign = bin_events(rx, ry, p, REC_H, REC_W)
-    n_cells = DAVIS_WINDOWS * REC_H * REC_W
-    rkeys = win * (REC_H * REC_W) + (ryi * REC_W + rxi)[begin[0]:end[-1]]
-    rsign = rsign[begin[0]:end[-1]]
-    rweights = rsign * torch.where(rsign > 0, 0.2, 0.3)
-    band_lib = torch.bincount(rkeys, rweights, minlength=n_cells).float().reshape(-1, REC_H, REC_W)
-    band_ref = _frame_windows_launch(rx, ry, p, begin, end, REC_H, REC_W, 0.2, 0.3)
-    band_tol = (torch.bincount(rkeys, minlength=n_cells)
-                * torch.bincount(rkeys, rweights.abs(), minlength=n_cells).double()
-                * float(np.finfo(np.float32).eps)).reshape(-1, REC_H, REC_W)
-    band_lib_err = (band_lib - band_ref).abs()
-    require(bool((band_lib_err <= band_tol).all()),
-            "torch.bincount with weights +pos/-neg disagrees with the band kernel's window launch")
-    band_lib_ms = time_ms(lambda: torch.bincount(rkeys, rweights, minlength=n_cells), flush, 10)
-    log(f"K1 windows at {H}x{W}, {DAVIS_WINDOWS} windows of {min(counts):,}-{n_max:,} events "
-        f"({n_win:,}), in turns padded, windows, windows, padded: windows "
-        f"{turns['windows'][0]:.4f} / {turns['windows'][1]:.4f} ms, padded (B, N_max) K1 "
-        f"{turns['padded'][0]:.4f} / {turns['padded'][1]:.4f} ms; plain {plain_ms:.4f} ms; "
-        f"torch.bincount over (window, cell) keys {library_ms:.4f} ms; bound {b_ms:.6f} ms "
-        f"({b_by}); the stable sort and searchsorted {sort_ms:.4f} ms; band kernel, two "
-        f"thresholds at {REC_W}x{REC_H}: {band_ms:.4f} ms (plain {band_plain_ms:.4f}, "
-        f"torch.bincount with weights +pos/-neg {band_lib_ms:.4f} (max|diff| "
-        f"{band_lib_err.max().item():.2e}), bound {band_bound:.6f} {band_by}) on {smi}")
-    base = dict(max_abs_err=max(errs), library_ms=library_ms)
+    # the band route's layout read to the host once, as hist_frame_windows
+    # reads it with its offset check, so that the timed calls do not wait
+    # for the host
+    layout = band_route_layout(begin, end)
+    layout_ms = time_ms(lambda: band_route_layout(begin, end), flush, 10)
+    win = lambda h_, w_, sx, sy, th, r=None: (
+        lambda: _frame_windows_launch(sx, sy, p, begin, end, h_, w_, *th, r, layout))
+    plain = lambda h_, w_, sx, sy, th: (
+        lambda: hist_frame_windows_plain(sx, sy, p, begin, end, h_, w_, *th))
+    davis = _windows_timed(f"at {W}x{H}", {"windows": win(H, W, x, y, (0.2, 0.2)),
+                                            "padded": lambda: hist_frame_routed(px, py, pp, H, W)},
+                           ("padded", "windows", "windows", "padded"),
+                           plain(H, W, x, y, (0.2, 0.2)), x, y, p, begin, end, H, W, (0.2, 0.2),
+                           flush)
+    two = (0.2, 0.3)
+    shape_a = _windows_timed("shape A", {"cluster16": win(REC_H, REC_W, rx, ry, two),
+                                         "band": win(REC_H, REC_W, rx, ry, two, BAND_ROUTE)},
+                             ("cluster16", "band", "band", "cluster16"),
+                             plain(REC_H, REC_W, rx, ry, two), rx, ry, p, begin, end, REC_H,
+                             REC_W, two, flush)
+    shape_b1 = _windows_timed("shape B, one threshold",
+                              {"cluster16": win(HD_H, HD_W, hx, hy, (0.2, 0.2)),
+                               "band": win(HD_H, HD_W, hx, hy, (0.2, 0.2), BAND_ROUTE)},
+                              ("cluster16", "band", "band", "cluster16"),
+                              plain(HD_H, HD_W, hx, hy, (0.2, 0.2)), hx, hy, p, begin, end, HD_H,
+                              HD_W, (0.2, 0.2), flush)
+    shape_b2 = _windows_timed("shape B, two thresholds", {"band": win(HD_H, HD_W, hx, hy, two)},
+                              ("band", "band"), plain(HD_H, HD_W, hx, hy, two), hx, hy, p, begin,
+                              end, HD_H, HD_W, two, flush)
+    # the band route's band pass alone: the same windows with no events (no
+    # partition block; every band zeroed and written)
+    no_events = band_route_layout(begin, begin)
+    none = _frame_windows_launch(hx, hy, p, begin, begin, HD_H, HD_W, *two, None, no_events)
+    require(not none.any(), "K1 windows on empty windows: frames not zero")
+    del none
+    band_pass_ms = time_ms(lambda: _frame_windows_launch(hx, hy, p, begin, begin, HD_H, HD_W,
+                                                         *two, None, no_events), flush, 10)
+    log(f"K1 windows shape B, two thresholds, the band pass alone (every window empty): "
+        f"{band_pass_ms:.4f} ms")
+    # the band route's two kernels at shape B by device time (3 calls, L2
+    # not flushed between them)
+    prof = phase_profile(win(HD_H, HD_W, hx, hy, two),
+                         {"partition": "hist_band_partition_kernel", "band": "hist_band_kernel"},
+                         "band-route calls at shape B")
+    split = None if prof is None else {k: v / 3 for k, v in prof["by_label"].items()}
+    # the band route's launches through the entry point at shape B
+    hist_frame_windows.launches = 0
+    hist_frame_windows.by_route.clear()
+    frames = event_frames_from_windows(t, hx, hy, p, starts, ends, HD_H, HD_W, *two, device=dev)
+    torch.cuda.synchronize()
+    launches["band"] = hist_frame_windows.by_route["band"]
+    require(hist_frame_windows.launches == 1 and launches["band"] == 1
+            and torch.equal(frames, plain(HD_H, HD_W, hx, hy, two)()),
+            "event_frames_from_windows at 1280x720 did not take one launch of the band route")
+    del frames
+    log(f"K1 windows at {H}x{W}: the stable sort and searchsorted of {DAVIS_EVENTS:,} times "
+        f"{sort_ms:.4f} ms; the band route's layout of {DAVIS_WINDOWS} windows with its read "
+        f"to the host {layout_ms:.4f} ms; launches on the dataset path {launches}; on {smi}")
+
+    def entry(t_, route, **extra):
+        return dict(max_abs_err=errs[route], ms=t_[route], plain_ms=t_["plain_ms"],
+                    bound_ms=t_["bound_ms"], bound_by=t_["bound_by"],
+                    library_ms=t_["library_ms"], **extra)
+
     return launches, {
-        "cluster": dict(base, ms=statistics.mean(turns["windows"]), plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, padded_ms=statistics.mean(turns["padded"]),
-                        sort_ms=sort_ms),
-        "band": dict(base, ms=band_ms, plain_ms=band_plain_ms, bound_ms=band_bound,
-                     bound_by=band_by, library_ms=band_lib_ms)}
+        "cluster8": entry({**davis, "cluster8": davis["windows"]}, "cluster8",
+                          padded_ms=davis["padded"], sort_ms=sort_ms),
+        "cluster16": entry(shape_a, "cluster16", band_forced_ms=shape_a["band"]),
+        "band": entry(shape_b2, "band", shape_b_one_threshold=shape_b1, layout_ms=layout_ms,
+                      band_pass_ms=band_pass_ms, profiled_ms_per_call=split)}
 
 
 def texture_trajectory(n=GEN_FRAMES, h=H, w=W, dt=GEN_DT, speeds=GEN_SPEEDS, seed=41):
@@ -2880,11 +3104,18 @@ def main() -> int:
                      bound_by=t["bound_by"], library_ms=t["library_ms"])
 
     vox, lstm_src = "evfly_tpu_torch/csrc/voxelizer.cu", "evfly_tpu_torch/csrc/lstm.cu"
+    k1_16, k1_band = dict(k1["cluster16"]), dict(k1["band"])
     kernels = [
-        entry("hist_frame_cluster (K1, cluster kernel)", vox, "evfly_tpu/ops/voxelizer.py:153",
-              stream_launches["K1 cluster"], "K1 cluster", **k1["cluster"]),
-        entry("hist_frame (K1, band kernel)", vox, "evfly_tpu/ops/voxelizer.py:153",
-              stream_launches["K1 band"], "K1 band", **k1["band"]),
+        entry("hist_frame_cluster (K1, cluster kernel on 8 CTAs)", vox,
+              "evfly_tpu/ops/voxelizer.py:153", stream_launches["K1 cluster"], "K1 cluster8",
+              **k1["cluster8"]),
+        entry("hist_frame_cluster (K1, cluster kernel on 16 CTAs: two thresholds at 640x480, "
+              "one at 1280x720; event_histogram, 1 x 5,000 events at 640x480)", vox,
+              "evfly_tpu/ops/voxelizer.py:153", k1_16.pop("launches"), "K1 cluster16", **k1_16),
+        entry("hist_frame (K1, band route: hist_band_partition_kernel + hist_band_kernel; "
+              "event_histogram, 1 x 5,000 events at 1280x720, two thresholds)", vox,
+              "evfly_tpu/ops/voxelizer.py:153", k1_band.pop("launches"), "K1 band",
+              streaming_forced_launches=stream_launches["K1 band"], **k1_band),
         entry("hist_scaled (K2, cluster kernel)", vox, "evfly_tpu/ops/voxelizer.py:251",
               rung_launches["K2"], "K2", **k2),
         entry("hist_scaled_resized (K3, cluster kernel)", vox,
@@ -2921,14 +3152,20 @@ def main() -> int:
                 max_abs_err=head_errs[(mode, route)], ms=t[route], plain_ms=t[f"plain_{route}"],
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"]))
     # K1 over time windows: launches on the dataset path
-    # (package_real_sequence of the recording), one threshold on the
-    # cluster kernel, two on the band kernel
-    for route, kernel in (("cluster", "hist_frame_cluster_kernel"),
-                          ("band", "hist_frame_kernel")):
+    # (package_real_sequence of the 640x480 recording: one threshold on 8
+    # CTAs, two on 16; event_frames_from_windows at 1280x720 with two
+    # thresholds on the band route), timed at 260x346 (8 CTAs), shape A (16)
+    # and shape B (the band route)
+    for route, kernel, shape in (
+            ("cluster8", "hist_frame_cluster_kernel on 8 CTAs", "60 windows at 260x346"),
+            ("cluster16", "hist_frame_cluster_kernel on 16 CTAs",
+             "shape A: 60 windows at 640x480, two thresholds"),
+            ("band", "the band route", "shape B: 60 windows at 1280x720, two thresholds")):
         kernels.append(dict(
-            name=f"hist_frame_windows (K1 over time windows, {kernel}, window offsets)",
+            name=f"hist_frame_windows (K1 over time windows, {kernel}, window offsets; {shape})",
             route="cuda", source=vox, replaces="evfly_tpu/ops/voxelizer.py:153",
-            launches=dataset_launches[route], training_launches=train_launches["K1 windows"],
+            launches=dataset_launches[route],
+            training_launches=train_launches[f"K1 windows {route}"],
             **k1w[route]))
     streaming = "; ".join(
         f"{mode} {route} {'graph' if graph else 'eager'} "

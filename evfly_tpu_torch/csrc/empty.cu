@@ -4,13 +4,23 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace {
 
 __global__ void empty_kernel() {}
 
+std::atomic<bool> g_non_portable{false};
+
 }  // namespace
 
 extern "C" int evfly_empty(int cluster, void* stream) {
+  if (cluster > 8 && !g_non_portable.load()) {  // a cluster past 8 CTAs is non-portable
+    cudaError_t err =
+        cudaFuncSetAttribute(empty_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    g_non_portable.store(true);
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster, 1, 1);
   cfg.blockDim = dim3(32, 1, 1);

@@ -25,8 +25,9 @@
 //
 // The cluster kernels (K1 `hist_frame_cluster_kernel`, K2 and K3
 // `hist_scaled_cluster_kernel<kPacked, kResize>`): one thread-block cluster
-// of C CTAs per window (the wrappers' K1_CLUSTER = 8, K2_CLUSTER =
-// K3_CLUSTER = 2), windows x C CTAs on grid.x.  The window's count frame is
+// of C CTAs per window (K1: kK1Cluster = 8 where they hold the frame, else
+// kK1WideCluster = 16, a non-portable size, where those do; the wrappers'
+// K2_CLUSTER = K3_CLUSTER = 2), windows x C CTAs on grid.x.  The window's count frame is
 // cut into C bands of ceil(H / C) rows, CTA r holding rows [r * rows, (r +
 // 1) * rows) in its shared memory, so the cluster's distributed shared memory
 // holds the whole frame (352 KiB of int32 at 260x346).  Each CTA reads 1/C of
@@ -67,12 +68,12 @@
 //     (`scaled_cluster_cap`: 823,807 events at 260x346 on 2 CTAs;
 //     `resized_cluster_cap`: 763,135).
 //
-// Frames that no cluster of K1 holds keep K1's band kernel
-// (`hist_frame_kernel`), chosen by the wrappers by shape.
+// Frames that no 16-CTA cluster holds take K1's band route (below); the
+// route is decided by shape alone (`frame_cluster_route`).
 //
 // K1 over time windows (`event_frames_from_windows` of the JAX package, a
 // lax.map of K1 over the windows with every window masking the whole
-// stream by time, T x N work): both K1 kernels take an optional pair of
+// stream by time, T x N work): both K1 routes take an optional pair of
 // int64 offset arrays `begin`, `end` (T,).  With them, window b reads the
 // events [begin[b], end[b]) of one (N,) stream, which the wrapper has
 // sorted by time, so the T windows of a recording are one launch that
@@ -89,14 +90,23 @@
 // event_histogram has no FMA), so both ports equal their JAX function bit
 // for bit.
 //
-// K1's band kernel: the frame cut into bands of rows of 32 KiB, one block
-// per (window, band), windows on grid.x (up to 2^31 - 1 of them; grid.y
-// stops at 65,535) and bands on grid.y.  Each block reads all of the
-// window's events, counts those that fall in its band in shared memory and
-// writes its band.  Counts are exact integers; the thresholds are applied
-// with round-to-nearest multiplies and subtract (no FMA contraction), as the
-// JAX package does in f32, so the frame is bit for bit the JAX one (in
-// both K1 kernels).
+// K1's band route, for frames no cluster holds (two thresholds at
+// 1280x720, anything at 1920x1080): the frame cut into bands of
+// `band_route_cells` flat cells (32 KiB of counts), two launches.  The
+// partition pass (`hist_band_partition_kernel`, one block per chunk of
+// kChunk events of a window) reads each event once for each window holding
+// it, bins it and writes its key (2 * cell + [sign < 0]) into the window's
+// run of scratch, sorted by band within its chunk (a counting sort in
+// shared memory), with the offsets of the bands' runs in a table.  The band
+// pass (`hist_band_kernel`, one block per (window, band), windows on grid.x,
+// up to 2^31 - 1 of them; grid.y stops at 65,535) reads only its band's
+// keys, counts them in shared memory and writes its band.  So every event is
+// read once and every key once, where the band kernel of before had every
+// block of a window read all its events (80 to 240 blocks at 640x480 and
+// 1280x720).  Counts are exact integers, summed in any order; the
+// thresholds are applied with round-to-nearest multiplies and subtract (no
+// FMA contraction; the window launch's FMA above), as the JAX package does
+// in f32, so the frame is bit for bit the JAX one (on every route).
 //
 // A window that K2 and K3 cannot take (more events than their caps, or a
 // frame no band holds) gets their function in two launches: K1's counts
@@ -130,8 +140,15 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kBandThreads = 512;
 constexpr int kFrameThreads = 512;     // K1's cluster kernel, a CTA
+constexpr int kK1Cluster = 8;          // K1's cluster route: CTAs per window where they
+constexpr int kK1WideCluster = 16;     //   hold the frame, else these (non-portable)
+constexpr int kPartThreads = 512;      // K1's band route: the partition pass's block,
+constexpr int kChunk = 4096;           //   which takes this many events of one window,
+constexpr int kBandRouteThreads = 512;  //  and the band pass's block
+constexpr int kMaxBands = 8192;        //   bands of a frame at most
+constexpr int kBandInts = 8192;        //   a band block's counts: 32 KiB, wider only
+                                       //   where the frame has more than kMaxBands
 constexpr int kResizedThreads = 1024;  // K2's and K3's, int32 counts (one CTA per SM)
 constexpr int kPackedThreads = 512;    // K2's and K3's, two int16 counts a word (two CTAs per SM)
 constexpr int kMaxPacked = 32767;      // K2 and K3 pack their counts up to this many events
@@ -207,52 +224,6 @@ __device__ __forceinline__ float two_pass_value(float pos_thresh, float neg_thre
   const float neg = __fmul_rn(neg_thresh, static_cast<float>(nc));
   if (fused) return __fmaf_rn(pos_thresh, static_cast<float>(pc), -neg);
   return __fsub_rn(__fmul_rn(pos_thresh, static_cast<float>(pc)), neg);
-}
-
-// ---------------------------------------------------------------- K1
-
-__global__ void __launch_bounds__(kBandThreads)
-hist_frame_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                  const int* __restrict__ pol, const long long* __restrict__ win_begin,
-                  const long long* __restrict__ win_end, float* __restrict__ out, int N, int H,
-                  int W, int rows_per_band, float pos_thresh, float neg_thresh, int two_pass) {
-  extern __shared__ int band[];  // (rows_per_band, W) counts; two_pass: pos then neg
-  const int b = blockIdx.x;
-  const int row0 = blockIdx.y * rows_per_band;
-  const int rows = min(rows_per_band, H - row0);
-  const int first = row0 * W, cells = rows * W;
-  int* pos_counts = band;
-  int* neg_counts = band + rows_per_band * W;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-
-  for (int i = tid; i < (two_pass ? 2 : 1) * rows_per_band * W; i += nthreads) band[i] = 0;
-  __syncthreads();
-
-  const WindowRange win = window_range(win_begin, win_end, b, N);
-  const float* xb = x + win.first;
-  const float* yb = y + win.first;
-  const int* pb = pol + win.first;
-  for (int e = tid; e < win.n; e += nthreads) {
-    int s = 0;
-    const int idx = bin_event(xb[e], yb[e], pb[e], H, W, &s) - first;
-    if (idx < 0 || idx >= cells) continue;  // dropped, or another block's band
-    if (two_pass) {
-      atomicAdd(s > 0 ? &pos_counts[idx] : &neg_counts[idx], 1);
-    } else {
-      atomicAdd(&band[idx], s);
-    }
-  }
-  __syncthreads();
-
-  float* ob = out + static_cast<size_t>(b) * H * W + first;
-  const bool fused = win_begin != nullptr;
-  for (int i = tid; i < cells; i += nthreads) {
-    if (two_pass) {
-      ob[i] = two_pass_value(pos_thresh, neg_thresh, pos_counts[i], neg_counts[i], fused);
-    } else {
-      ob[i] = __fmul_rn(pos_thresh, static_cast<float>(band[i]));
-    }
-  }
 }
 
 // ----------------------------------------------------------- K2 and K3
@@ -430,6 +401,35 @@ size_t resized_cluster_smem(int H, int W, int N, int h_out, int w_out, int clust
 bool frame_cluster_fits(int H, int W, int two_pass, int cluster) {
   return H >= 1 && W >= 1 && cluster_size_ok(cluster) &&
          frame_cluster_smem(H, W, two_pass, cluster) <= static_cast<size_t>(kSmemLimit);
+}
+
+// K1's route for an H x W frame, decided by shape before any launch: one
+// cluster of kK1Cluster CTAs per window where they hold the frame, else
+// one of kK1WideCluster where those do, else 0, the band route
+int frame_cluster_route(int H, int W, int two_pass) {
+  if (frame_cluster_fits(H, W, two_pass, kK1Cluster)) return kK1Cluster;
+  if (frame_cluster_fits(H, W, two_pass, kK1WideCluster)) return kK1WideCluster;
+  return 0;
+}
+
+// The band route's band: kBandInts counts (two arrays with two thresholds)
+// of flat cells, a multiple of 4, at most the frame, wider where the frame
+// would have more than kMaxBands bands; -1 where such a band passes a
+// block's shared memory or a key (2 * cell + sign) passes int32
+int band_route_cells(int H, int W, int two_pass) {
+  if (H < 1 || W < 1) return -1;
+  const long long HW = static_cast<long long>(H) * W;
+  if (HW >= (1LL << 30)) return -1;
+  const long long arrays = two_pass ? 2 : 1;
+  long long cells = (kBandInts / arrays < HW + 3 ? kBandInts / arrays : HW + 3) & ~3LL;
+  const long long widest = ((HW + kMaxBands - 1) / kMaxBands + 3) & ~3LL;
+  if (cells < widest) cells = widest;
+  if (arrays * cells * static_cast<long long>(sizeof(int)) > kSmemLimit) return -1;
+  return static_cast<int>(cells);
+}
+
+__host__ __device__ __forceinline__ int band_count(int H, int W, int band_cells) {
+  return static_cast<int>((static_cast<long long>(H) * W + band_cells - 1) / band_cells);
 }
 
 // K3's cap: the most events per window whose list fits beside the band,
@@ -614,6 +614,206 @@ hist_frame_cluster_kernel(const float* __restrict__ x, const float* __restrict__
     }
   }
   for (int s = max(4 * g1, lead) + tid; s < end; s += nthreads) dst[s] = value(s);
+}
+
+// ---------------------------------------------------- K1's band route
+
+// a[0..n) -> its exclusive prefix sums in place, a[n] = their total; every
+// thread of the block calls it (n <= kMaxBands)
+__device__ void block_exclusive_scan(int* a, int n, int* s_warp) {
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
+  const int per = (n + nthreads - 1) / nthreads;
+  const int i0 = min(n, tid * per), i1 = min(n, i0 + per);
+  int sum = 0;
+  for (int i = i0; i < i1; ++i) sum += a[i];
+  const int incl = warp_inclusive_scan(sum);
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < nwarps ? s_warp[lane] : 0;
+    const int wi = warp_inclusive_scan(w);
+    if (lane < nwarps) s_warp[lane] = wi - w;
+  }
+  __syncthreads();
+  int run = s_warp[warp] + incl - sum;
+  for (int i = i0; i < i1; ++i) {
+    const int v = a[i];
+    a[i] = run;
+    run += v;
+  }
+  if (tid == nthreads - 1) a[n] = run;  // the last thread's run ends at the total
+  __syncthreads();
+}
+
+// The band route's chunks: window b's events are cut into chunks of kChunk,
+// the chunks of all windows numbered in window order.  Window b has chunks
+// [c0, c1) and its keys start at key0 in the key scratch (its first event's
+// occurrence).  Without offsets (a (B, N) batch) every window has ceil(N /
+// kChunk) chunks and its keys start at b * N; with them `chunk_end` (T,)
+// holds the running total of the windows' chunks and `key_base` (T,) the
+// running total of their lengths before b (the wrapper's cumsums).
+struct WindowChunks {
+  long long c0, c1;
+  size_t key0;
+};
+
+__device__ __forceinline__ WindowChunks window_chunks(const long long* chunk_end,
+                                                      const long long* key_base, int b, int N) {
+  if (chunk_end == nullptr) {
+    const long long per = (N + kChunk - 1) / kChunk;
+    return {b * per, (b + 1) * per, static_cast<size_t>(b) * N};
+  }
+  return {b > 0 ? chunk_end[b - 1] : 0, chunk_end[b], static_cast<size_t>(key_base[b])};
+}
+
+// the window that holds chunk c: the least b with chunk_end[b] > c
+__device__ __forceinline__ int chunk_window(const long long* chunk_end, int T, int N,
+                                            long long c) {
+  if (chunk_end == nullptr) return static_cast<int>(c / ((N + kChunk - 1) / kChunk));
+  int lo = 0, hi = T - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (chunk_end[mid] > c) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
+// Pass 1, one block per chunk: its events read once (coalesced, any
+// alignment), binned, and their keys (2 * cell + [sign < 0]) sorted by band
+// in shared memory (a counting sort: each key's rank within its band from
+// the shared-memory atomic that counts it, the bands' offsets from a block
+// scan), then written in band order at the chunk's place in `keys`; row c
+// of `table` ((chunks, bands + 1) ints) gets the offsets of the bands'
+// runs in the chunk, the last entry the chunk's count of kept keys.
+__global__ void __launch_bounds__(kPartThreads)
+hist_band_partition_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                           const int* __restrict__ pol, const long long* __restrict__ win_begin,
+                           const long long* __restrict__ win_end,
+                           const long long* __restrict__ chunk_end,
+                           const long long* __restrict__ key_base, int T, int N, int H, int W,
+                           int band_cells, int bands, int* __restrict__ keys,
+                           int* __restrict__ table) {
+  extern __shared__ int s_part[];  // bands + 1 counts (whole int4s), then kChunk keys
+  __shared__ int s_warp[kPartThreads / 32];
+  int* s_count = s_part;
+  int* s_keys = s_part + round_up4(bands + 1);
+  const int tid = threadIdx.x;
+  const long long c = blockIdx.x;
+  const int b = chunk_window(chunk_end, T, N, c);
+  const WindowChunks wc = window_chunks(chunk_end, key_base, b, N);
+  const WindowRange win = window_range(win_begin, win_end, b, N);
+  const long long j0 = (c - wc.c0) * kChunk;  // the chunk's first event in its window
+  const int n = static_cast<int>(min(static_cast<long long>(kChunk), win.n - j0));
+  const size_t first = win.first + j0;
+
+  // the chunk's events in flight, the band counts zeroed
+  constexpr int kPer = kChunk / kPartThreads;
+  float ex[kPer], ey[kPer];
+  int ep[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = k * kPartThreads + tid;
+    ex[k] = ey[k] = -1.f;  // dropped by bin_event
+    ep[k] = 0;
+    if (e < n) {
+      ex[k] = __ldg(x + first + e);
+      ey[k] = __ldg(y + first + e);
+      ep[k] = __ldg(pol + first + e);
+    }
+  }
+  for (int i = tid; i < bands; i += kPartThreads) s_count[i] = 0;
+  __syncthreads();
+
+  int key[kPer], band[kPer], rank[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    int s = 0;
+    const int idx = bin_event(ex[k], ey[k], ep[k], H, W, &s);
+    key[k] = 2 * idx + (s < 0 ? 1 : 0);
+    band[k] = idx < 0 ? -1 : idx / band_cells;
+    rank[k] = idx < 0 ? 0 : atomicAdd(&s_count[band[k]], 1);
+  }
+  __syncthreads();
+  block_exclusive_scan(s_count, bands, s_warp);
+
+  int* row = table + static_cast<size_t>(c) * (bands + 1);
+  for (int i = tid; i <= bands; i += kPartThreads) row[i] = s_count[i];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    if (band[k] >= 0) s_keys[s_count[band[k]] + rank[k]] = key[k];
+  }
+  __syncthreads();
+  const int kept = s_count[bands];
+  int* dst = keys + wc.key0 + j0;
+  for (int i = tid; i < kept; i += kPartThreads) dst[i] = s_keys[i];
+}
+
+// Pass 2, one block per (window b, band k), windows on grid.x (up to 2^31
+// - 1; grid.y stops at 65,535) and bands on grid.y: the band's counts in
+// shared memory, from the run of band k in each chunk of window b (one warp
+// per chunk), then written with the thresholds applied.  A key is read once.
+__global__ void __launch_bounds__(kBandRouteThreads)
+hist_band_kernel(const int* __restrict__ keys, const int* __restrict__ table,
+                 const long long* __restrict__ chunk_end, const long long* __restrict__ key_base,
+                 float* __restrict__ out, int N, int H, int W, int band_cells, int bands,
+                 float pos_thresh, float neg_thresh, int two_pass, int fused) {
+  extern __shared__ int4 s_band4[];  // band_cells counts; with two thresholds pos then neg
+  int* counts = reinterpret_cast<int*>(s_band4);
+  const int b = blockIdx.x, k = blockIdx.y;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
+  const int HW = H * W;
+  const int cell0 = k * band_cells;
+  const int cells = min(band_cells, HW - cell0);
+
+  // this warp's first chunk: the run of band k in it and the run's first
+  // keys in flight while the band is zeroed
+  const WindowChunks wc = window_chunks(chunk_end, key_base, b, N);
+  const long long first = wc.c0 + warp;
+  int s0 = 0, s1 = 0, key = 0;
+  const int* run = nullptr;
+  auto find_run = [&](long long c) {
+    const int* row = table + static_cast<size_t>(c) * (bands + 1) + k;
+    s0 = __ldg(row);
+    s1 = __ldg(row + 1);
+    run = keys + wc.key0 + static_cast<size_t>(c - wc.c0) * kChunk;
+  };
+  if (first < wc.c1) {
+    find_run(first);
+    if (s0 + lane < s1) key = __ldg(run + s0 + lane);
+  }
+  const int n4 = (two_pass ? 2 : 1) * band_cells / 4;
+  for (int i = tid; i < n4; i += nthreads) s_band4[i] = make_int4(0, 0, 0, 0);
+  __syncthreads();
+
+  auto add = [&](int kv) {
+    const int idx = (kv >> 1) - cell0;
+    if (two_pass) {
+      atomicAdd(&counts[(kv & 1) ? band_cells + idx : idx], 1);
+    } else {
+      atomicAdd(&counts[idx], (kv & 1) ? -1 : 1);
+    }
+  };
+  for (long long c = first; c < wc.c1; c += nwarps) {
+    int i = s0 + lane;
+    if (c == first) {
+      if (i < s1) add(key);
+      i += 32;
+    } else {
+      find_run(c);
+      i = s0 + lane;
+    }
+    for (; i < s1; i += 32) add(__ldg(run + i));
+  }
+  __syncthreads();
+
+  float* ob = out + static_cast<size_t>(b) * HW + cell0;
+  for (int i = tid; i < cells; i += nthreads) {
+    ob[i] = two_pass ? two_pass_value(pos_thresh, neg_thresh, counts[i], counts[band_cells + i],
+                                      fused != 0)
+                     : __fmul_rn(pos_thresh, static_cast<float>(counts[i]));
+  }
 }
 
 // K3's band: cell i at word i (int32 counts), or two int16 counts a word,
@@ -1221,7 +1421,7 @@ cudaLaunchConfig_t cluster_config(int B, int cluster, int threads, size_t smem, 
   return cfg;
 }
 
-std::atomic<uint64_t> g_frame_done{0}, g_frame_cluster_done{0};
+std::atomic<uint64_t> g_band_partition_done{0}, g_band_done{0}, g_frame_cluster_done{0};
 // hist_scaled_cluster_kernel<kPacked, kResize>, by 2 * kResize + kPacked;
 // scale_counts_cluster_kernel<kResize>, by kResize
 std::atomic<uint64_t> g_scaled_done[4] = {}, g_scale_counts_done[2] = {};
@@ -1275,28 +1475,54 @@ int launch_scaled_cluster(const void* x, const void* y, const void* pol, const v
 
 namespace {
 
-// K1's band kernel over B windows: of a (B, N) batch, or with offsets
-// (begin, end non-null) the windows [begin[b], end[b]) of one stream
-int launch_hist_frame(const void* x, const void* y, const void* pol, const void* begin,
-                      const void* end, void* out, int B, int N, int H, int W, int rows_per_band,
-                      float pos_thresh, float neg_thresh, int two_pass, void* stream) {
-  const size_t smem =
-      static_cast<size_t>((two_pass ? 2 : 1) * rows_per_band * W) * sizeof(int);
-  if (smem > static_cast<size_t>(kSmemLimit)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = prepare_once(hist_frame_kernel, &g_frame_done, false);
+// K1's band route over B windows: of a (B, N) batch, or with offsets
+// (begin, end non-null) the windows [begin[b], end[b]) of one stream, with
+// chunk_end and key_base as window_chunks reads them and `chunks` their
+// total.  `keys` holds one int per event of each window (the sum of their
+// lengths), `table` chunks x (bands + 1) ints: both scratch of the caller,
+// on its stream.  `chunk` must be kChunk (the wrapper's cumsums count by
+// it).  Two launches: the partition pass, then the band pass.
+int launch_hist_band(const void* x, const void* y, const void* pol, const void* begin,
+                     const void* end, const void* chunk_end, const void* key_base, void* keys,
+                     void* table, void* out, int B, int N, long long chunks, int H, int W,
+                     int chunk, float pos_thresh, float neg_thresh, int two_pass,
+                     void* stream) {
+  const int band_cells = band_route_cells(H, W, two_pass);
+  if (band_cells < 0 || chunk != kChunk || B < 0 || N < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int bands = band_count(H, W, band_cells);
+  if (begin == nullptr) chunks = static_cast<long long>(B) * ((N + kChunk - 1) / kChunk);
+  if (chunks < 0 || chunks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t part_smem = static_cast<size_t>(round_up4(bands + 1) + kChunk) * sizeof(int);
+  const size_t band_smem = static_cast<size_t>((two_pass ? 2 : 1) * band_cells) * sizeof(int);
+  cudaError_t err = prepare_once(hist_band_partition_kernel, &g_band_partition_done, false);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (B > 0) {
-    const dim3 grid(B, (H + rows_per_band - 1) / rows_per_band);
-    hist_frame_kernel<<<grid, kBandThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  err = prepare_once(hist_band_kernel, &g_band_done, false);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* ce = static_cast<const long long*>(chunk_end);
+  const auto* kb = static_cast<const long long*>(key_base);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chunks > 0) {
+    hist_band_partition_kernel<<<static_cast<unsigned>(chunks), kPartThreads, part_smem, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(y),
         static_cast<const int*>(pol), static_cast<const long long*>(begin),
-        static_cast<const long long*>(end), static_cast<float*>(out), N, H, W, rows_per_band,
-        pos_thresh, neg_thresh, two_pass);
+        static_cast<const long long*>(end), ce, kb, B, N, H, W, band_cells, bands,
+        static_cast<int*>(keys), static_cast<int*>(table));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (B > 0) {
+    hist_band_kernel<<<dim3(static_cast<unsigned>(B), bands), kBandRouteThreads, band_smem, s>>>(
+        static_cast<const int*>(keys), static_cast<const int*>(table), ce, kb,
+        static_cast<float*>(out), N, H, W, band_cells, bands, pos_thresh, neg_thresh, two_pass,
+        begin != nullptr ? 1 : 0);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1's cluster kernel over B windows, as launch_hist_frame
+// K1's cluster kernel over B windows: of a (B, N) batch, or with offsets
+// (begin, end non-null) the windows [begin[b], end[b]) of one stream
 int launch_hist_frame_cluster(const void* x, const void* y, const void* pol, const void* begin,
                               const void* end, void* out, int B, int N, int H, int W,
                               int cluster, float pos_thresh, float neg_thresh, int two_pass,
@@ -1322,23 +1548,33 @@ int launch_hist_frame_cluster(const void* x, const void* y, const void* pol, con
 
 }  // namespace
 
-extern "C" int evfly_hist_frame(const void* x, const void* y, const void* pol, void* out,
-                                int B, int N, int H, int W, int rows_per_band,
+// K1's band route over a (B, N) batch (frames no cluster holds): `keys`
+// B * N ints and `table` (B * ceil(N / chunk), bands + 1) ints of scratch
+extern "C" int evfly_hist_frame(const void* x, const void* y, const void* pol, void* keys,
+                                void* table, void* out, int B, int N, int H, int W, int chunk,
                                 float pos_thresh, float neg_thresh, int two_pass,
                                 void* stream) {
-  return launch_hist_frame(x, y, pol, nullptr, nullptr, out, B, N, H, W, rows_per_band,
-                           pos_thresh, neg_thresh, two_pass, stream);
+  return launch_hist_band(x, y, pol, nullptr, nullptr, nullptr, nullptr, keys, table, out, B, N,
+                          0, H, W, chunk, pos_thresh, neg_thresh, two_pass, stream);
 }
 
-// K1's band kernel over T time windows of one sorted stream: window b is
-// the events [begin[b], end[b]) (int64, each below 2^31)
+// K1's band route over T time windows of one sorted stream: window b is
+// the events [begin[b], end[b]) (int64, each below 2^31); chunk_end and
+// key_base (T,) int64, the running totals of the windows' chunks (of
+// `chunk` events) and of their lengths before b; `chunks` chunks in all;
+// `keys` one int per event of each window, `table` (chunks, bands + 1)
+// ints of scratch
 extern "C" int evfly_hist_frame_windows(const void* x, const void* y, const void* pol,
-                                        const void* begin, const void* end, void* out, int T,
-                                        int H, int W, int rows_per_band, float pos_thresh,
-                                        float neg_thresh, int two_pass, void* stream) {
-  if (begin == nullptr || end == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_hist_frame(x, y, pol, begin, end, out, T, 0, H, W, rows_per_band, pos_thresh,
-                           neg_thresh, two_pass, stream);
+                                        const void* begin, const void* end,
+                                        const void* chunk_end, const void* key_base, void* keys,
+                                        void* table, void* out, int T, long long chunks, int H,
+                                        int W, int chunk, float pos_thresh, float neg_thresh,
+                                        int two_pass, void* stream) {
+  if (begin == nullptr || end == nullptr || chunk_end == nullptr || key_base == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_hist_band(x, y, pol, begin, end, chunk_end, key_base, keys, table, out, T, 0,
+                          chunks, H, W, chunk, pos_thresh, neg_thresh, two_pass, stream);
 }
 
 // K2's (resize == 0) or K3's (resize != 0) function over K1's counts (B, H,
@@ -1418,6 +1654,16 @@ extern "C" int evfly_hist_scaled_resized_cluster(const void* x, const void* y, c
 // copy for the CPU): 1 where K1's cluster kernel takes (H, W), else 0
 extern "C" int evfly_hist_frame_cluster_fits(int H, int W, int two_pass, int cluster) {
   return frame_cluster_fits(H, W, two_pass, cluster) ? 1 : 0;
+}
+
+// K1's route at (H, W): its cluster's CTAs per window, or 0 (the band route)
+extern "C" int evfly_hist_frame_route(int H, int W, int two_pass) {
+  return frame_cluster_route(H, W, two_pass);
+}
+
+// the band route's band at (H, W), in cells, or -1 where it has none
+extern "C" int evfly_hist_band_cells(int H, int W, int two_pass) {
+  return band_route_cells(H, W, two_pass);
 }
 
 // K2's cluster kernel's cap on events per window at (H, W), or -1

@@ -36,17 +36,20 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so ctypes does not cut a 64-bit address to a 32-bit int)
 _SIGNATURES = {
-    "evfly_hist_frame": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P],
+    "evfly_hist_frame": [_P] * 6 + [_I] * 5 + [_F, _F, _I, _P],
     "evfly_scale_counts": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
     "evfly_hist_frame_cluster": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P],
-    "evfly_hist_frame_windows": [_P] * 6 + [_I] * 4 + [_F, _F, _I, _P],
+    "evfly_hist_frame_windows": [_P] * 10 + [_I, _L] + [_I] * 3 + [_F, _F, _I, _P],
     "evfly_hist_frame_cluster_windows": [_P] * 6 + [_I] * 4 + [_F, _F, _I, _P],
     "evfly_hist_scaled_cluster": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
     "evfly_hist_scaled_resized_cluster": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
     "evfly_hist_frame_cluster_fits": [_I] * 4,
+    "evfly_hist_frame_route": [_I] * 3,
+    "evfly_hist_band_cells": [_I] * 3,
     "evfly_hist_scaled_cluster_cap": [_I] * 3,
     "evfly_hist_resized_cluster_cap": [_I] * 5,
     "evfly_hist_cluster_occupancy": [_I] * 7 + [_P],

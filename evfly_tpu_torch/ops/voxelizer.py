@@ -23,9 +23,12 @@ plain PyTorch version ``hist_*_plain``, which CPU tensors take and against
 which the kernel is held, and counts its own launches.  K1, K2 and K3 run
 one thread-block cluster per window with the window's count frame in the
 cluster's distributed shared memory (``hist_frame_cluster``,
-``hist_scaled``, ``hist_scaled_resized``); K1 keeps its kernel of before
-(``hist_frame``, one block per band of rows) for the frames no cluster
-holds, chosen by shape before launch (``k1_route``).  K2 takes up to
+``hist_scaled``, ``hist_scaled_resized``).  K1 has three routes, chosen by
+shape before launch (``k1_route``): its cluster kernel on 8 CTAs per window
+where they hold the frame, on 16 where those do, and for the frames no
+cluster holds the band route (``hist_frame``: a partition pass that sorts
+each window's binned events by band of the frame, then one block per
+(window, band) reading only its band's).  K2 takes up to
 ``scaled_cluster_cap`` events per window, K3 up to ``resized_cluster_cap``.
 The entry points take any number, routing a batch by its shape
 (``scaled_route``) where K2 and K3 cannot take it through K1's counts and
@@ -39,7 +42,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+import collections
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,12 +61,18 @@ _SCALE_SMEM_LIMIT = 232448 - 8192
 # two int16 counts share one int32 word in K2's and K3's bands up to this
 # many events per window
 _MAX_EVENTS = 32767
-# K1's band kernel counts a band of rows of the frame per block in int32:
-# 32 KiB a band
+# K1's band route: a block of its band pass counts a band of this many
+# int32 (32 KiB, two arrays with two thresholds) of flat cells, wider only
+# where the frame would have more than _MAX_BANDS bands; a block of its
+# partition pass takes _BAND_CHUNK events of one window
 _BAND_INTS = 8192
+_MAX_BANDS = 8192
+_BAND_CHUNK = 4096
 # CTAs per window of the cluster kernels (measured on the H100, PERF.md
-# section 6); the library takes up to 16
+# section 6); the library takes up to 16.  K1 takes K1_CLUSTER where they
+# hold the frame, else K1_WIDE_CLUSTER (a non-portable size) where those do
 K1_CLUSTER = 8
+K1_WIDE_CLUSTER = 16
 K2_CLUSTER = 2
 K3_CLUSTER = 2
 SCALE_CLUSTER = 16
@@ -347,11 +357,77 @@ def scale_slice_cached(HW: int, cluster: int = SCALE_CLUSTER) -> bool:
     return scale_slice_slots(HW, cluster) * 4 <= _SCALE_SMEM_LIMIT
 
 
-def k1_route(H: int, W: int, two_pass: bool) -> str:
-    """K1's kernel for an H x W frame: "cluster" (``hist_frame_cluster``)
-    where the band fits, else "band" (``hist_frame``).  Decided by shape
-    alone, before any launch."""
-    return "cluster" if frame_cluster_fits(H, W, two_pass) else "band"
+class K1Route(NamedTuple):
+    """K1's route for a frame: ``kind`` "cluster" with ``cluster`` CTAs per
+    window (``hist_frame_cluster``), or "band" with ``cluster`` 0
+    (``hist_frame``)."""
+    kind: str
+    cluster: int
+
+    def __str__(self) -> str:
+        return f"cluster{self.cluster}" if self.kind == "cluster" else self.kind
+
+
+BAND_ROUTE = K1Route("band", 0)
+
+
+def k1_route(H: int, W: int, two_pass: bool) -> K1Route:
+    """K1's route for an H x W frame: the cluster kernel on K1_CLUSTER CTAs
+    per window where their bands fit, else on K1_WIDE_CLUSTER where those
+    do, else the band route.  Decided by shape alone, before any launch.
+    The rule of ``csrc/voxelizer.cu``'s ``frame_cluster_route`` (its entry
+    point ``evfly_hist_frame_route``)."""
+    for cluster in (K1_CLUSTER, K1_WIDE_CLUSTER):
+        if frame_cluster_fits(H, W, two_pass, cluster):
+            return K1Route("cluster", cluster)
+    return BAND_ROUTE
+
+
+def band_route_cells(H: int, W: int, two_pass: bool) -> int:
+    """Cells of each band of K1's band route at H x W: 8,192 int32 counts
+    (4,096 cells with two thresholds), at most the frame rounded up to 4,
+    wider where the frame would have more than 8,192 bands; -1 where such a
+    band passes a block's shared memory or a key (2 * cell + sign) passes
+    int32.  The rule of ``csrc/voxelizer.cu``'s ``band_route_cells`` (its
+    entry point ``evfly_hist_band_cells``)."""
+    HW = H * W
+    if H < 1 or W < 1 or HW >= 2 ** 30:
+        return -1
+    arrays = 2 if two_pass else 1
+    cells = max(min(_BAND_INTS // arrays, _round4(HW)), _round4(-(-HW // _MAX_BANDS)))
+    return cells if arrays * cells * 4 <= _SMEM_LIMIT else -1
+
+
+def band_count(H: int, W: int, band_cells: int) -> int:
+    """Bands of an H x W frame of ``band_cells`` cells each."""
+    return -(-(H * W) // band_cells)
+
+
+class BandLayout(NamedTuple):
+    """The band route's chunks of T windows (``band_route_layout``)."""
+    chunk_end: torch.Tensor  # (T,) int64, running total of the windows' chunks
+    key_base: torch.Tensor   # (T,) int64, running total of their lengths before b
+    n_keys: int              # the sum of the lengths: the key scratch's ints
+    chunks: int              # the count of chunks: the partition pass's blocks
+
+
+def _layout_sums(begin: torch.Tensor, end: torch.Tensor):
+    lengths = (end - begin).clamp_min(0)
+    chunk_end = torch.cumsum(-(-lengths // _BAND_CHUNK), 0)
+    key_total = torch.cumsum(lengths, 0)
+    return chunk_end, key_total - lengths, key_total
+
+
+def band_route_layout(begin: torch.Tensor, end: torch.Tensor) -> BandLayout:
+    """The band route's chunks of T windows [begin[b], end[b]): the
+    windows' chunks of _BAND_CHUNK events (the partition pass's blocks, in
+    window order) and where each window's keys start in the key scratch;
+    the two totals read to the host (one synchronization)."""
+    chunk_end, key_base, key_total = _layout_sums(begin, end)
+    if begin.numel() == 0:
+        return BandLayout(chunk_end, key_base, 0, 0)
+    n_keys, chunks = torch.stack([key_total[-1], chunk_end[-1]]).tolist()
+    return BandLayout(chunk_end, key_base, n_keys, chunks)
 
 
 def scaled_route(N: int, H: int, W: int, resize: Optional[Tuple[int, int]] = None) -> str:
@@ -366,33 +442,48 @@ def scaled_route(N: int, H: int, W: int, resize: Optional[Tuple[int, int]] = Non
     return "cluster" if N <= scaled_cluster_cap(H, W) else "k1"
 
 
+def _band_scratch(device, n_keys: int, chunks: int, H: int, W: int, two_pass: bool):
+    """The band route's scratch on ``device`` (allocated on the current
+    stream): keys (n_keys,) int32, one per event of each window, and the
+    table (chunks, bands + 1) int32 of the bands' runs in each chunk; raises
+    where the route has no band for the frame."""
+    band_cells = band_route_cells(H, W, two_pass)
+    if band_cells < 0:
+        raise ValueError(f"K1's band route: no band of a {H}x{W} frame fits a block")
+    table = torch.empty(chunks, band_count(H, W, band_cells) + 1, dtype=torch.int32,
+                        device=device)
+    return torch.empty(n_keys, dtype=torch.int32, device=device), table
+
+
 def hist_frame(
     x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, H: int, W: int,
     pos_thresh: float = 0.2, neg_thresh: float = 0.2,
 ) -> torch.Tensor:
-    """K1's band kernel, the route of frames no cluster holds: (B, N)
-    events, any N -> (B, H, W) frame ``thresh * counts`` (``pos *
-    pos_counts - neg * neg_counts`` when the thresholds differ); one block
-    per (window, band of rows).
+    """K1's band route, for the frames no cluster holds: (B, N) events, any
+    N -> (B, H, W) frame ``thresh * counts`` (``pos * pos_counts - neg *
+    neg_counts`` when the thresholds differ).  A partition pass sorts each
+    window's binned events by band of the frame, one block per chunk of
+    4,096 events; a band pass counts each (window, band) from its band's
+    keys alone (``csrc/voxelizer.cu``), so every event is read once.
 
-    CPU tensors take ``hist_frame_plain``; CUDA tensors launch the kernel or
-    raise.  ``hist_frame.launches`` counts the launches.
+    CPU tensors take ``hist_frame_plain``; CUDA tensors launch the kernels
+    or raise.  ``hist_frame.launches`` counts the launches (one per call:
+    both passes).
     """
     if x.device.type == "cpu":
         return hist_frame_plain(x, y, pol, H, W, pos_thresh, neg_thresh)
     xc, yc, pc = _kernel_events("hist_frame", x, y, pol)
     B, N = xc.shape
     two_pass = pos_thresh != neg_thresh
-    arrays = 2 if two_pass else 1
-    rows_per_band = max(1, min(H, _BAND_INTS // (W * arrays)))
-    if rows_per_band * W * arrays * 4 > _SMEM_LIMIT:
-        raise ValueError(f"hist_frame: a row of {W} cells does not fit in shared memory")
+    if B >= 2 ** 31 or B * -(-N // _BAND_CHUNK) >= 2 ** 31:
+        raise ValueError(f"hist_frame: {B} windows of {N} events pass the launch's grid")
+    keys, table = _band_scratch(x.device, B * N, B * -(-N // _BAND_CHUNK), H, W, two_pass)
     out = torch.empty(B, H, W, dtype=torch.float32, device=x.device)
-    lib = _build.library()
     with torch.cuda.device(x.device):
-        status = lib.evfly_hist_frame(
-            xc.data_ptr(), yc.data_ptr(), pc.data_ptr(), out.data_ptr(), B, N, H, W,
-            rows_per_band, pos_thresh, neg_thresh, int(two_pass), _build.stream_of(x.device),
+        status = _build.library().evfly_hist_frame(
+            xc.data_ptr(), yc.data_ptr(), pc.data_ptr(), keys.data_ptr(), table.data_ptr(),
+            out.data_ptr(), B, N, H, W, _BAND_CHUNK, pos_thresh, neg_thresh, int(two_pass),
+            _build.stream_of(x.device),
         )
     _build.check("evfly_hist_frame", status)
     hist_frame.launches += 1
@@ -428,30 +519,39 @@ def hist_frame_cluster(
     x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, H: int, W: int,
     pos_thresh: float = 0.2, neg_thresh: float = 0.2,
 ) -> torch.Tensor:
-    """K1's cluster kernel: ``hist_frame``'s function with one cluster of
-    ``K1_CLUSTER`` CTAs per window, the frame in row bands across their
-    shared memory (``frame_cluster_fits``).
+    """K1's cluster kernel: ``hist_frame``'s function with one cluster per
+    window of ``k1_route``'s CTAs (8, or 16 where 8 do not hold the frame),
+    the frame in row bands across their shared memory; raises where no
+    cluster holds the frame.
 
     CPU tensors take ``hist_frame_plain``; CUDA tensors launch the kernel or
-    raise.  ``hist_frame_cluster.launches`` counts the launches.
+    raise.  ``hist_frame_cluster.launches`` counts the launches,
+    ``hist_frame_cluster.by_route`` them by route ("cluster8",
+    "cluster16").
     """
     if x.device.type == "cpu":
         return hist_frame_plain(x, y, pol, H, W, pos_thresh, neg_thresh)
-    out = _frame_cluster_launch(x, y, pol, H, W, pos_thresh, neg_thresh, K1_CLUSTER)
+    route = k1_route(H, W, pos_thresh != neg_thresh)
+    if route.kind != "cluster":
+        raise ValueError(f"hist_frame_cluster: no cluster holds a {H}x{W} frame "
+                         f"(two_pass={pos_thresh != neg_thresh}); hist_frame takes it")
+    out = _frame_cluster_launch(x, y, pol, H, W, pos_thresh, neg_thresh, route.cluster)
     hist_frame_cluster.launches += 1
+    hist_frame_cluster.by_route[str(route)] += 1
     return out
 
 
 hist_frame_cluster.launches = 0
+hist_frame_cluster.by_route = collections.Counter()
 
 
 def hist_frame_routed(
     x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, H: int, W: int,
     pos_thresh: float = 0.2, neg_thresh: float = 0.2,
 ) -> torch.Tensor:
-    """K1 for (B, N) events: ``hist_frame_cluster`` or, where ``k1_route``
-    says "band", ``hist_frame``."""
-    if k1_route(H, W, pos_thresh != neg_thresh) == "cluster":
+    """K1 for (B, N) events on ``k1_route``'s route: ``hist_frame_cluster``
+    (8 or 16 CTAs) or ``hist_frame`` (the band route)."""
+    if k1_route(H, W, pos_thresh != neg_thresh).kind == "cluster":
         return hist_frame_cluster(x, y, pol, H, W, pos_thresh, neg_thresh)
     return hist_frame(x, y, pol, H, W, pos_thresh, neg_thresh)
 
@@ -523,33 +623,43 @@ def _window_events(x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor, begin: t
 
 
 def _frame_windows_launch(x, y, pol, begin, end, H: int, W: int, pos_thresh: float,
-                          neg_thresh: float) -> torch.Tensor:
+                          neg_thresh: float, route: Optional[K1Route] = None,
+                          layout: Optional[BandLayout] = None) -> torch.Tensor:
     """One launch of K1 over the T windows [begin[b], end[b]) of a stream,
-    on ``k1_route``'s kernel.  The offsets must lie in [0, N];
-    ``hist_frame_windows`` checks them."""
+    on ``route`` (by default ``k1_route``'s): the cluster kernel on
+    ``route.cluster`` CTAs per window, or the band route, its scratch sized
+    by ``layout`` (by default ``band_route_layout``'s, one read to the
+    host).  The offsets must lie in [0, N]; ``hist_frame_windows`` checks
+    them."""
     x, y, pol, begin, end = _window_events(x, y, pol, begin, end)
     T = begin.shape[0]
     two_pass = pos_thresh != neg_thresh
-    route = k1_route(H, W, two_pass)
-    out = torch.empty(T, H, W, dtype=torch.float32, device=x.device)
+    if route is None:
+        route = k1_route(H, W, two_pass)
     lib = _build.library()
-    args = (x.data_ptr(), y.data_ptr(), pol.data_ptr(), begin.data_ptr(), end.data_ptr(),
-            out.data_ptr(), T, H, W)
+    events = (x.data_ptr(), y.data_ptr(), pol.data_ptr(), begin.data_ptr(), end.data_ptr())
     with torch.cuda.device(x.device):
-        if route == "cluster":
-            if T * K1_CLUSTER >= 2 ** 31:
-                raise ValueError(f"hist_frame_windows: {T} windows x {K1_CLUSTER} CTAs pass "
+        if route.kind == "cluster":
+            if T * route.cluster >= 2 ** 31:
+                raise ValueError(f"hist_frame_windows: {T} windows x {route.cluster} CTAs pass "
                                  f"grid.x")
+            out = torch.empty(T, H, W, dtype=torch.float32, device=x.device)
+            name = "evfly_hist_frame_cluster_windows"
             status = lib.evfly_hist_frame_cluster_windows(
-                *args, K1_CLUSTER, pos_thresh, neg_thresh, int(two_pass),
-                _build.stream_of(x.device))
+                *events, out.data_ptr(), T, H, W, route.cluster, pos_thresh, neg_thresh,
+                int(two_pass), _build.stream_of(x.device))
         else:
-            arrays = 2 if two_pass else 1
-            rows_per_band = max(1, min(H, _BAND_INTS // (W * arrays)))
+            chunk_end, key_base, n_keys, chunks = layout or band_route_layout(begin, end)
+            if chunks >= 2 ** 31:
+                raise ValueError(f"hist_frame_windows: {chunks} chunks of events pass grid.x")
+            keys, table = _band_scratch(x.device, n_keys, chunks, H, W, two_pass)
+            out = torch.empty(T, H, W, dtype=torch.float32, device=x.device)
+            name = "evfly_hist_frame_windows"
             status = lib.evfly_hist_frame_windows(
-                *args, rows_per_band, pos_thresh, neg_thresh, int(two_pass),
-                _build.stream_of(x.device))
-    _build.check(f"evfly_hist_frame{'_cluster' if route == 'cluster' else ''}_windows", status)
+                *events, chunk_end.data_ptr(), key_base.data_ptr(), keys.data_ptr(),
+                table.data_ptr(), out.data_ptr(), T, chunks, H, W, _BAND_CHUNK, pos_thresh,
+                neg_thresh, int(two_pass), _build.stream_of(x.device))
+    _build.check(name, status)
     return out
 
 
@@ -560,30 +670,45 @@ def hist_frame_windows(
     """K1 over time windows: (N,) events of one stream and (T,) int64
     offsets -> (T, H, W) frames, window b the events [begin[b], end[b])
     (none where end <= begin; windows may overlap and come in any order),
-    in one launch for all T windows on ``k1_route``'s kernel: the cluster
-    kernel, or the band kernel for frames no cluster holds.  Each frame is
-    ``hist_frame``'s of its window's events, except that two thresholds give
-    ``fused_two_pass``'s value, as the JAX package's
+    in one launch for all T windows on ``k1_route``'s route: the cluster
+    kernel on 8 or 16 CTAs, or the band route for frames no cluster holds.
+    Each frame is ``hist_frame``'s of its window's events, except that two
+    thresholds give ``fused_two_pass``'s value, as the JAX package's
     ``event_frames_from_windows``.
 
     CPU tensors take ``hist_frame_windows_plain``; CUDA tensors launch the
     kernel or raise.  The offsets are checked to lie in [0, N] before the
-    launch (one read of their extremes to the host).
-    ``hist_frame_windows.launches`` counts the launches.
+    launch, in one read to the host with the band route's layout.
+    ``hist_frame_windows.launches`` counts the launches,
+    ``hist_frame_windows.by_route`` them by route ("cluster8", "cluster16",
+    "band").
     """
     if x.device.type == "cpu":
         return hist_frame_windows_plain(x, y, pol, begin, end, H, W, pos_thresh, neg_thresh)
+    route = k1_route(H, W, pos_thresh != neg_thresh)
+    layout = None
     if begin.numel():
         lo, hi = torch.aminmax(torch.stack([begin, end]).to(torch.int64))
-        if lo.item() < 0 or hi.item() > x.shape[0]:
+        sums = [lo, hi]
+        if route.kind == "band":
+            chunk_end, key_base, key_total = _layout_sums(begin.to(torch.int64),
+                                                          end.to(torch.int64))
+            sums += [key_total[-1], chunk_end[-1]]
+        sums = torch.stack(sums).tolist()
+        if sums[0] < 0 or sums[1] > x.shape[0]:
             raise ValueError(f"hist_frame_windows: offsets must lie in [0, {x.shape[0]}], "
-                             f"got [{lo.item()}, {hi.item()}]")
-    out = _frame_windows_launch(x, y, pol, begin, end, H, W, pos_thresh, neg_thresh)
+                             f"got [{sums[0]}, {sums[1]}]")
+        if route.kind == "band":
+            layout = BandLayout(chunk_end, key_base, *sums[2:])
+    out = _frame_windows_launch(x, y, pol, begin, end, H, W, pos_thresh, neg_thresh, route,
+                                layout)
     hist_frame_windows.launches += 1
+    hist_frame_windows.by_route[str(route)] += 1
     return out
 
 
 hist_frame_windows.launches = 0
+hist_frame_windows.by_route = collections.Counter()
 
 
 def _scaled_cluster_launch(x, y, pol, H: int, W: int, thresh: float, q: float, iters: int,

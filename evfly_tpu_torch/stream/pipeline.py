@@ -139,7 +139,7 @@ class GraphKey(NamedTuple):
     quantile: Tuple[bool, bool]  # (quantile_scale, fast_percentile)
     fused_lstm: bool          # set_fused_lstm
     lstm: Tuple[Tuple[str, str], ...]  # (mode, route) of each LSTM module
-    k1_route: Optional[str]   # K1's kernel, for the events step
+    k1_route: Optional[Tuple[str, int]]  # K1's route (kind, CTAs), for the events step
 
 
 def _step_body(model, hidden, input_hw, quantile_scale: bool, fast_percentile: bool,

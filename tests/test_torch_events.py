@@ -30,7 +30,8 @@ through the port's on the CPU:
   JAX package's ``generate_events_for_dataset``.
 
 The ``gpu`` tests hold K1's window launch (``hist_frame_windows``) against
-its plain version on the card, bit for bit, and count its launches.
+its plain version on the card, bit for bit, on each of its routes (8 and
+16 CTAs, the band route), and count its launches.
 """
 
 import os
@@ -465,15 +466,22 @@ def _stream(seed, N, H, W, device, t_max=2.0):
     return t, x, y, p
 
 
+# K1's routes by name (str of voxelizer.K1Route), for forcing one
+K1_ROUTES = {"cluster8": voxelizer.K1Route("cluster", 8),
+             "cluster16": voxelizer.K1Route("cluster", 16), "band": voxelizer.BAND_ROUTE}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("H,W,thresholds,route", [
-    (260, 346, (0.2, 0.2), "cluster"), (260, 346, (0.2, 0.3), "cluster"),
-    (480, 640, (0.2, 0.2), "cluster"), (480, 640, (0.2, 0.3), "band"),
+    (260, 346, (0.2, 0.2), "cluster8"), (260, 346, (0.2, 0.3), "cluster8"),
+    (480, 640, (0.2, 0.2), "cluster8"), (480, 640, (0.2, 0.3), "cluster16"),
+    (720, 1280, (0.2, 0.2), "cluster16"), (720, 1280, (0.2, 0.3), "band"),
 ])
 def test_k1_windows_kernel_matches_plain(cuda_device, H, W, thresholds, route):
-    """K1's window launch, one launch per call, bit for bit against its
-    plain version: sorted, shuffled, overlapping and empty windows."""
-    assert voxelizer.k1_route(H, W, thresholds[0] != thresholds[1]) == route
+    """K1's window launch on the route its shape takes, one launch per
+    call, bit for bit against its plain version: sorted, shuffled,
+    overlapping and empty windows."""
+    assert str(voxelizer.k1_route(H, W, thresholds[0] != thresholds[1])) == route
     t, x, y, p = _stream(1, 300_000, H, W, cuda_device)
     edges = torch.linspace(0, 2.0, 31, device=cuda_device)
     starts = torch.cat([edges[:-1], torch.tensor([0.1, 0.5, 1.0, 1.5], device=cuda_device)])
@@ -483,9 +491,11 @@ def test_k1_windows_kernel_matches_plain(cuda_device, H, W, thresholds, route):
         order, begin, end = voxelizer.window_offsets(tt, starts, ends)
         args = (xx[order], yy[order], pp[order], begin, end, H, W, *thresholds)
         n0 = voxelizer.hist_frame_windows.launches
+        r0 = voxelizer.hist_frame_windows.by_route[route]
         got = voxelizer.hist_frame_windows(*args)
         torch.cuda.synchronize()
         assert voxelizer.hist_frame_windows.launches == n0 + 1
+        assert voxelizer.hist_frame_windows.by_route[route] == r0 + 1
         ref = voxelizer.hist_frame_windows_plain(*args)
         assert torch.equal(got, ref)
         # the routed entry point: the same frames, one more launch
@@ -496,22 +506,27 @@ def test_k1_windows_kernel_matches_plain(cuda_device, H, W, thresholds, route):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("route", ["cluster", "band"])
-def test_k1_windows_unaligned_and_short(cuda_device, monkeypatch, route):
+@pytest.mark.parametrize("thresholds", [(0.2, 0.2), (0.2, 0.3)], ids=["one", "two"])
+@pytest.mark.parametrize("route", list(K1_ROUTES))
+def test_k1_windows_unaligned_and_short(cuda_device, monkeypatch, route, thresholds):
     """Windows starting at every offset mod 4 (no 16-byte alignment) and of
-    0 to 9 events, on each kernel (the route forced)."""
-    monkeypatch.setattr(voxelizer, "k1_route", lambda H, W, two_pass: route)
+    0 to 9 events, on each route (forced)."""
+    monkeypatch.setattr(voxelizer, "k1_route", lambda H, W, two_pass: K1_ROUTES[route])
     t, x, y, p = _stream(2, 5_000, 64, 86, cuda_device)
     begin = torch.arange(0, 200, device=cuda_device, dtype=torch.int64)
     end = begin + torch.arange(200, device=cuda_device) % 10
-    got = voxelizer.hist_frame_windows(x, y, p, begin, end, 64, 86)
+    got = voxelizer.hist_frame_windows(x, y, p, begin, end, 64, 86, *thresholds)
     torch.cuda.synchronize()
-    assert torch.equal(got, voxelizer.hist_frame_windows_plain(x, y, p, begin, end, 64, 86))
+    assert torch.equal(got, voxelizer.hist_frame_windows_plain(x, y, p, begin, end, 64, 86,
+                                                               *thresholds))
 
 
 @pytest.mark.gpu
-def test_k1_windows_past_grid_y(cuda_device):
-    """More than 65,535 windows in one launch (windows on grid.x)."""
+@pytest.mark.parametrize("route", list(K1_ROUTES))
+def test_k1_windows_past_grid_y(cuda_device, monkeypatch, route):
+    """More than 65,535 windows in one launch (windows on grid.x), on each
+    route (forced)."""
+    monkeypatch.setattr(voxelizer, "k1_route", lambda H, W, two_pass: K1_ROUTES[route])
     T = 70_000
     t, x, y, p = _stream(3, 16 * T, 64, 86, cuda_device, t_max=float(T))
     starts = torch.arange(T, device=cuda_device, dtype=torch.float32)
@@ -523,6 +538,20 @@ def test_k1_windows_past_grid_y(cuda_device):
     order, begin, end = voxelizer.window_offsets(t, starts, starts + 1)
     ref = voxelizer.hist_frame_windows_plain(x[order], y[order], p[order], begin, end, 64, 86)
     assert got.shape == (T, 64, 86) and torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_k1_windows_refused_route_raises(cuda_device):
+    """No route falls back: 16 CTAs forced on a frame they do not hold, and
+    the band route on a frame it has no band for, raise."""
+    t, x, y, p = _stream(5, 1000, 720, 1280, cuda_device)
+    begin, end = (torch.tensor([v], device=cuda_device) for v in (0, 1000))
+    with pytest.raises(RuntimeError, match="evfly_hist_frame_cluster_windows"):
+        voxelizer._frame_windows_launch(x, y, p, begin, end, 720, 1280, 0.2, 0.3,
+                                        K1_ROUTES["cluster16"])
+    with pytest.raises(ValueError, match="no band"):
+        voxelizer._frame_windows_launch(x, y, p, begin, end, 2 ** 15, 2 ** 15, 0.2, 0.2,
+                                        K1_ROUTES["band"])
 
 
 @pytest.mark.gpu

@@ -22,7 +22,7 @@ from evfly_tpu_torch.train import Learner
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "evfly_tpu_torch"
 # the port's package, its smoke run and its probes under tools/
-TOOLS = ["k2_phase_stamps", "path_rates", "torch_latency_bench"]
+TOOLS = ["k1_phases", "k2_phase_stamps", "path_rates", "torch_latency_bench"]
 SCRIPTS = [REPO / "chip_smoke.py"] + [REPO / "tools" / f"{t}.py" for t in TOOLS]
 PORT_FILES = sorted(PORT.rglob("*.py")) + SCRIPTS
 MODULES = sorted(

@@ -193,7 +193,8 @@ SETTINGS = {
     "set_fused_lstm": lambda mp, pipe: recurrent.set_fused_lstm(False),
     "lstm.mode": lambda mp, pipe: mp.setattr(pipe.model.vitfly_vitlstm.lstm, "mode",
                                              "wavefront"),
-    "K1 route": lambda mp, pipe: mp.setattr(voxelizer, "k1_route", lambda h, w, t: "band"),
+    "K1 route": lambda mp, pipe: mp.setattr(voxelizer, "k1_route",
+                                            lambda h, w, t: voxelizer.BAND_ROUTE),
     "K4/K5 route": lambda mp, pipe: mp.setattr(lstm_fused, "choose_route", lambda h, l: "l2"),
     "fast_percentile": lambda mp, pipe: mp.setattr(pipe, "fast_percentile", True),
 }

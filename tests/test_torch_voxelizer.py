@@ -263,11 +263,26 @@ def test_k1_k2_wrappers_count_only_kernel_launches():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("thresholds", [(0.2, 0.2), (0.2, 0.3)], ids=["equal", "unequal"])
-def test_k1_kernel_matches_plain_on_gpu(cuda_device, thresholds):
-    x, y, p = (torch.from_numpy(a).to(cuda_device) for a in _events(8, 2, 100000, 260, 346))
+@pytest.mark.parametrize("H,W", [(260, 346), (480, 640), (720, 1280)])
+def test_k1_kernel_matches_plain_on_gpu(cuda_device, H, W, thresholds):
+    """K1 against its plain version on each route: the band route
+    (``hist_frame``) at every shape, and the route the shape takes
+    (``hist_frame_routed``: 8 CTAs at 260x346, 16 at 640x480 with two
+    thresholds and 1280x720 with one, else the band route), with 40,000
+    events of a window on one pixel."""
+    x, y, p = (torch.from_numpy(a).to(cuda_device) for a in _events(8, 2, 100000, H, W))
     x[:, :40000], y[:, :40000] = 17.5, 101.5
-    got = voxelizer.hist_frame(x, y, p, 260, 346, *thresholds)
-    assert torch.equal(got, voxelizer.hist_frame_plain(x, y, p, 260, 346, *thresholds))
+    ref = voxelizer.hist_frame_plain(x, y, p, H, W, *thresholds)
+    before = voxelizer.hist_frame.launches
+    got = voxelizer.hist_frame(x, y, p, H, W, *thresholds)
+    assert voxelizer.hist_frame.launches == before + 1
+    assert torch.equal(got, ref)
+    route = voxelizer.k1_route(H, W, thresholds[0] != thresholds[1])
+    counts = (voxelizer.hist_frame.launches, voxelizer.hist_frame_cluster.by_route[str(route)])
+    got = voxelizer.hist_frame_routed(x, y, p, H, W, *thresholds)
+    assert (voxelizer.hist_frame.launches, voxelizer.hist_frame_cluster.by_route[str(route)]) \
+        == (counts[0] + (route.kind == "band"), counts[1] + (route.kind == "cluster"))
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.gpu
@@ -352,8 +367,14 @@ def test_scaled_entry_points_above_the_cap_on_gpu(cuda_device):
 
 
 @pytest.mark.gpu
-def test_k1_takes_more_windows_than_grid_y_on_gpu(cuda_device):
+@pytest.mark.parametrize("cluster", [0, 8, 16], ids=["band", "cluster8", "cluster16"])
+def test_k1_takes_more_windows_than_grid_y_on_gpu(cuda_device, cluster):
+    """70,000 windows, past grid.y's 65,535, on the band route and on
+    clusters of 8 and 16 CTAs (windows x CTAs on grid.x)."""
     H, W = 64, 86
     x, y, p = (torch.from_numpy(a).to(cuda_device) for a in _events(33, 70000, 16, H, W))
-    got = voxelizer.hist_frame(x, y, p, H, W)
+    if cluster:
+        got = voxelizer._frame_cluster_launch(x, y, p, H, W, 0.2, 0.2, cluster)
+    else:
+        got = voxelizer.hist_frame(x, y, p, H, W)
     assert torch.equal(got, voxelizer.hist_frame_plain(x, y, p, H, W))

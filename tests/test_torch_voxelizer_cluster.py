@@ -653,7 +653,8 @@ def test_cluster_caps_and_routes_by_shape():
     list of the cells with |count| >= 64 (at most N / 64) in 231,424 bytes,
     763,135 events at 260x346 -> 60x90 on 2 CTAs (2,910,975 on 8), with
     int16 counts up to 32,767 events; K2's cap is unchanged; K1 takes its
-    cluster kernel where the band fits."""
+    cluster kernel on 8 CTAs where their bands fit, else on 16 where those
+    do, else its band route."""
     H, W, out = 260, 346, (60, 90)
     assert voxelizer.K3_CLUSTER == 2
     cap = voxelizer.resized_cluster_cap(H, W, *out)
@@ -679,11 +680,11 @@ def test_cluster_caps_and_routes_by_shape():
     # cap, at most 32,767
     assert voxelizer.resized_cluster_cap(260, 346, 60, 90, 1) == 32767
     assert voxelizer.resized_cluster_cap(420, 346, 60, 90, 2) == 32767
-    assert voxelizer.k1_route(H, W, False) == voxelizer.k1_route(H, W, True) == "cluster"
-    assert voxelizer.k1_route(64, 86, True) == "cluster"
-    assert voxelizer.k1_route(4000, 4000, False) == "band"
-    assert voxelizer.k1_route(480, 640, True) == "band"
-    assert voxelizer.k1_route(480, 640, False) == "cluster"
+    assert voxelizer.k1_route(H, W, False) == voxelizer.k1_route(H, W, True) == ("cluster", 8)
+    assert voxelizer.k1_route(64, 86, True) == ("cluster", 8)
+    assert voxelizer.k1_route(4000, 4000, False) == ("band", 0)
+    assert voxelizer.k1_route(480, 640, True) == ("cluster", 16)
+    assert voxelizer.k1_route(480, 640, False) == ("cluster", 8)
 
 
 @pytest.mark.parametrize("C", CLUSTERS)
@@ -822,6 +823,11 @@ def test_cluster_rules_match_the_library_on_gpu(cuda_device):
             for two_pass in (False, True):
                 assert voxelizer.frame_cluster_fits(h, w, two_pass, c) == bool(
                     lib.evfly_hist_frame_cluster_fits(h, w, int(two_pass), c))
+        for two_pass in (False, True):
+            assert voxelizer.k1_route(h, w, two_pass).cluster == \
+                lib.evfly_hist_frame_route(h, w, int(two_pass))
+            assert voxelizer.band_route_cells(h, w, two_pass) == \
+                lib.evfly_hist_band_cells(h, w, int(two_pass))
 
 
 @pytest.mark.gpu
