@@ -100,7 +100,22 @@ just before it and read just after:
   translating with its exact flow, adaptive factors 1 to 16) through
   ``to_events.trajectory_events`` by the esim, esim_flow and difflog
   schemes on the card against the CPU, equal away from quantization
-  crossings (``esim_margins``, ``difflog_margins``), ms per trajectory.
+  crossings (``esim_margins``, ``difflog_margins``), ms per trajectory;
+- the closed loop: ``sim.run_trials_batched(mode="vision")`` of 16 trials
+  in lockstep in forests of 60 trees at 260x346 (render, difflog, the
+  joint model from ``policy_best.pth`` in a ``BatchedStreamingPipeline``
+  whose CUDA graph runs K4, the dynamics), ticks/s, successes and crashes,
+  every kernel's launches over the run (the JSON entries'
+  ``closed_loop_launches``), the first ticks' velocities against single
+  eager streams on the same frames, one tick's render and difflog against
+  the CPU under the render's margin rule, the render's ms and peak memory,
+  and a profile of one-tick runs; state-mode trials batched against
+  ``run_trial``; ``run_evaluation`` of two vision trials with a
+  ``StreamingPipeline`` per trial;
+- PPO: ``sim.ppo.train_ppo`` on ``VecVisionEnv`` and on the quadrotor
+  env's ``ppo_spec`` at 100 envs x 128 steps (iterations/s, env steps/s),
+  and one iteration on the card against the CPU from the same weights,
+  states and random draws.
 
 It then times a streaming step and the G-stream rates, each as graphs and
 eagerly in turns, in the manner of ``tools/torch_latency_bench.py``, and
@@ -216,6 +231,10 @@ from evfly_tpu_torch.ops.voxelizer import (
     window_offsets,
 )
 from evfly_tpu_torch.ops.voxelizer import cluster_occupancy as vox_cluster_occupancy
+from evfly_tpu_torch.sim import batched as sim_batched
+from evfly_tpu_torch.sim import closed_loop, ppo, quadrotor_env, render, vision_env
+from evfly_tpu_torch.sim.launch_evaluation import run_evaluation
+from evfly_tpu_torch.sim.obstacles import generate_forest
 from evfly_tpu_torch.stream import BatchedStreamingPipeline, StreamingPipeline, hil
 from evfly_tpu_torch.stream.pipeline import event_bucket
 from evfly_tpu_torch.train import Learner, stepfn
@@ -357,6 +376,23 @@ GEN_SPEEDS = np.linspace(0.5, 15.9, GEN_FRAMES)
 # CPU's quotient came within GEN_MARGIN of an integer (FLOW_MARGIN on
 # flow-upsampled frames), by one quantum, the sums within 1e-5 + a quantum
 GEN_MARGIN, FLOW_MARGIN = 1e-5, 1e-3
+# the closed loop: CL_STREAMS trials in lockstep in forests of
+# generate_forest's 60 trees (seeds CL_SEED + g), the policy every 6 sim
+# steps, at most CL_MAX_STEPS sim steps (24 s: 60 m at 2.5 m/s); the first
+# CL_CHECK_TICKS ticks held against single eager streams, CL_RENDER_VIEWS
+# views of one tick held against the CPU; STATE_TRIALS state-mode trials of
+# STATE_STEPS steps; EVAL_TRIALS vision trials of run_evaluation
+CL_STREAMS, CL_SEED, CL_POLICY_EVERY, CL_MAX_STEPS = 16, 60, 6, 2400
+CL_CHECK_TICKS, CL_RENDER_VIEWS = 4, 4
+STATE_TRIALS, STATE_STEPS = 3, 2000
+EVAL_TRIALS, EVAL_STEPS = 2, 2000
+# PPO at tools/train_rl.py's scale: 100 envs, rollouts of 128, PPO_ITERS
+# timed iterations after one; one iteration held card against CPU, with
+# the quadrotor's rollout cut to 32 steps: its attitude under random thrusts
+# is chaotic (a 1e-6 change of the weights moves its states by 6.5e-4 over
+# 128 steps, by 2.6e-5 over 32; the VisionEnv's by 1.2e-5 over 128)
+PPO_ENVS, PPO_ROLLOUT, PPO_ITERS = 100, 128, 3
+PPO_HOLD_ROLLOUT = {"vision": 128, "quadrotor": 32}
 
 BUDGET_S = 600  # the whole run, cold build included
 # H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s
@@ -2997,6 +3033,305 @@ def phase_event_generation(dev, smi):
                 f"{scheme}: the card disagrees with the CPU past the crossings' bound")
     return ms
 
+class _TickRecorder:
+    """A batched policy that keeps the frames, reset masks and velocities of
+    its first ``keep`` ticks and counts them all."""
+
+    def __init__(self, pipe, keep: int):
+        self.pipe, self.keep, self.ticks, self.kept = pipe, keep, 0, []
+
+    def reset(self):
+        self.pipe.reset()
+
+    def step_frames(self, frames, reset_mask=None):
+        vels, depths = self.pipe.step_frames(frames, reset_mask=reset_mask)
+        if self.ticks < self.keep:
+            self.kept.append((frames.clone(), np.array(reset_mask), vels.clone()))
+        self.ticks += 1
+        return vels, depths
+
+
+def closed_loop_fields():
+    return [generate_forest(np.random.default_rng(CL_SEED + g)) for g in range(CL_STREAMS)]
+
+
+def _render_vs_cpu(dev, fields, logs, tick):
+    """One lockstep tick of _render_tick (render + difflog against the tick
+    before) at the logged positions of CL_RENDER_VIEWS trials, on the card
+    against the CPU under the margin rule: away from RENDER_MARGIN depth
+    within 5e-5 (the nearer root's cancellation in b^2 - 4ac, which nvcc
+    contracts into an fma: 3.3e-5 measured on an H100) with a mean
+    below 1e-6, intensity within 5e-6; events equal away from it and from
+    difflog's crossings.  Returns the flagged pixels' count."""
+    views = fields[:CL_RENDER_VIEWS]
+    pos = [np.stack([log[t, 7:10] for log in logs[:CL_RENDER_VIEWS]]) for t in (tick - 1, tick)]
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        centers, radii = sim_batched.pad_fields(views, device=d)
+        _, prev, _ = sim_batched._render_tick(pos[0], centers, radii, torch.zeros(
+            len(views), H, W, device=d), False, H, W, True)
+        depth, inten, events = sim_batched._render_tick(pos[1], centers, radii, prev, True,
+                                                        H, W, True)
+        outs.append([t.cpu() for t in (depth, inten, events, prev)])
+        if d.type == "cpu":
+            margins = [render.render_margins(p, centers, radii, H=H, W=W, is_trees=True,
+                                             device=d) for p in pos]
+            dmargin = voxelizer.difflog_margins(inten, prev, device=d)
+    (cd, ci, ce, _), (rd, ri, re_, _) = outs
+    ok = (margins[0] >= render.RENDER_MARGIN) & (margins[1] >= render.RENDER_MARGIN)
+    eok = ok & (dmargin >= GEN_MARGIN)
+    flagged = int((~ok).sum())
+    derr, ierr = ((a - b).abs()[ok].max().item() for a, b in ((cd, rd), (ci, ri)))
+    dmean = (cd - rd).abs()[ok].mean().item()
+    n_ev = int((ce != re_)[eok].sum())
+    log(f"closed-loop render tick {tick}, {len(views)} views at {H}x{W}, card vs CPU: "
+        f"{flagged} of {ok.numel()} pixels within the render's margin; away from it max "
+        f"|depth diff| {derr:.3g} (mean {dmean:.3g}), max |intensity diff| {ierr:.3g}, {n_ev} "
+        f"event pixels differ ({int((ce != re_).sum())} in all, {int((ce != 0).sum())} nonzero)")
+    require(flagged < ok.numel() // 20 and derr <= 5e-5 and dmean <= 1e-6 and ierr <= 5e-6
+            and n_ev == 0,
+            "the card's render or difflog disagrees with the CPU's past the margin rule")
+    return flagged
+
+
+def phase_closed_loop_vision(dev, model, smi):
+    """run_trials_batched(mode="vision") of CL_STREAMS trials with the joint
+    model in a BatchedStreamingPipeline (CUDA graph): ticks/s, sim steps/s,
+    success and crashes, every kernel's launches over the run; the first
+    ticks' velocities against single eager streams on the same frames; one
+    tick's render and difflog against the CPU; the render's peak memory and
+    time; a profile of 3 one-tick runs."""
+    fields = closed_loop_fields()
+    _free_device_memory()
+    pipe = BatchedStreamingPipeline(model, CL_STREAMS, desvel=4.0, device=dev)
+    policy = _TickRecorder(pipe, CL_CHECK_TICKS)
+    for k in KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = sim_batched.run_trials_batched(
+        fields, mode="vision", policy=policy, policy_every=CL_POLICY_EVERY,
+        max_steps=CL_MAX_STEPS, log_images=False, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    ticks = policy.ticks
+    summaries = [r["summary"] for r in results]
+    success = sum(bool(s.get("Success")) for s in summaries)
+    crashes = sum(int(s.get("number_crashes", 0)) for s in summaries)
+    lstm = {n: launches[n] for n in ("K4 cluster", "K5 cluster", "K4 L2", "K5 L2",
+                                     "K4 grid", "K5 grid")}
+    log(f"closed loop, vision, G={CL_STREAMS} at {H}x{W}, {len(fields[0])} trees a forest: "
+        f"{ticks} ticks in {wall:.2f} s = {ticks / wall:.2f} ticks/s, "
+        f"{CL_STREAMS * ticks * CL_POLICY_EVERY / wall:.1f} quad sim steps/s; {success} of "
+        f"{CL_STREAMS} trials successful, {crashes} crashes; LSTM launches {lstm} (at the "
+        f"graph's warm-up and capture); other launches "
+        f"{ {n: c for n, c in launches.items() if c and n not in lstm} } on {smi}")
+    require(all(r["log"].shape[1] == 21 and np.isfinite(r["log"]).all() for r in results)
+            and ticks > 0, "closed-loop logs")
+    require(sum(lstm.values()) > 0 and launches["K4 cluster"] + launches["K5 cluster"] > 0,
+            "the closed loop launched no K4/K5 kernel")
+    require(pipe.graph, "the closed loop's pipeline does not replay CUDA graphs")
+
+    # the first ticks against single eager streams on the same frames
+    err = 0.0
+    for g in range(CL_STREAMS):
+        single = StreamingPipeline(model, desvel=4.0, device=dev, graph=False)
+        for frames, mask, vels in policy.kept:
+            if mask[g]:
+                single.reset()
+            v, _ = single.step_frame(frames[g])
+            err = max(err, (v - vels[g]).abs().max().item())
+    log(f"closed loop: velocities of the first {len(policy.kept)} ticks against "
+        f"{CL_STREAMS} single eager streams on the same frames: max |diff| {err:.3e}")
+    require(err <= VEL_ATOL, "the closed loop's batched policy disagrees with single streams")
+
+    flagged = _render_vs_cpu(dev, fields, [r["log"] for r in results], 3)
+
+    # the render's peak memory and time at G = CL_STREAMS
+    centers, radii = sim_batched.pad_fields(fields, device=dev)
+    pos = torch.tensor(np.stack([r["log"][2, 7:10] for r in results]), device=dev)
+    prev = torch.rand(CL_STREAMS, H, W, device=dev)
+    tick = lambda: sim_batched._render_tick_quantized(pos, centers, radii, prev, True, H, W,
+                                                      True)
+    del pipe, policy
+    _free_device_memory()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tick()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    render_ms = time_ms(tick, L2Flush(dev), reps=10)
+    log(f"render + difflog + quantization of one tick, G={CL_STREAMS}, K={centers.shape[1]}, "
+        f"{H}x{W}: {render_ms:.3f} ms, peak memory {peak:.1f} MiB above the inputs on {smi}")
+
+    ppipe = BatchedStreamingPipeline(model, CL_STREAMS, desvel=4.0, device=dev)
+    one_tick = lambda: sim_batched.run_trials_batched(
+        fields, mode="vision", policy=ppipe, policy_every=CL_POLICY_EVERY,
+        max_steps=CL_POLICY_EVERY, log_images=False, device=dev)
+    prof = phase_profile(one_tick, {"K4/K5": "lstm_cluster_kernel"},
+                         f"closed-loop one-tick runs G={CL_STREAMS}")
+    del ppipe
+    return dict(launches=launches, ticks_per_s=ticks / wall,
+                sim_steps_per_s=CL_STREAMS * ticks * CL_POLICY_EVERY / wall, success=success,
+                crashes=crashes, vel_err=err, render_flagged=flagged, render_ms=render_ms,
+                render_peak_mib=peak,
+                idle_share=None if prof is None else prof["idle_share"])
+
+
+def phase_closed_loop_state(dev, smi):
+    """STATE_TRIALS state-mode trials batched on the card against run_trial
+    for each on the card: summaries equal, logs within 1e-6."""
+    fields = closed_loop_fields()[:STATE_TRIALS]
+    t0 = time.perf_counter()
+    batched = sim_batched.run_trials_batched(fields, mode="state", policy_every=6,
+                                             max_steps=STATE_STEPS, seed=5, log_images=False,
+                                             device=dev)
+    wall = time.perf_counter() - t0
+    err = 0.0
+    for g, field in enumerate(fields):
+        single = closed_loop.run_trial(field, mode="state", policy_every=6,
+                                       max_steps=STATE_STEPS, rng=np.random.default_rng(
+                                           5 + 977 * g), log_images=False, device=dev)
+        require(batched[g]["summary"] == single["summary"],
+                f"state trial {g}: batched summary {batched[g]['summary']} != "
+                f"{single['summary']}")
+        require(batched[g]["log"].shape == single["log"].shape, f"state trial {g}: log shape")
+        err = max(err, float(np.abs(batched[g]["log"] - single["log"])[:, 1:].max()))
+    log(f"closed loop, state, {STATE_TRIALS} trials: batched {wall:.2f} s on {smi}; summaries "
+        f"equal, max |log diff| {err:.3g} against run_trial; successes "
+        f"{[r['summary'].get('Success') for r in batched]}")
+    require(err <= 1e-6, "batched state trials disagree with run_trial")
+
+
+def phase_evaluation(dev, model, smi):
+    """run_evaluation of EVAL_TRIALS vision trials, a StreamingPipeline per
+    trial, into a directory under build/ that is removed after."""
+    out = os.path.join(REPO, "build", f"eval_smoke_{os.getpid()}")
+    try:
+        t0 = time.perf_counter()
+        summaries = run_evaluation(
+            EVAL_TRIALS, mode="vision",
+            policy_factory=lambda: StreamingPipeline(model, desvel=4.0, device=dev),
+            out_dir=out, max_steps=EVAL_STEPS, make_plots=False, device=dev)
+        wall = time.perf_counter() - t0
+        names = sorted(os.listdir(out))
+        log(f"run_evaluation, {EVAL_TRIALS} vision trials in {wall:.2f} s on {smi}: {names}; "
+            f"{json.dumps(summaries, default=float)}")
+        for trial in summaries:
+            for f in ("path.csv", "dist.csv", "scalarMetrics.dat", "static_obstacles.csv"):
+                require(os.path.getsize(os.path.join(out, trial, f)) > 0,
+                        f"run_evaluation wrote no {trial}/{f}")
+        require(len(summaries) == EVAL_TRIALS
+                and ("evaluation.json" in names or "evaluation.yaml" in names),
+                "run_evaluation's summary")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return summaries
+
+
+class _RecordingAdam(torch.optim.Adam):
+    """Adam that keeps the gradients of its first step."""
+
+    first_grads = None
+
+    def step(self, *args, **kwargs):
+        if self.first_grads is None:
+            self.first_grads = [p.grad.clone() for p in self.param_groups[0]["params"]]
+        return super().step(*args, **kwargs)
+
+
+def rl_env_params():
+    """tools/train_rl.py's VisionEnv: a 40-tree forest, goal 4 m/s, the
+    world box, 20 s episodes."""
+    field = generate_forest(np.random.default_rng(0), num_obstacles=40)
+    return vision_env.EnvParams(
+        obstacle_pos=torch.tensor(field.positions, dtype=torch.float32),
+        obstacle_radius=torch.tensor(field.radii, dtype=torch.float32),
+        goal_vel=torch.tensor([4.0, 0.0, 0.0]),
+        world_box=torch.tensor([[-5.0, -20.0, 0.0], [65.0, 20.0, 20.0]]), max_t=20.0)
+
+
+def _ppo_iteration_card_vs_cpu(dev, spec_of, label, rollout):
+    """One iteration from the same weights, states, noise and resets (drawn
+    on the CPU) on the card and on the CPU: env states, metrics and the
+    parameters whose first gradient exceeds 1e-4 of its tensor's largest
+    within 1e-4 (below it Adam scales rounding to a step of up to lr: held
+    within 2 lr per epoch, tests/test_torch_rl.py)."""
+    cfg = ppo.PPOConfig(num_envs=PPO_ENVS, rollout_len=rollout, lr=3e-4)
+    cpu = torch.device("cpu")
+    spec_c = spec_of(cpu)
+    gen = torch.Generator().manual_seed(3)
+    ac_c = ppo.init_actor_critic(gen, act_dim=spec_c.act_dim, obs_dim=spec_c.obs_dim,
+                                 device=cpu)
+    states_c = spec_c.reset(gen, PPO_ENVS)
+    noise = torch.randn(rollout, PPO_ENVS, spec_c.act_dim, generator=gen)
+    resets = [spec_c.reset(gen, PPO_ENVS) for _ in range(rollout)]
+    to = lambda st, d: type(st)(*(x.to(d) for x in st))
+    out = []
+    for d, spec in ((dev, spec_of(dev)), (cpu, spec_c)):
+        ac = ppo.ActorCritic(act_dim=spec.act_dim, obs_dim=spec.obs_dim, device=d)
+        ac.load_state_dict(ac_c.state_dict())
+        opt = _RecordingAdam(ac.parameters(), lr=cfg.lr)
+        it = ppo.make_ppo_iteration(None, cfg, spec)
+        ac, _, st, metrics = it(ac, opt, to(states_c, d), noise=noise.to(d),
+                                resets=[to(r, d) for r in resets])
+        out.append((ac, st, metrics, opt.first_grads))
+    (ac_g, st_g, m_g, _), (ac_r, st_r, m_r, grads) = out
+    serr = max((a.cpu() - b).abs().max().item() for a, b in zip(st_g, st_r)
+               if a.dtype != torch.bool)
+    dones_equal = all(torch.equal(a.cpu(), b) for a, b in zip(st_g, st_r)
+                      if a.dtype == torch.bool)
+    merr = max(abs(float(m_g[k]) - float(m_r[k])) / max(1.0, abs(float(m_r[k]))) for k in m_r)
+    perr, rounding, pmax = 0.0, 0, 0.0
+    for a, b, g in zip(ac_g.parameters(), ac_r.parameters(), grads):
+        dd = (a.detach().cpu() - b.detach()).abs()
+        held = g.abs() > 1e-4 * g.abs().max()
+        perr = max(perr, dd[held].max().item() if held.any() else 0.0)
+        pmax = max(pmax, dd.max().item())
+        rounding += int((~held).sum())
+    log(f"PPO {label}: one iteration ({PPO_ENVS} envs x {rollout}) card vs CPU from the "
+        f"same weights, states and draws: max |state diff| {serr:.3g}, max metric diff "
+        f"{merr:.3g}, max |param diff| {perr:.3g} where the first gradient is past 1e-4 of "
+        f"its tensor's largest ({rounding} parameters below it, max {pmax:.3g})")
+    require(serr <= 1e-4 and dones_equal and merr <= 1e-4 and perr <= 1e-4
+            and pmax <= 2 * cfg.lr * cfg.epochs_per_iter,
+            f"PPO {label}: the card's iteration disagrees with the CPU's")
+    return dict(state_err=serr, metric_err=merr, param_err=perr)
+
+
+def phase_ppo(dev, smi):
+    """train_ppo at 100 envs, rollouts of 128 on VecVisionEnv and on the
+    quadrotor env's ppo_spec: one iteration, then PPO_ITERS timed
+    (iterations/s, env steps/s), each iteration's metrics finite; one
+    iteration held card against CPU for each env."""
+    params = rl_env_params()
+    specs = {
+        "vision": lambda d: ppo.vision_env_spec(params, 5.0, device=d),
+        "quadrotor": lambda d: quadrotor_env.ppo_spec(device=d),
+    }
+    numbers = {}
+    for label, spec_of in specs.items():
+        cfg = ppo.PPOConfig(num_envs=PPO_ENVS, rollout_len=PPO_ROLLOUT, lr=3e-4)
+        ppo.train_ppo(None, cfg, n_iters=1, spec=spec_of(dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, hist = ppo.train_ppo(None, cfg, n_iters=PPO_ITERS, seed=1, spec=spec_of(dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        its = PPO_ITERS / wall
+        log(f"PPO {label}: {PPO_ITERS} iterations of {PPO_ENVS} envs x {PPO_ROLLOUT} steps, "
+            f"{cfg.epochs_per_iter} epochs, in {wall:.2f} s = {its:.3f} iterations/s, "
+            f"{its * PPO_ENVS * PPO_ROLLOUT:.0f} env steps/s; last metrics {hist[-1]} on {smi}")
+        require(len(hist) == PPO_ITERS and all(np.isfinite(v) for h in hist for v in h.values()),
+                f"PPO {label}: metrics")
+        numbers[label] = dict(iterations_per_s=its, env_steps_per_s=its * PPO_ENVS * PPO_ROLLOUT,
+                              **_ppo_iteration_card_vs_cpu(dev, spec_of, label,
+                                                           PPO_HOLD_ROLLOUT[label]))
+    return numbers
+
+
 
 def _on_alarm(signum, frame):
     raise TimeoutError(f"chip_smoke exceeded its {BUDGET_S}s budget")
@@ -3083,13 +3418,25 @@ def main() -> int:
     _free_device_memory()
     with Phase("event generation: esim, esim_flow, difflog on a 49-frame trajectory"):
         gen_ms = phase_event_generation(dev, smi)
+    _free_device_memory()
+    with Phase(f"closed loop, vision: {CL_STREAMS} trials in lockstep, joint model at "
+               f"{H}x{W}"):
+        closed = phase_closed_loop_vision(dev, model, smi)
+    with Phase(f"closed loop, state: {STATE_TRIALS} trials batched against run_trial"):
+        phase_closed_loop_state(dev, smi)
+    with Phase(f"run_evaluation: {EVAL_TRIALS} vision trials"):
+        phase_evaluation(dev, model, smi)
+    _free_device_memory()
+    with Phase(f"PPO: VecVisionEnv and QuadrotorEnv at {PPO_ENVS} envs x {PPO_ROLLOUT}"):
+        rl_numbers = phase_ppo(dev, smi)
     signal.alarm(0)
 
     def entry(name, source, replaces, n, key, **times):
         """A kernel's JSON entry; ``key`` names it in KERNELS, for its
         launches over the training phase's train_loop."""
         return dict(name=name, route="cuda", source=source, replaces=replaces, launches=n,
-                    training_launches=train_launches[key], **times)
+                    training_launches=train_launches[key],
+                    closed_loop_launches=closed["launches"][key], **times)
 
     def lstm_entry(mode, route, n):
         """A K4 or K5 route's JSON entry, timed at its path's shape: K4 at
@@ -3148,6 +3495,7 @@ def main() -> int:
                 replaces="evfly_tpu/ops/lstm_pallas.py:" + ("111" if mode == "stacked" else "203"),
                 launches=head_stream[run][label], batched_launches=head_stream["batched"][label],
                 training_launches=head_train[label],
+                closed_loop_launches=closed["launches"][label],
                 validation_launches=head_val if (mode, route) == ("stacked", "grid") else 0,
                 max_abs_err=head_errs[(mode, route)], ms=t[route], plain_ms=t[f"plain_{route}"],
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"]))
@@ -3166,7 +3514,9 @@ def main() -> int:
             route="cuda", source=vox, replaces="evfly_tpu/ops/voxelizer.py:153",
             launches=dataset_launches[route],
             training_launches=train_launches[f"K1 windows {route}"],
+            closed_loop_launches=closed["launches"][f"K1 windows {route}"],
             **k1w[route]))
+    closed_numbers = {k: v for k, v in closed.items() if k != "launches"}
     streaming = "; ".join(
         f"{mode} {route} {'graph' if graph else 'eager'} "
         + ", ".join(f"{c:.3f}" for c, _ in numbers[(mode, route, graph)])
@@ -3179,6 +3529,7 @@ def main() -> int:
                     + ", ".join(f"{r:.1f}" for r in numbers[(G, graph)])
                     for G in RATE_STREAMS for graph in (True, False))
         + f"; zoo windows/s {zoo_rates}; event generation ms per trajectory {gen_ms}"
+        + f"; closed loop {closed_numbers}; PPO {rl_numbers}"
         + f"; training {train_numbers}; velocity heads {head_numbers}, head LSTM ms (grid / "
         f"L2 / cuDNN) " + ", ".join(f"{m} G={G} T={T_} {t['grid']:.4f} / {t['l2']:.4f} / "
                                     f"{t['library_ms']:.4f}"

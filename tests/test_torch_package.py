@@ -52,6 +52,13 @@ def test_import_check_covers_every_module():
                    "evfly_tpu_torch.ops.upsample", "evfly_tpu_torch.data.to_events",
                    "evfly_tpu_torch.data.package_h5", "evfly_tpu_torch.data.evt3",
                    "evfly_tpu_torch.data.realdata", "evfly_tpu_torch.utils.calibration",
+                   "evfly_tpu_torch.sim", "evfly_tpu_torch.sim.obstacles",
+                   "evfly_tpu_torch.sim.expert", "evfly_tpu_torch.sim.evaluator",
+                   "evfly_tpu_torch.sim.rigid_body", "evfly_tpu_torch.sim.planner",
+                   "evfly_tpu_torch.sim.betaflight_llc", "evfly_tpu_torch.sim.render",
+                   "evfly_tpu_torch.sim.closed_loop", "evfly_tpu_torch.sim.batched",
+                   "evfly_tpu_torch.sim.launch_evaluation", "evfly_tpu_torch.sim.vision_env",
+                   "evfly_tpu_torch.sim.quadrotor_env", "evfly_tpu_torch.sim.ppo",
                    "chip_smoke",
                    "tools.k2_phase_stamps", "tools.path_rates", "tools.torch_latency_bench"):
         assert module in MODULES
