@@ -115,7 +115,19 @@ just before it and read just after:
 - PPO: ``sim.ppo.train_ppo`` on ``VecVisionEnv`` and on the quadrotor
   env's ``ppo_spec`` at 100 envs x 128 steps (iterations/s, env steps/s),
   and one iteration on the card against the CPU from the same weights,
-  states and random draws.
+  states and random draws;
+- the drivers (``evfly_tpu_torch/tools``), each through its own functions
+  (the JSON entries' ``protocol_launches``, ``e2e_demo_launches`` and
+  ``hil_driver_launches``): ``train_policy``'s protocol evaluation at the
+  JAX record's settings (``policy_best.pth``, 40 forests of seed 91000 in
+  batches of 20, at least 36 successful, the first G = 20 ticks against
+  single eager streams in TF32 and, replayed, in f32); ``dagger`` trials,
+  ``datagen`` in state mode with the flow of two trajectories, both into
+  ``cache_dataset``, and ``e2e_demo`` (data, one epoch, one evaluation
+  trial; its Learner reads the cache, K4 in validation); ``train_rl`` for
+  each env and its greedy rollout on the card against the CPU; an 8 s
+  ``hil_real_model`` episode with ``policy_best.pth``; and the two reports
+  at their defaults against the JAX records.
 
 It then times a streaming step and the G-stream rates, each as graphs and
 eagerly in turns, in the manner of ``tools/torch_latency_bench.py``, and
@@ -133,6 +145,7 @@ kernel fails to build, launch or agree, or when the run exceeds its budget.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import gc
 import json
@@ -239,6 +252,8 @@ from evfly_tpu_torch.stream import BatchedStreamingPipeline, StreamingPipeline, 
 from evfly_tpu_torch.stream.pipeline import event_bucket
 from evfly_tpu_torch.train import Learner, stepfn
 from evfly_tpu_torch.train.learner import dataloader_kwargs
+from evfly_tpu_torch.tools import (datagen, e2e_demo, esim_divergence_report, hil_real_model,
+                                   train_policy, train_rl, upsample_report)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(REPO, "artifacts", "pretrain_v_final.pth")
@@ -393,6 +408,48 @@ EVAL_TRIALS, EVAL_STEPS = 2, 2000
 # 128 steps, by 2.6e-5 over 32; the VisionEnv's by 1.2e-5 over 128)
 PPO_ENVS, PPO_ROLLOUT, PPO_ITERS = 100, 128, 3
 PPO_HOLD_ROLLOUT = {"vision": 128, "quadrotor": 32}
+
+# the drivers (evfly_tpu_torch/tools), each through its own functions:
+# the protocol evaluation at the JAX record's settings
+# (artifacts/eval_final_v2.json: policy_best.pth, 40 trials in batches of
+# 20, seed 91000, desvel 4, first-order dynamics; 40 of 40 successful):
+# at least PROTOCOL_MIN_SUCCESS (a true rate of 0.975 falls below 36 of 40
+# with a chance of about 0.3%, a broken policy path crashes most trials);
+# the first CL_CHECK_TICKS ticks of the first batch (G = 20: 160 CTAs of
+# K4's cluster route in waves over 132 SMs) held against single eager
+# streams in the driver's TF32 within PROTOCOL_TF32_ATOL, and a G = 20 graph
+# replay of the same frames in f32 against f32 single streams within VEL_ATOL
+PROTOCOL_TRIALS, PROTOCOL_BATCH, PROTOCOL_SEED, PROTOCOL_MIN_SUCCESS = 40, 20, 91000, 36
+# TF32 rounds a product's inputs to 10 mantissa bits (2^-11 relative): the
+# batched and single convolutions may take other cuDNN algorithms, each
+# rounding on its own, through the UNet and the ViT to a tanh-bounded
+# velocity (x desvel 4); 2.75e-4 measured on an H100 (f32: 5.2e-7)
+PROTOCOL_TF32_ATOL = 2e-3
+# DAgger at DAGGER_TRIALS in one batch, datagen in state mode at
+# DATAGEN_TRIALS in one batch with the flow of FLOW_TRAJS trajectories,
+# all handed to cache_dataset with the joint configuration's dataloader
+# arguments; e2e_demo at E2E_ARGS (its data through cache_dataset)
+DAGGER_TRIALS, DATAGEN_TRIALS, FLOW_TRAJS = 4, 8, 2
+E2E_ARGS = ["--trials", "2", "--epochs", "1", "--eval_trials", "1"]
+# train_rl at RL_ITERS iterations of 100 envs x 128; greedy_rollout of
+# RL_HOLD_ENVS envs on the card against the CPU from the same weights and
+# starts, VisionEnv over the driver's horizon, QuadrotorEnv cut to 32 steps
+# (PPO_HOLD_ROLLOUT): positions and returns within RL_ATOL
+# (tests/test_torch_tools_rl.py's bound), alive equal
+RL_ITERS, RL_HOLD_ENVS, RL_ATOL = 2, 16, 1e-4
+# hil_real_model with policy_best.pth (the record's joint_final.pth does
+# not ship): HIL_DRIVER_SECONDS at seed 77; no collision, no guard stop,
+# past HIL_MIN_X metres (the JAX record reached 29.2 m with its checkpoint)
+HIL_DRIVER_SECONDS, HIL_SEED, HIL_MIN_X = 8.0, 77, 20.0
+# the two reports at their defaults against the JAX records
+# (artifacts/esim_divergence.json, upsample_report.json, made by the JAX
+# package on the CPU): the CPU test holds each metric within 4 s max(|m|,
+# 1), s the share of pixel-windows whose counts differ between the
+# packages (all at render edges or quantization crossings), 0.019 at 48x64
+# over 10 frames; render edges flag 0.2-2% of a 260x346 frame (PERF.md §6), so
+# at full size REPORT_SHARE; quantiles and maxima of counts, adaptive
+# factors within one step
+REPORT_SHARE = 0.02
 
 BUDGET_S = 600  # the whole run, cold build included
 # H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s
@@ -3333,6 +3390,310 @@ def phase_ppo(dev, smi):
 
 
 
+@contextlib.contextmanager
+def driver_precision():
+    """The drivers set the port's precision to TF32 (the JAX drivers'
+    "default"), as a driver's process keeps it; put it back after."""
+    saved = get_precision()
+    try:
+        yield
+    finally:
+        set_precision(saved)
+
+
+def _launches() -> dict:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def _zero_launches() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def _singles_err(model, kept, dev, G) -> float:
+    """Max |velocity diff| of the kept batched ticks against G single eager
+    streams on the same frames and resets."""
+    err = 0.0
+    for g in range(G):
+        single = StreamingPipeline(model, desvel=4.0, device=dev, graph=False)
+        for frames, mask, vels in kept:
+            if mask[g]:
+                single.reset()
+            v, _ = single.step_frame(frames[g])
+            err = max(err, (v - vels[g]).abs().max().item())
+    return err
+
+
+def phase_protocol(dev, smi):
+    """train_policy's protocol evaluation at the JAX record's settings
+    through the driver's own _protocol_trials and eval_report, its
+    pipelines recorded: success, crashes, finish times, |vy|, ticks/s,
+    quad sim steps/s, launches; the first batch's first ticks against
+    single eager streams (TF32, as flown) and, replayed in f32 through a
+    G = 20 graph, against f32 single streams."""
+    recorders = []
+    build = train_policy._build_pipeline
+
+    def recorded(ckpt, G, desvels, device=None):
+        rec = _TickRecorder(build(ckpt, G, desvels, device), 0 if recorders else CL_CHECK_TICKS)
+        recorders.append(rec)
+        return rec
+
+    _free_device_memory()
+    train_policy._build_pipeline = recorded
+    try:
+        with driver_precision():
+            _zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = train_policy._protocol_trials(JOINT_CHECKPOINT, PROTOCOL_TRIALS,
+                                                    PROTOCOL_BATCH, PROTOCOL_SEED, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches()
+            require(get_precision() == "tf32", "the protocol did not fly in TF32")
+            first = recorders[0]
+            tf32_err = _singles_err(first.pipe.model, first.kept, dev, PROTOCOL_BATCH)
+    finally:
+        train_policy._build_pipeline = build
+    report = train_policy.eval_report(results, JOINT_CHECKPOINT, 4.0, "first_order")
+    ticks = [r.ticks for r in recorders]
+    sim_steps = sum(t * r.pipe.G * 6 for t, r in zip(ticks, recorders))
+    success = round(report["success_rate"] * PROTOCOL_TRIALS)
+    finish = [t for t in report["time_to_finish"] if t is not None]
+
+    # the same first ticks in f32: a G = 20 graph replay against f32 singles
+    model = first.pipe.model
+    f32 = BatchedStreamingPipeline(model, PROTOCOL_BATCH, desvel=4.0, device=dev)
+    replay = []
+    for frames, mask, _ in first.kept:
+        vels, _ = f32.step_frames(frames, reset_mask=mask)
+        replay.append((frames, mask, vels.clone()))
+    f32_err = _singles_err(model, replay, dev, PROTOCOL_BATCH)
+    del f32, recorders, first
+    lstm = {n: launches[n] for n in ("K4 cluster", "K5 cluster", "K4 L2", "K5 L2",
+                                     "K4 grid", "K5 grid")}
+    log(f"protocol evaluation (train_policy eval), {PROTOCOL_TRIALS} trials in batches of "
+        f"{PROTOCOL_BATCH}, seed {PROTOCOL_SEED}, policy_best.pth, TF32: {success} of "
+        f"{PROTOCOL_TRIALS} successful (JAX record: 40 of 40), crashes {report['crashes']}, "
+        f"finish times {min(finish) if finish else None}-{max(finish) if finish else None} s, "
+        f"mean |vy| {report['mean_abs_vy_cmd']}, p95 |vy| {report['p95_abs_vy_cmd']}; "
+        f"{sum(ticks)} ticks ({ticks}) in {wall:.2f} s = {sum(ticks) / wall:.2f} ticks/s, "
+        f"{sim_steps / wall:.1f} quad sim steps/s; LSTM launches {lstm}; other launches "
+        f"{ {n: c for n, c in launches.items() if c and n not in lstm} }; first "
+        f"{CL_CHECK_TICKS} ticks of G={PROTOCOL_BATCH} against single eager streams: TF32 max "
+        f"|diff| {tf32_err:.3e}, f32 replay {f32_err:.3e} on {smi}")
+    require(all(np.isfinite(r["log"]).all() and r["log"].shape[1] == 21 for r in results)
+            and len(results) == PROTOCOL_TRIALS, "protocol logs")
+    require(launches["K4 cluster"] > 0, "the protocol's policy launched no K4 (cluster route)")
+    require(tf32_err <= PROTOCOL_TF32_ATOL and f32_err <= VEL_ATOL,
+            "the G=20 batched policy disagrees with single streams")
+    require(success >= PROTOCOL_MIN_SUCCESS,
+            f"{success} of {PROTOCOL_TRIALS} protocol trials successful")
+    return dict(launches=launches, success=success, crashes=sum(report["crashes"]),
+                finish_min=min(finish) if finish else None,
+                finish_max=max(finish) if finish else None,
+                mean_abs_vy=report["mean_abs_vy_cmd"], p95_abs_vy=report["p95_abs_vy_cmd"],
+                ticks_per_s=sum(ticks) / wall, sim_steps_per_s=sim_steps / wall,
+                tf32_err=tf32_err, f32_err=f32_err)
+
+
+def _forest_fields(seed, n):
+    """The fields datagen.generate_trajectories draws for one batch of n
+    from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [generate_forest(rng, num_obstacles=int(rng.integers(25, 41)), trees=True)
+            for _ in range(n)]
+
+
+def _log_losses(workspace):
+    """Every epoch's train and validation loss in a Learner's log.txt."""
+    with open(os.path.join(workspace, "log.txt")) as fh:
+        text = fh.read()
+    return ([float(x) for x in re.findall(r"\] Completed epoch .*?ep_loss = ([^,]+),", text)],
+            [float(x) for x in re.findall(r"\] Validated epoch .*?val_loss = ([^,]+),", text)])
+
+
+def phase_driver_data(dev, smi):
+    """DAgger -> data -> training through the drivers: train_policy's
+    dagger trials and dagger_trajectories, datagen's
+    generate_trajectories (state mode) and traj_flows, both handed to
+    cache_dataset with the joint configuration's dataloader arguments; then
+    e2e_demo.main, whose Learner reads its data phase's cache: losses
+    finite, a checkpoint written, K4 launched in validation."""
+    root = os.path.join(REPO, "build", f"drivers_smoke_{os.getpid()}")
+    out = train_policy.OUT
+    try:
+        train_policy.OUT = root
+        with driver_precision():
+            t0 = time.perf_counter()
+            results = train_policy._protocol_trials(JOINT_CHECKPOINT, DAGGER_TRIALS,
+                                                    DAGGER_TRIALS, 50000, mode="dagger",
+                                                    device=dev)
+            dagger_s = time.perf_counter() - t0
+        dagger = train_policy.dagger_trajectories(results)
+        require(len(dagger) > 0 and all((t["data"][:, -1] == 0).all() and t["evs"] is not None
+                                        for t in dagger), "dagger trajectories")
+        _free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        states = datagen.generate_trajectories(DATAGEN_TRIALS, DATAGEN_TRIALS, mode="state",
+                                               seed=0, device=dev)
+        torch.cuda.synchronize()
+        datagen_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        fields = _forest_fields(0, DATAGEN_TRIALS)
+        t0 = time.perf_counter()
+        for traj in states[:FLOW_TRAJS]:
+            i = int(traj["name"].rsplit("_", 1)[1])
+            traj["flows"] = datagen.traj_flows(traj, fields[i], device=dev)
+            require(traj["flows"].shape == traj["ims"].shape + (2,)
+                    and np.isfinite(traj["flows"].astype(np.float32)).all()
+                    and np.abs(traj["flows"].astype(np.float32)).max() > 1.0, "flows")
+        flow_s = time.perf_counter() - t0
+        cfg = train_policy._joint_cfg(argparse.Namespace(extra_data=None, epochs=1, lr=None,
+                                                         logsub="joint"))
+        t0 = time.perf_counter()
+        train, val, _ = cache_dataset(os.path.join(cfg.datadir, "drivers"), dagger + states,
+                                      logger=lambda m: None, **dataloader_kwargs(cfg))
+        cache_s = time.perf_counter() - t0
+        frames = sum(len(t["ims"]) for t in dagger + states)
+        log(f"dagger: {DAGGER_TRIALS} trials in {dagger_s:.1f} s, {len(dagger)} trajectories; "
+            f"datagen (state): {DATAGEN_TRIALS} trials in {datagen_s:.1f} s = "
+            f"{DATAGEN_TRIALS / datagen_s * 60:.1f} trials/min, peak memory {peak:.2f} GiB above "
+            f"the inputs, {len(states)} trajectories; flow of {FLOW_TRAJS} in {flow_s:.2f} s; "
+            f"cache_dataset of {frames} frames with the joint configuration's dataloader "
+            f"arguments in {cache_s:.1f} s: train {train.ims.shape}, val {val.ims.shape} on {smi}")
+        require(train.ims.shape[0] > 0 and val.ims.shape[0] > 0
+                and all(np.isfinite(e).all() for e in train.evs), "cached splits")
+
+        _free_device_memory()
+        _zero_launches()
+        t0 = time.perf_counter()
+        with driver_precision():
+            e2e = e2e_demo.main(["--out", os.path.join(root, "e2e"), *E2E_ARGS, "--device",
+                                 str(dev)])
+        e2e_s = time.perf_counter() - t0
+        launches = _launches()
+        ws = os.path.dirname(e2e["checkpoint"])
+        train_losses, val_losses = _log_losses(ws)
+        with open(os.path.join(ws, "log.txt")) as fh:
+            cache_hit = "Cache hit" in fh.read()
+        log(f"e2e_demo {' '.join(E2E_ARGS)} in {e2e_s:.1f} s (data {e2e['data_s']:.1f}, train "
+            f"{e2e['train_s']:.1f}, eval {e2e['eval_s']:.1f}): checkpoint "
+            f"{os.path.basename(e2e['checkpoint'])}, train losses {train_losses}, validation "
+            f"losses {val_losses}, the Learner's cache hit {cache_hit}, vision "
+            f"{e2e['summaries']}; launches {({n: c for n, c in launches.items() if c})}")
+        require(cache_hit, "e2e_demo's Learner missed its data phase's cache")
+        require(os.path.exists(e2e["checkpoint"]) and train_losses and val_losses
+                and np.isfinite(train_losses + val_losses).all(), "e2e_demo's training")
+        require(launches["K4 cluster"] > 0, "e2e_demo launched no K4 (validation, evaluation)")
+        return dict(launches=launches, datagen_trials_per_min=DATAGEN_TRIALS / datagen_s * 60,
+                    datagen_peak_gib=peak, e2e_s=e2e_s, dagger_s=dagger_s)
+    finally:
+        train_policy.OUT = out
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_driver_rl(dev, smi):
+    """train_rl.main at RL_ITERS iterations for each env (the artifact's
+    keys, finite), and greedy_rollout on the card against the CPU from the
+    same weights and starts."""
+    numbers = {}
+    args = argparse.Namespace(seed=0, obstacles=40, horizon_s=20.0)
+    cpu = torch.device("cpu")
+    for env in ("vision", "quadrotor"):
+        t0 = time.perf_counter()
+        result, ac = train_rl.main(["--env", env, "--iters", str(RL_ITERS), "--device",
+                                    str(dev)])
+        wall = time.perf_counter() - t0
+        require(all(np.isfinite(v) for v in result.values() if isinstance(v, float))
+                and len(result["history"]) == RL_ITERS, f"train_rl {env}: artifact")
+        specs = [train_rl.build_vision(args, d)[1] if env == "vision"
+                 else train_rl.build_quadrotor(args, d)[0] for d in (dev, cpu)]
+        ac_cpu = ppo.ActorCritic(act_dim=specs[1].act_dim, obs_dim=specs[1].obs_dim, device=cpu)
+        ac_cpu.load_state_dict({k: v.cpu() for k, v in ac.state_dict().items()})
+        starts = specs[1].reset(torch.Generator().manual_seed(9), RL_HOLD_ENVS)
+        steps = train_rl.greedy_steps(env, 20.0) if env == "vision" else PPO_HOLD_ROLLOUT[env]
+        out = []
+        for spec, model, d in zip(specs, (ac, ac_cpu), (dev, cpu)):
+            t1 = time.perf_counter()
+            st, ret, alive = train_rl.greedy_rollout(spec, model,
+                                                     type(starts)(*(x.to(d) for x in starts)),
+                                                     steps)
+            out.append((st, ret.cpu(), alive.cpu(), time.perf_counter() - t1))
+        (sg, rg, ag, tg), (sc, rc, ac_, tc) = out
+        pos = lambda s: (s.pos if env == "vision" else s.p).cpu()
+        perr = (pos(sg) - pos(sc)).abs().max().item()
+        rerr = ((rg - rc).abs() / rc.abs().clamp_min(1.0)).max().item()
+        log(f"train_rl {env}: {RL_ITERS} iterations of 100 x 128 and the greedy evaluation in "
+            f"{wall:.1f} s: {json.dumps({k: v for k, v in result.items() if k != 'history'})}; "
+            f"greedy_rollout of {RL_HOLD_ENVS} envs x {steps} steps card vs CPU: max |pos diff| "
+            f"{perr:.3g}, max return diff {rerr:.3g} (relative past 1), alive equal "
+            f"{torch.equal(ag, ac_)} ({tg:.2f} s on the card, {tc:.2f} s on the CPU) on {smi}")
+        require(perr <= RL_ATOL and rerr <= RL_ATOL and torch.equal(ag, ac_),
+                f"train_rl {env}: the card's greedy rollout disagrees with the CPU's")
+        numbers[env] = dict(pos_err=perr, ret_err=rerr, wall_s=wall)
+    return numbers
+
+
+def phase_driver_hil(dev, smi):
+    """hil_real_model's episode with policy_best.pth: tracking, latency,
+    launches."""
+    _free_device_memory()
+    _zero_launches()
+    with driver_precision():
+        report = hil_real_model.hil_episode(JOINT_CHECKPOINT, HIL_DRIVER_SECONDS, 4.0, HIL_SEED,
+                                            30, False, dev)
+    launches = _launches()
+    log(f"hil_real_model, policy_best.pth, {HIL_DRIVER_SECONDS} s, seed {HIL_SEED}: "
+        f"{json.dumps(report)}; launches {({n: c for n, c in launches.items() if c})} on {smi}")
+    require(not report["collided"] and not report["guard_stopped"]
+            and report["final_x_m"] > HIL_MIN_X, "the HIL episode with the trained model")
+    require(launches["K4 cluster"] + launches["K5 cluster"] > 0, "HIL launched no K4/K5")
+    return dict(launches=launches, p50_ms=report["tick_latency_ms_p50"],
+                p95_ms=report["tick_latency_ms_p95"], final_x_m=report["final_x_m"])
+
+
+def _report_held(name, got, ref):
+    """A report against its JAX record (REPORT_SHARE's rule)."""
+    bad = []
+    for k, r in ref.items():
+        g = got[k]
+        if k.startswith("count_quantiles") or k == "adaptive_factor_p50_p95_max" or k in (
+                "max_abs_count_diff",):
+            ok = np.allclose(g, r, rtol=0, atol=1.0)
+        elif isinstance(r, float):
+            ok = abs(g - r) <= 4 * REPORT_SHARE * max(abs(r), 1.0)
+        else:
+            ok = g == r
+        if not ok:
+            bad.append((k, g, r))
+    diffs = {k: abs(got[k] - r) / max(abs(r), 1.0) for k, r in ref.items()
+             if isinstance(r, float)}
+    log(f"{name} against the JAX record: |diff| / max(|record|, 1) {json.dumps(diffs)}; "
+        f"outside the bound {bad}")
+    require(not bad, f"{name} disagrees with its JAX record")
+    return diffs
+
+
+def phase_reports(dev, smi):
+    """esim_divergence_report and upsample_report at their defaults on the
+    card against the JAX records."""
+    out = {}
+    for name, mod in (("esim_divergence", esim_divergence_report),
+                      ("upsample_report", upsample_report)):
+        t0 = time.perf_counter()
+        got = mod.report(device=dev)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(REPO, "artifacts", f"{name}.json")) as fh:
+            ref = json.load(fh)
+        log(f"{name} report in {wall:.2f} s on {smi}")
+        out[name] = max(_report_held(name, got, ref).values())
+    return out
+
+
 def _on_alarm(signum, frame):
     raise TimeoutError(f"chip_smoke exceeded its {BUDGET_S}s budget")
 
@@ -3429,14 +3790,36 @@ def main() -> int:
     _free_device_memory()
     with Phase(f"PPO: VecVisionEnv and QuadrotorEnv at {PPO_ENVS} envs x {PPO_ROLLOUT}"):
         rl_numbers = phase_ppo(dev, smi)
+    _free_device_memory()
+    with Phase(f"protocol evaluation (train_policy eval): {PROTOCOL_TRIALS} trials in batches "
+               f"of {PROTOCOL_BATCH}, seed {PROTOCOL_SEED}, policy_best.pth"):
+        protocol = phase_protocol(dev, smi)
+    _free_device_memory()
+    with Phase("DAgger -> data -> training: train_policy dagger, datagen, cache_dataset, "
+               "e2e_demo"):
+        driver_data = phase_driver_data(dev, smi)
+    _free_device_memory()
+    with Phase(f"RL driver: train_rl, {RL_ITERS} iterations for each env, greedy card vs CPU"):
+        driver_rl = phase_driver_rl(dev, smi)
+    with Phase(f"HIL with the trained model: hil_real_model, {HIL_DRIVER_SECONDS} s"):
+        driver_hil = phase_driver_hil(dev, smi)
+    _free_device_memory()
+    with Phase("reports: esim_divergence_report and upsample_report at their defaults"):
+        reports = phase_reports(dev, smi)
     signal.alarm(0)
+    # every kernel's launches on the drivers' paths, by its key in KERNELS
+    driver_launches = lambda key: dict(
+        protocol_launches=protocol["launches"][key],
+        e2e_demo_launches=driver_data["launches"][key],
+        hil_driver_launches=driver_hil["launches"][key])
 
     def entry(name, source, replaces, n, key, **times):
         """A kernel's JSON entry; ``key`` names it in KERNELS, for its
         launches over the training phase's train_loop."""
         return dict(name=name, route="cuda", source=source, replaces=replaces, launches=n,
                     training_launches=train_launches[key],
-                    closed_loop_launches=closed["launches"][key], **times)
+                    closed_loop_launches=closed["launches"][key], **driver_launches(key),
+                    **times)
 
     def lstm_entry(mode, route, n):
         """A K4 or K5 route's JSON entry, timed at its path's shape: K4 at
@@ -3495,7 +3878,7 @@ def main() -> int:
                 replaces="evfly_tpu/ops/lstm_pallas.py:" + ("111" if mode == "stacked" else "203"),
                 launches=head_stream[run][label], batched_launches=head_stream["batched"][label],
                 training_launches=head_train[label],
-                closed_loop_launches=closed["launches"][label],
+                closed_loop_launches=closed["launches"][label], **driver_launches(label),
                 validation_launches=head_val if (mode, route) == ("stacked", "grid") else 0,
                 max_abs_err=head_errs[(mode, route)], ms=t[route], plain_ms=t[f"plain_{route}"],
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"]))
@@ -3515,7 +3898,7 @@ def main() -> int:
             launches=dataset_launches[route],
             training_launches=train_launches[f"K1 windows {route}"],
             closed_loop_launches=closed["launches"][f"K1 windows {route}"],
-            **k1w[route]))
+            **driver_launches(f"K1 windows {route}"), **k1w[route]))
     closed_numbers = {k: v for k, v in closed.items() if k != "launches"}
     streaming = "; ".join(
         f"{mode} {route} {'graph' if graph else 'eager'} "
@@ -3530,6 +3913,10 @@ def main() -> int:
                     for G in RATE_STREAMS for graph in (True, False))
         + f"; zoo windows/s {zoo_rates}; event generation ms per trajectory {gen_ms}"
         + f"; closed loop {closed_numbers}; PPO {rl_numbers}"
+        + f"; protocol {({k: v for k, v in protocol.items() if k != 'launches'})}"
+        + f"; driver data {({k: v for k, v in driver_data.items() if k != 'launches'})}"
+        + f"; driver RL {driver_rl}; driver HIL "
+        f"{({k: v for k, v in driver_hil.items() if k != 'launches'})}; reports {reports}"
         + f"; training {train_numbers}; velocity heads {head_numbers}, head LSTM ms (grid / "
         f"L2 / cuDNN) " + ", ".join(f"{m} G={G} T={T_} {t['grid']:.4f} / {t['l2']:.4f} / "
                                     f"{t['library_ms']:.4f}"

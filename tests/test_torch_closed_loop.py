@@ -36,6 +36,8 @@ from evfly_tpu_torch.sim import closed_loop as t_closed
 from evfly_tpu_torch.sim import launch_evaluation as t_launch
 from evfly_tpu_torch.sim import render
 
+from torch_helpers import cuda_device  # noqa: F401  (fixture)
+
 H, W = 40, 52
 CPU = "cpu"
 STEPS = 900
@@ -260,3 +262,47 @@ def test_run_evaluation_vision_and_cli(tmp_path, monkeypatch):
                                "--out_dir", str(tmp_path / "cli")])
     assert set(summaries) == {"rollout_000"}
     assert (tmp_path / "cli" / "rollout_000" / "scalarMetrics.dat").exists()
+
+
+@pytest.mark.gpu
+def test_lockstep_tick_on_the_card_matches_the_cpu(cuda_device):
+    """One lockstep tick of 4 trials at 260x346 (render + difflog against
+    the tick before, then the quantized frames) on the card against the
+    CPU: away from RENDER_MARGIN in either frame depth within 5e-5 (mean
+    1e-6) and intensity within 5e-6; events and the int8 counts equal
+    there and away from difflog's crossings; the u8 frames within one
+    step."""
+    from evfly_tpu_torch.sim import generate_forest as t_forest
+
+    rng = np.random.default_rng(31)
+    fields = [t_forest(rng, num_obstacles=40, trees=True) for _ in range(4)]
+    pos0 = np.array([[rng.uniform(0, 20), rng.uniform(-2, 2), 2.0] for _ in fields], np.float32)
+    pos1 = pos0 + np.array([0.24, 0.03, 0.0], np.float32)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        centers, radii = t_batched.pad_fields(fields, K_min=48, device=dev)
+        _, prev, _ = t_batched._render_tick(pos0, centers, radii, torch.zeros(4, 260, 346,
+                                                                             device=dev),
+                                            False, 260, 346, True)
+        depth, inten, events = t_batched._render_tick(pos1, centers, radii, prev, True, 260,
+                                                      346, True)
+        quant = t_batched._render_tick_quantized(pos1, centers, radii, prev, True, 260, 346,
+                                                 True)
+        outs.append([t.cpu() for t in (depth, inten, events, prev, *quant[2:])])
+    (gd, gi, ge, _, gdu, gev, giu), (rd, ri, re_, rp, rdu, rev, riu) = outs
+    centers, radii = t_batched.pad_fields(fields, K_min=48, device=CPU)
+    ok = ((render.render_margins(pos0, centers, radii, is_trees=True, device=CPU)
+           >= render.RENDER_MARGIN)
+          & (render.render_margins(pos1, centers, radii, is_trees=True, device=CPU)
+             >= render.RENDER_MARGIN))
+    eok = ok & (difflog_margins(ri, rp, device=CPU) >= 1e-5)
+    dd, di = (gd - rd).abs()[ok], (gi - ri).abs()[ok]
+    print(f"lockstep tick card vs CPU: {int((~ok).sum())} of {ok.numel()} pixels within the "
+          f"margin; max |depth diff| {dd.max():.3g} (mean {dd.mean():.3g}), max |intensity "
+          f"diff| {di.max():.3g}; {int((ge != re_).sum())} event pixels differ in all")
+    assert int((~ok).sum()) < ok.numel() // 20
+    assert dd.max() <= 5e-5 and dd.mean() <= 1e-6 and di.max() <= 5e-6
+    assert torch.equal(ge[eok], re_[eok]) and torch.equal(gev[eok], rev[eok])
+    assert (ge != 0).any()
+    assert ((gdu.int() - rdu.int()).abs()[ok] <= 1).all()
+    assert ((giu.int() - riu.int()).abs()[ok] <= 1).all()

@@ -22,7 +22,8 @@ from evfly_tpu_torch.train import Learner
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "evfly_tpu_torch"
 # the port's package, its smoke run and its probes under tools/
-TOOLS = ["k1_phases", "k2_phase_stamps", "path_rates", "torch_latency_bench"]
+TOOLS = ["k1_phases", "k2_phase_stamps", "path_rates", "torch_driver_runs",
+         "torch_latency_bench"]
 SCRIPTS = [REPO / "chip_smoke.py"] + [REPO / "tools" / f"{t}.py" for t in TOOLS]
 PORT_FILES = sorted(PORT.rglob("*.py")) + SCRIPTS
 MODULES = sorted(
@@ -59,6 +60,14 @@ def test_import_check_covers_every_module():
                    "evfly_tpu_torch.sim.closed_loop", "evfly_tpu_torch.sim.batched",
                    "evfly_tpu_torch.sim.launch_evaluation", "evfly_tpu_torch.sim.vision_env",
                    "evfly_tpu_torch.sim.quadrotor_env", "evfly_tpu_torch.sim.ppo",
+                   "evfly_tpu_torch.tools", "evfly_tpu_torch.tools.train_policy",
+                   "evfly_tpu_torch.tools.datagen", "evfly_tpu_torch.tools.e2e_demo",
+                   "evfly_tpu_torch.tools.train_rl", "evfly_tpu_torch.tools.hil_real_model",
+                   "evfly_tpu_torch.tools.esim_divergence_report",
+                   "evfly_tpu_torch.tools.upsample_report",
+                   "evfly_tpu_torch.tools.extract_combine", "evfly_tpu_torch.utils.profiling",
+                   "evfly_tpu_torch.utils.checkpoint_surgery",
+                   "evfly_tpu_torch.utils.search_logs", "evfly_tpu_torch.utils.recording_to_gif",
                    "chip_smoke",
                    "tools.k2_phase_stamps", "tools.path_rates", "tools.torch_latency_bench"):
         assert module in MODULES
@@ -137,6 +146,33 @@ def test_chip_smoke_exits_nonzero_without_cuda():
                           text=True, timeout=300, env=env)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+# the port's drivers that run a model, the simulator or the envs, each
+# with the arguments it needs to start
+DRIVERS = {
+    "train_policy": ["eval", "--ckpt", "artifacts/policy_best.pth", "--trials", "1"],
+    "datagen": ["--trials", "1"],
+    "e2e_demo": ["--trials", "1"],
+    "train_rl": ["--iters", "1"],
+    "hil_real_model": ["--ckpt", "artifacts/policy_best.pth"],
+    "esim_divergence_report": ["--frames", "2"],
+    "upsample_report": ["--frames", "2"],
+}
+
+
+@pytest.mark.parametrize("driver", sorted(DRIVERS))
+def test_drivers_need_a_card_by_default(driver, monkeypatch, tmp_path):
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(REPO)
+    argv = DRIVERS[driver] + (["--out", str(tmp_path)] if driver in ("datagen", "e2e_demo")
+                              else [])
+    main = importlib.import_module(f"evfly_tpu_torch.tools.{driver}").main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv)
+    assert not any(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("tool", TOOLS)

@@ -33,18 +33,22 @@ from evfly_tpu.sim.render import render_rgbd_flow as j_render_flow
 from evfly_tpu_torch.ops.voxelizer import difflog_events, difflog_margins
 from evfly_tpu_torch.sim import render
 
+from torch_helpers import cuda_device  # noqa: F401  (fixture)
+
 H, W = 40, 52
 CPU = "cpu"
 DEPTH_ATOL, INT_ATOL, EVENT_MARGIN = 3e-5, 5e-6, 1e-5
 
 
-def _views(trees, n=4, seed=0):
+def _views(trees, n=4, seed=0, forest=generate_forest):
     """n (cam_pos (3,), centers (K, 3), radii (K,)) in random forests, one
-    inert pad obstacle each."""
+    inert pad obstacle each; ``forest`` is the JAX package's
+    generate_forest or the port's copy (the same draws: on the GPU machine
+    the JAX package is inert)."""
     rng = np.random.default_rng(seed + (0 if trees else 100))
     out = []
     for _ in range(n):
-        f = generate_forest(rng, num_obstacles=30, trees=trees)
+        f = forest(rng, num_obstacles=30, trees=trees)
         c = np.concatenate([f.positions, [[1e6, 1e6, 1e6]]]).astype(np.float32)
         r = np.concatenate([f.radii, [0.0]]).astype(np.float32)
         pos = np.array([rng.uniform(0, 20), rng.uniform(-3, 3), rng.uniform(1, 3)], np.float32)
@@ -175,3 +179,30 @@ def test_sky_flow_zero():
                                              c, r, H=64, W=86, device=CPU)
     assert (depth[:4] >= 1.0 - 1e-6).all()
     assert flow[:4].abs().max() == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trees", [True, False], ids=["trees", "spheres"])
+def test_render_on_the_card_matches_the_cpu(cuda_device, trees):
+    """One view at 260x346 rendered on the card against the CPU, under the
+    margin rule: away from RENDER_MARGIN depth within 5e-5 (the nearer
+    root's cancellation, which nvcc contracts into an fma), its mean within
+    1e-6, intensity within 5e-6; flow within the JAX bound above."""
+    from evfly_tpu_torch.sim import generate_forest as port_forest
+
+    pos, c, r = _views(trees, n=1, seed=21, forest=port_forest)[0]
+    got = render.render_depth_intensity(pos, c, r, is_trees=trees, device=cuda_device)
+    ref = render.render_depth_intensity(pos, c, r, is_trees=trees, device=CPU)
+    ok = (render.render_margins(pos, c, r, is_trees=trees, device=CPU)
+          >= render.RENDER_MARGIN).numpy()
+    (gd, gi), (rd, ri) = ([t.cpu().numpy() for t in x] for x in (got, ref))
+    dd, di = np.abs(gd - rd)[ok], np.abs(gi - ri)[ok]
+    print(f"card vs CPU: {int((~ok).sum())} of {ok.size} pixels within the margin; away from "
+          f"it max |depth diff| {dd.max():.3g} (mean {dd.mean():.3g}), max |intensity diff| "
+          f"{di.max():.3g}")
+    assert (~ok).sum() < ok.size // 20
+    assert dd.max() <= 5e-5 and dd.mean() <= 1e-6 and di.max() <= INT_ATOL
+    vel, omega = np.array([4.0, 0.5, 0.0], np.float32), np.zeros(3, np.float32)
+    fg = render.render_rgbd_flow(pos, vel, omega, c, r, is_trees=trees, device=cuda_device)[2]
+    fr = render.render_rgbd_flow(pos, vel, omega, c, r, is_trees=trees, device=CPU)[2]
+    np.testing.assert_allclose(fg.cpu().numpy()[ok], fr.numpy()[ok], rtol=1e-4, atol=1e-3)
