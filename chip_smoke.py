@@ -62,6 +62,18 @@ just before it and read just after:
   against the same step on the CPU (loss, terms, every gradient, the
   gradient norm, Adam's update of every parameter element, u and v), and
   a step in TF32 must fail the same bounds;
+- data parallel: ``Learner(cfg).train_loop()`` of the same configuration
+  with ``dp_devices = 1, dp_chunks_per_device = 8`` (G = 8 chunks per Adam
+  step in one forward, ``parallel/``) for 2 epochs: finite losses, the LR
+  schedule at the sequential path's epoch fractions, K4 once per
+  validation chunk and no kernel in a train step; the G = 2 step on the
+  card against the CPU (one chunk partial) under the training bounds;
+  configuration A's G = 4 step (a padded chunk) against the mean of its
+  per-chunk gradients and BatchNorm updates, in f64; the step's ms,
+  frames/s and peak memory at G = 1 to 16 in turns against the per-chunk
+  step, its idle share, s per epoch; and the dry run
+  (``parallel.dryrun_chunked(2)``: two processes sharing the card through
+  gloo against one);
 - the velocity heads: configuration A (evfly_tpu/configs/files/
   eval_sim_Dtheta_vitlstm.txt: ``OrigUNet`` with the velpred-11 head on its
   68x148 decoder output, 768 features) and B (the same D(theta) with
@@ -244,6 +256,8 @@ from evfly_tpu_torch.ops.voxelizer import (
     window_offsets,
 )
 from evfly_tpu_torch.ops.voxelizer import cluster_occupancy as vox_cluster_occupancy
+from evfly_tpu_torch.parallel import dryrun_chunked, make_dp_chunked_train_step
+from evfly_tpu_torch.parallel.mesh import Mesh
 from evfly_tpu_torch.sim import batched as sim_batched
 from evfly_tpu_torch.sim import closed_loop, ppo, quadrotor_env, render, vision_env
 from evfly_tpu_torch.sim.launch_evaluation import run_evaluation
@@ -317,6 +331,14 @@ TRAIN_CONFIG = dict(
     fc_activations=["leaky_relu", "leaky_relu", "leaky_relu", "tanh"], fc_dropout_p=0.1,
 )
 TRAIN_TRAJS, TRAIN_FRAMES, TRAIN_TIMED = 6, 49, 8
+# chunk-level data parallelism: train_loop with dp_chunks_per_device =
+# DP_CHUNKS; the step timed at each G of DP_SWEEP (DP_TIMED synchronized
+# steps after 1, in turns) against the per-chunk step
+DP_CHUNKS, DP_SWEEP, DP_TIMED = 8, (1, 2, 4, 8, 16), 3
+# device memory reserved after the streaming phases and an empty_cache: the
+# G-chunk sweep needs 26 GiB more (an out-of-memory there with 61.7 GiB
+# reserved but unallocated, before the pipelines kept one warm-up stream)
+RESERVED_AFTER_STREAMING_GIB = 16.0
 # the velocity heads, with TRAIN_CONFIG's enc and fc params (those of
 # evfly_tpu/configs/files/eval_sim_Dtheta_vitlstm.txt): configuration A is
 # that file's model, OrigUNet with the velpred-11 head on its 68x148 decoder
@@ -2318,6 +2340,282 @@ def _training(dev, smi, root):
     return launches, numbers
 
 
+# ------------------------------------------------------------ data parallel
+
+def _dp_data(data, dev, dtype):
+    """The resident split on ``dev``, decoded to ``dtype`` unless f32 (the
+    step decodes int8/uint8 itself)."""
+    data = {k: v.to(dev) for k, v in data.items()}
+    if dtype != torch.float32:
+        data = {k: stepfn._decode(v).to(dtype) for k, v in data.items()}
+    return data
+
+
+@contextlib.contextmanager
+def _split_read_as(dtype):
+    """The step's gathers reading a split already decoded to ``dtype`` as
+    it is, where their decode casts to f32: the f64 check's split."""
+    decode = stepfn._decode
+    stepfn._decode = lambda a: a if a.dtype == dtype else decode(a)
+    try:
+        yield
+    finally:
+        stepfn._decode = decode
+
+
+def _dp_step_once(d, data, idxs, make_model=_joint_from_policy_best, kind="joint_vitlstm",
+                  dtype=torch.float32):
+    """One chunk-DP step (``make_dp_chunked_train_step``, no augmentation,
+    no dropout) of ``make_model(d)`` in ``dtype`` on the chunks ``idxs`` of
+    the resident split: as ``_train_step_once`` (its gradients the mean
+    over the real chunks), with n_real."""
+    model = make_model(d).to(dtype)
+    before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=TRAIN_CONFIG["lr"], betas=(0.9, 0.999),
+                           eps=1e-8)
+    step = make_dp_chunked_train_step(model, kind, opt, Mesh(1, 0, d), TRAIN_CONFIG["batch_size"],
+                                      2, 1, TRAIN_CONFIG["loss_weights"],
+                                      TRAIN_CONFIG["optional_loss_param"])
+    with _split_read_as(dtype):
+        loss, values, gn, n_real = step(_dp_data(data, d, dtype), idxs, None)
+    return dict(loss=loss.item(), values=values.cpu(), gn=gn.item(), n_real=n_real.item(),
+                before=before,
+                grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                after={k: v.detach().cpu() for k, v in model.state_dict().items()})
+
+
+def _chunk_mean(d, data, idxs, make_model, kind, dtype):
+    """The mean over the real chunks of ``idxs`` of each chunk's own
+    gradient (after one power iteration, each from the same state) and
+    BatchNorm update: {'grads', 'bn'}."""
+    B = TRAIN_CONFIG["batch_size"]
+    slicer = stepfn.make_batch_slicer(B, 2, 1)
+    data = _dp_data(data, d, dtype)
+    grads, bn, n = {}, {}, 0
+    for g in range(len(idxs["n_valid"])):
+        if idxs["n_valid"][g] == 0:
+            continue
+        model = make_model(d).to(dtype).train()
+        stepfn.spectral_update_(model)
+        forward = stepfn.make_forward_loss(model, kind, TRAIN_CONFIG["loss_weights"],
+                                           TRAIN_CONFIG["optional_loss_param"])
+        with _split_read_as(dtype):
+            batch = slicer(data, {k: int(v[g]) for k, v in idxs.items()})
+        loss = forward(batch, None)[0]
+        loss.backward()
+        for name, p in model.named_parameters():
+            gr = (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+            grads[name] = grads.get(name, 0) + gr
+        for k, v in model.state_dict().items():
+            if k.endswith(("running_mean", "running_var")):
+                bn[k] = bn.get(k, 0) + v.detach().cpu()
+        n += 1
+    return {"grads": {k: v / n for k, v in grads.items()}, "bn": {k: v / n for k, v in bn.items()}}
+
+
+def phase_data_parallel(dev, smi, seq_numbers):
+    """Chunk-level data parallelism on the card: the joint configuration of
+    tools/train_policy.py from policy_best.pth with ``dp_devices = 1,
+    dp_chunks_per_device = DP_CHUNKS`` through ``Learner.train_loop()``,
+    the G-chunk step against the CPU and against the per-chunk mean, the
+    step's numbers over G, the dry run.  Data and workspace under build/,
+    removed after."""
+    root = os.path.join(REPO, "build", f"dp_smoke_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        return _data_parallel(dev, smi, root, seq_numbers)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _data_parallel(dev, smi, root, seq_numbers):
+    datadir = os.path.join(root, "data", "datasets")
+    cfg = EvflyConfig(basedir=root, logdir="logs", datadir=datadir, dataset=["synthetic"],
+                      **{**TRAIN_CONFIG, "dp_devices": 1, "dp_chunks_per_device": DP_CHUNKS})
+    cache_dataset(os.path.join(datadir, "synthetic"), synthetic_trajectories(),
+                  logger=lambda m: None, **dataloader_kwargs(cfg))
+    learner = Learner(cfg)
+    require(learner.device.type == "cuda", "the DP Learner did not take the card by default")
+    B, S = cfg.batch_size, learner.num_training_steps
+
+    # (c) train_loop: 2 epochs of G = DP_CHUNKS chunks per Adam step
+    calls, epochs, losses = [], [], []
+    sched, dp_epoch, log_line = learner.lr_scheduler, learner._dp_train_epoch, learner.mylogger
+    learner.lr_scheduler = lambda it: (calls.append(it), sched(it))[1]
+
+    def recorded_epoch(*args, **kwargs):
+        before = _launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = dp_epoch(*args, **kwargs)
+        torch.cuda.synchronize()
+        epochs.append((time.perf_counter() - t,
+                       {k: n - before[k] for k, n in _launches().items()}))
+        return out
+
+    def logged(msg):
+        log_line(msg)
+        if "ep_loss = " in msg or msg.startswith("[VAL] Validated"):
+            losses.append(msg)
+
+    learner._dp_train_epoch, learner.mylogger = recorded_epoch, logged
+    records = []
+    _recording_run_model(learner, records)
+    _zero_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    learner.train_loop()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = _launches()
+    loop_peak = torch.cuda.max_memory_allocated() - base
+    learner._dp_train_epoch, learner.lr_scheduler = dp_epoch, sched
+    n_chunks = sum(-(-(int(n) - 1) // B) for n in learner.train.trajlength)
+    val_chunks = sum(-(-r["frames"] // B) for r in records)
+    ep_loss = [float(m.split("ep_loss = ")[1].split(",")[0]) for m in losses if "ep_loss" in m]
+    log(f"DP train_loop (G = {DP_CHUNKS}): {S} train trajectories, {n_chunks} chunks an epoch "
+        f"in {-(-n_chunks // DP_CHUNKS)} steps, {len(records)} validations ({val_chunks} "
+        f"chunks) in {loop_s:.1f}s; epochs {[round(t, 3) for t, _ in epochs]} s; LR schedule "
+        f"calls {calls}; launches over train_loop {launches}; per DP epoch "
+        f"{[{k: n for k, n in e.items() if n} for _, e in epochs]}; {losses}")
+    require(len(epochs) == cfg.N_eps and len(ep_loss) == cfg.N_eps
+            and all(np.isfinite(ep_loss)), "the DP epochs' losses")
+    require(all(np.isfinite(r["loss"]) for r in records), "a DP validation loss is not finite")
+    require(calls[0] == 0 and S in calls and calls[-1] == 2 * S
+            and all(b >= a for a, b in zip(calls, calls[1:])),
+            "the LR schedule did not land at the epoch fractions")
+    require(all(n == 0 for _, e in epochs for n in e.values()),
+            "a kernel launched in a DP train step")
+    require(launches == {**{name: 0 for name in KERNELS}, "K4 cluster": val_chunks},
+            "DP train_loop: not K4 (cluster) once per validation chunk and nothing else")
+
+    data, ev_offsets = learner._get_device_data("train", B)
+    starts = [int(s) + 1 for s in learner.train.traj_starts]
+    ev0 = [int(o) for o in ev_offsets]
+
+    # (a) the G = 2 step on the card against the CPU, one chunk partial
+    idxs2 = {"start": [starts[0], starts[1] + B], "ev_start": [ev0[0], ev0[1] + B],
+             "n_valid": [B, B - 5]}
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    ref = _dp_step_once(cpu, data, idxs2)
+    errs = _step_errors(_dp_step_once(dev, data, idxs2), ref)
+    checked = ("loss", "terms", "gradnorm", "grads", "update", "uv")
+    show = lambda e, keys: ", ".join(f"{k} {e[k]:.3e}" for k in keys) + (
+        f"; worst gradient leaves {e['worst_grads']}")
+    log(f"G = 2 chunk-DP step (one chunk of {B - 5} frames), card against CPU "
+        f"({time.perf_counter() - t0:.1f}s; CPU loss {ref['loss']:.6f}, n_real "
+        f"{ref['n_real']}), each reading over its training bound: {show(errs, checked)}")
+    require(max(errs[k] for k in checked) <= 1,
+            "the G-chunk step on the card disagrees with the CPU's")
+
+    # (b) G = 4 with a padded chunk against the mean of the per-chunk
+    # gradients and BatchNorm updates: configuration A's BatchNorm head, f64
+    cfg_a = heads_config(**CONFIG_A)
+    model_a = lambda d: heads_model(d, cfg_a)
+    idxs4 = {"start": [starts[0], starts[1], starts[2] + B, starts[0]],
+             "ev_start": [ev0[0], ev0[1], ev0[2] + B, ev0[0]], "n_valid": [B, B - 3, B, 0]}
+    readings = {}
+    for dtype in (torch.float64, torch.float32):
+        t0 = time.perf_counter()
+        got = _dp_step_once(dev, data, idxs4, model_a, "origunet", dtype)
+        want = _chunk_mean(dev, data, idxs4, model_a, "origunet", dtype)
+        grad = max(((got["grads"][k] - g).abs().max() / (TRAIN_GRAD_TOL * g.abs().max())).item()
+                   for k, g in want["grads"].items() if g.abs().max() > 0)
+        bn = max(((got["after"][k] - v).abs() / (TRAIN_BN_ATOL + TRAIN_BN_RTOL * v.abs()))
+                 .max().item() for k, v in want["bn"].items())
+        counts = {k: int(v) - int(got["before"][k]) for k, v in got["after"].items()
+                  if k.endswith("num_batches_tracked")}
+        readings[str(dtype)] = dict(grads=grad, bn=bn, n_real=got["n_real"], counters=counts,
+                                    seconds=time.perf_counter() - t0)
+    log(f"G = 4 chunk-DP step of configuration A (chunks of {B}, {B - 3}, {B}, 0 valid frames) "
+        f"on the card against the mean of its per-chunk steps, gradients over TRAIN_GRAD_TOL x "
+        f"the leaf's largest and BatchNorm running stats over TRAIN_BN_ATOL + TRAIN_BN_RTOL |x|: "
+        f"{readings}")
+    f64 = readings[str(torch.float64)]
+    require(f64["n_real"] == 3 and len(f64["counters"]) == 2
+            and all(n == 1 for n in f64["counters"].values()),
+            "configuration A's G-chunk step: n_real or the BatchNorm counters")
+    require(f64["grads"] <= 1 and f64["bn"] <= 1,
+            "the G-chunk step is not the mean of its chunks' gradients and BatchNorm updates")
+
+    # (d) ms per step at each G in turns, against the per-chunk step
+    gen = learner._generator
+    dp_step = learner._get_dp_step(B)
+    seq_step = learner._get_step("train", indexed=True, B=B)
+    pool = [(s + c * B, o + c * B) for s, o in zip(starts, ev0) for c in range(3)]
+
+    def idxs_of(G):
+        picks = [pool[i % len(pool)] for i in range(G)]
+        return {"start": [p[0] for p in picks], "ev_start": [p[1] for p in picks],
+                "n_valid": [B] * G}
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    peaks, times = {}, {}
+
+    def timed(G):
+        if G == "per-chunk":
+            fn = lambda: seq_step(data, {"start": pool[0][0], "ev_start": pool[0][1],
+                                         "n_valid": B}, gen)
+        else:
+            idxs = idxs_of(G)
+            fn = lambda: dp_step(data, idxs, gen)
+        _free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        ts = []
+        for _ in range(DP_TIMED):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t)
+        peaks[G] = max(peaks.get(G, 0.0), torch.cuda.max_memory_allocated() / 2**30)
+        times.setdefault(G, []).append(statistics.median(ts) * 1e3)
+
+    swept = []
+    for G in DP_SWEEP:
+        # a larger G only while twice the last peak fits the card
+        if swept and 2 * peaks[swept[-1]] * 2**30 > 0.9 * total:
+            log(f"G = {G} left out: G = {swept[-1]} peaked at {peaks[swept[-1]]:.2f} GiB")
+            break
+        timed(G)
+        swept.append(G)
+    for G in ["per-chunk"] + swept[::-1] + ["per-chunk"]:
+        timed(G)
+    profiles = {}
+    for G in ["per-chunk", DP_CHUNKS, swept[-1]]:
+        idxs = idxs_of(1 if G == "per-chunk" else G)
+        fn = ((lambda: seq_step(data, {k: v[0] for k, v in idxs.items()}, gen))
+              if G == "per-chunk" else (lambda: dp_step(data, idxs, gen)))
+        prof = phase_profile(fn, {}, f"train step ({G if G == 'per-chunk' else f'G = {G}'})",
+                             grad=True)
+        profiles[str(G)] = None if prof is None else dict(
+            idle_share=prof["idle_share"], kernels_per_step=prof["kernels"] / 3,
+            busy_ms_per_step=prof["busy_ms"] / 3)
+    frames = lambda G: B * (1 if G == "per-chunk" else G)
+    sweep = {str(G): dict(ms=[round(t, 2) for t in ts],
+                          frames_per_s=[round(frames(G) / t * 1e3, 1) for t in ts],
+                          peak_gib=round(peaks[G], 3)) for G, ts in times.items()}
+    dp_epoch_s = [t for t, _ in epochs]
+    numbers = dict(sweep=sweep, profiles=profiles, dp_train_seconds_per_epoch=dp_epoch_s,
+                   dp_seconds_per_epoch=loop_s / cfg.N_eps,
+                   seq_seconds_per_epoch=seq_numbers["seconds_per_epoch"],
+                   dp_train_loop_peak_gib=loop_peak / 2**30)
+    log(f"chunk-DP numbers (card: {smi}; {B}-frame chunks at {H}x{W}, full f32, medians of "
+        f"{DP_TIMED} synchronized steps after 1, in turns per-chunk, G ascending, G "
+        f"descending, per-chunk): {numbers}")
+    del learner, dp_step, seq_step, data
+    _free_device_memory()
+
+    # (e) the dry run: two processes sharing the card (gloo) against one
+    dry = dryrun_chunked(2, device=dev)
+    return launches, numbers, dry
+
+
 # ------------------------------------------------------------ velocity heads
 
 def heads_config(root=None, **keys) -> EvflyConfig:
@@ -3766,7 +4064,19 @@ def main() -> int:
         phase_profile(lambda: bpipe.step_frames(bframes), {"K4": "lstm_cluster_kernel"},
                       f"batched G={STREAMS}")
     with Phase("training: Learner.train_loop, joint model at full width"):
+        # what the streaming phases' graph captures leave reserved: a cuBLAS
+        # workspace on each stream a warm-up ran on pins a cached segment
+        _free_device_memory()
+        reserved = torch.cuda.memory_reserved() / 2**30
+        log(f"reserved after the streaming phases: {reserved:.3f} GiB (allocated "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB)")
+        require(reserved <= RESERVED_AFTER_STREAMING_GIB,
+                f"the streaming phases left {reserved:.1f} GiB reserved")
         train_launches, train_numbers = phase_training(dev, smi)
+    _free_device_memory()
+    with Phase(f"data parallel: Learner.train_loop with dp_chunks_per_device = {DP_CHUNKS}, "
+               f"the G-chunk step, G = {DP_SWEEP}, the dry run"):
+        dp_launches, dp_numbers, dp_dry = phase_data_parallel(dev, smi, train_numbers)
     with Phase("velocity heads: configurations A and B at full width"):
         (head_errs, head_times, head_stream, head_train, head_val,
          head_numbers) = phase_velocity_heads(dev, flush, smi)
@@ -3818,6 +4128,7 @@ def main() -> int:
         launches over the training phase's train_loop."""
         return dict(name=name, route="cuda", source=source, replaces=replaces, launches=n,
                     training_launches=train_launches[key],
+                    dp_train_loop_launches=dp_launches[key],
                     closed_loop_launches=closed["launches"][key], **driver_launches(key),
                     **times)
 
@@ -3877,7 +4188,7 @@ def main() -> int:
                 route="cuda", source=lstm_src,
                 replaces="evfly_tpu/ops/lstm_pallas.py:" + ("111" if mode == "stacked" else "203"),
                 launches=head_stream[run][label], batched_launches=head_stream["batched"][label],
-                training_launches=head_train[label],
+                training_launches=head_train[label], dp_train_loop_launches=dp_launches[label],
                 closed_loop_launches=closed["launches"][label], **driver_launches(label),
                 validation_launches=head_val if (mode, route) == ("stacked", "grid") else 0,
                 max_abs_err=head_errs[(mode, route)], ms=t[route], plain_ms=t[f"plain_{route}"],
@@ -3897,6 +4208,7 @@ def main() -> int:
             route="cuda", source=vox, replaces="evfly_tpu/ops/voxelizer.py:153",
             launches=dataset_launches[route],
             training_launches=train_launches[f"K1 windows {route}"],
+            dp_train_loop_launches=dp_launches[f"K1 windows {route}"],
             closed_loop_launches=closed["launches"][f"K1 windows {route}"],
             **driver_launches(f"K1 windows {route}"), **k1w[route]))
     closed_numbers = {k: v for k, v in closed.items() if k != "launches"}
@@ -3917,7 +4229,8 @@ def main() -> int:
         + f"; driver data {({k: v for k, v in driver_data.items() if k != 'launches'})}"
         + f"; driver RL {driver_rl}; driver HIL "
         f"{({k: v for k, v in driver_hil.items() if k != 'launches'})}; reports {reports}"
-        + f"; training {train_numbers}; velocity heads {head_numbers}, head LSTM ms (grid / "
+        + f"; training {train_numbers}; data parallel {dp_numbers}, dry run {dp_dry}"
+        + f"; velocity heads {head_numbers}, head LSTM ms (grid / "
         f"L2 / cuDNN) " + ", ".join(f"{m} G={G} T={T_} {t['grid']:.4f} / {t['l2']:.4f} / "
                                     f"{t['library_ms']:.4f}"
                                     for (m, G, T_), t in head_times.items()))

@@ -90,8 +90,9 @@ _SPEC = {
     "eval_tools_freq": (int, False, 0),
     "eval_tools_on_best": (bool, False, False),
     "print_trainprogress_freq": (int, False, 1),
-    # the JAX package's data parallelism: dp_devices > 0 raises in the
-    # port until parallel/ is ported as DDP (ROADMAP §1)
+    # chunk-level data parallelism (parallel/): dp_devices > 0 trains
+    # dp_devices x dp_chunks_per_device chunks per Adam step, one process
+    # per card (dp_devices > 1 under torchrun)
     "dp_devices": (int, False, 0),
     "dp_chunks_per_device": (int, False, 1),
     # the JAX package's dispatch layouts of one epoch (a trajectory or the

@@ -12,7 +12,7 @@ on every device.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -203,21 +203,47 @@ class BatchNorm2d(ParamLeaf):
     normalizes with the batch statistics, over the frames where ``mask``
     is 1 when one is given, and writes the new running stats and the
     counter + 1 into the buffers outside autograd: the JAX package's
-    ``updates``, merged into the params after the optimizer step."""
+    ``updates``, merged into the params after the optimizer step.
+
+    A (G, N) mask marks G chunks of N frames (the JAX package's vmap over
+    chunks): each chunk is normalized with its own statistics, and the
+    buffers stay as they were.  The forward leaves on ``chunk_update``
+    (sum over the chunks with a valid frame of each chunk's running-mean
+    update from the old stats, the same of its running-var update, their
+    count) for the caller, which may add them up across processes before
+    ``apply_chunk_update`` (``parallel.make_dp_chunked_train_step``)."""
 
     def __init__(self, num_features: int, device):
         super().__init__(init_batchnorm2d(num_features), device,
                          ("running_mean", "running_var", "num_batches_tracked"))
+        self.chunk_update: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
 
     def forward(self, x, mask: Optional[torch.Tensor] = None):
         out, mean, var = imageops.batch_norm2d(x, self.weight, self.bias, self.running_mean,
                                                self.running_var, self.training, mask=mask)
         if self.training:
             with torch.no_grad():
-                self.running_mean.copy_(mean)
-                self.running_var.copy_(var)
-                self.num_batches_tracked.add_(1)
+                if mask is not None and mask.dim() == 2:
+                    real = (mask.sum(1) > 0).to(mean.dtype)[:, None]
+                    self.chunk_update = ((mean * real).sum(0), (var * real).sum(0), real.sum())
+                else:
+                    self.running_mean.copy_(mean)
+                    self.running_var.copy_(var)
+                    self.num_batches_tracked.add_(1)
         return out
+
+    def apply_chunk_update(self, mean_sum: torch.Tensor, var_sum: torch.Tensor,
+                           n_real: torch.Tensor) -> None:
+        """Running stats = the sums of the valid chunks' updates over their
+        count ``n_real``, the counter + 1 (JAX's average of its int counter
+        is an f32 old + 1; here it stays int64 with that value); nothing
+        where ``n_real`` is 0.  No host synchronization."""
+        with torch.no_grad():
+            some = n_real > 0
+            n = torch.clamp(n_real, min=1.0)
+            self.running_mean.copy_(torch.where(some, mean_sum / n, self.running_mean))
+            self.running_var.copy_(torch.where(some, var_sum / n, self.running_var))
+            self.num_batches_tracked.add_(some.to(self.num_batches_tracked.dtype))
 
 
 class LayerNorm(ParamLeaf):

@@ -112,7 +112,8 @@ class ConvNet_w_VelPred(nn.Module):
         axis, or (G, N, C, H, W), G streams; hidden (h, c) or None for
         zeros; desvel is not read.  ``generator`` draws the dropout in
         training; ``frame_mask`` (N,) marks the valid frames of a padded
-        chunk for the BatchNorm statistics.
+        chunk for the BatchNorm statistics, (G, N) with G streams: each
+        chunk's statistics its own.
 
         Returns (velocity (..., 3), the LSTM's (h, c) or None)."""
         lead = x.shape[:-3]

@@ -90,7 +90,8 @@ class DynamicConvNet(nn.Module):
     def forward(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor] = None):
         """x (N, C, H, W) -> (N, C', H', W').  ``frame_mask`` (N,) marks the
         valid frames of a padded chunk for the BatchNorms' statistics in
-        training."""
+        training; (G, N) for G chunks of N frames in chunk order, each with
+        its own statistics."""
         for i in range(self.num_layers):
             x = self.layers[f"{self.conv_function}_{i}"](x)
             x = self.layers[f"batchnorm_{i}"](x, frame_mask)

@@ -203,7 +203,8 @@ class OrigUNet(nn.Module):
         streams of N frames, their batch axis G.  hidden: (h_unet,
         h_velpred) or None.  ``generator`` draws the head's dropout in
         training (none without one); ``frame_mask`` (N,) marks the valid
-        frames of a padded chunk for the head's BatchNorm statistics.
+        frames of a padded chunk for the head's BatchNorm statistics, (G, N)
+        with x (G, N, 1, H, W): each chunk's statistics its own.
 
         Returns (y_vel, (y_interp, y_upconv, (h_unet, h_velpred))) with the
         leading axes of x: y_vel the head's velocity, or the constant

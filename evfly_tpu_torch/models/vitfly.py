@@ -141,7 +141,9 @@ class _ZooModel(nn.Module):
     """The common signature of the zoo's other models: as
     ``LSTMNetVIT.forward``, with ``frame_mask`` (N,) marking the valid
     frames of a padded chunk for the BatchNorms in training (their
-    statistics and running-stat updates cover those frames only)."""
+    statistics and running-stat updates cover those frames only); with a
+    leading chunk axis, img (G, N, 1, H, W) and ``frame_mask`` (G, N), each
+    chunk's BatchNorm statistics are its own (``common.BatchNorm2d``)."""
 
     def load_params(self, params: Params):
         """Load a state_dict (a checkpoint, or ``port.from_jax_params``);
@@ -162,7 +164,7 @@ class _ZooModel(nn.Module):
         """Returns (velocity (..., 3), (h, c) or None)."""
         lead, img, desvel, quat = _flatten(img, desvel, quat)
         if frame_mask is not None:
-            frame_mask = frame_mask.reshape(-1)
+            frame_mask = frame_mask.reshape(lead)
         return self._body(lead, img, desvel, quat, hidden, generator, frame_mask)
 
 

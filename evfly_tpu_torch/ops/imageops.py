@@ -211,7 +211,17 @@ def batch_norm2d(
     taken over those frames only, so a padded chunk normalizes and updates
     the running stats as its valid frames alone would.  Eval mode normalizes
     with the running stats and returns them unchanged.
+
+    A mask of shape (G, N) means G chunks of N frames, x (G N, C, H, W) in
+    chunk order (the JAX package's ``vmap`` over chunks): each chunk is
+    normalized with its own masked statistics, and the new running stats
+    are each chunk's own update from the same old stats, (G, C) each, with
+    its own count and unbiased correction (``BatchNorm2d`` averages them
+    over the chunks that have a valid frame).
     """
+    if training and mask is not None and mask.dim() == 2:
+        return _batch_norm2d_chunks(x, weight, bias, running_mean, running_var, momentum, eps,
+                                    mask)
     if training:
         if mask is not None:
             m = mask.reshape(-1, 1, 1, 1).to(x.dtype)
@@ -233,6 +243,27 @@ def batch_norm2d(
     out = ((x - mean.reshape(1, -1, 1, 1)) * inv * weight.reshape(1, -1, 1, 1)
            + bias.reshape(1, -1, 1, 1))
     return out, new_mean, new_var
+
+
+def _batch_norm2d_chunks(x, weight, bias, running_mean, running_var, momentum, eps, mask):
+    """``batch_norm2d`` in training with a (G, N) mask: per-chunk masked
+    statistics; the running stats' updates (G, C) each.  A chunk with no
+    valid frame counts 1 element (no NaN); its update is left out by the
+    caller."""
+    G, N = mask.shape
+    C, h, w = x.shape[1:]
+    xg = x.reshape(G, N, C, h, w)
+    m = mask.to(x.dtype).reshape(G, N, 1, 1, 1)
+    count = torch.clamp(mask.to(x.dtype).sum(1) * (h * w), min=1.0)[:, None]  # (G, 1)
+    mean = (xg * m).sum(dim=(1, 3, 4)) / count                                # (G, C)
+    centered = xg - mean.reshape(G, 1, C, 1, 1)
+    var = (centered.square() * m).sum(dim=(1, 3, 4)) / count
+    unbiased = var * (count / torch.clamp(count - 1.0, min=1.0))
+    new_mean = (1 - momentum) * running_mean + momentum * mean
+    new_var = (1 - momentum) * running_var + momentum * unbiased
+    inv = torch.rsqrt(var + eps).reshape(G, 1, C, 1, 1)
+    out = centered * inv * weight.reshape(1, 1, C, 1, 1) + bias.reshape(1, 1, C, 1, 1)
+    return out.reshape(x.shape), new_mean, new_var
 
 
 def dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:

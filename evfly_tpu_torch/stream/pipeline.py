@@ -163,6 +163,19 @@ def _step_body(model, hidden, input_hw, quantile_scale: bool, fast_percentile: b
     return body
 
 
+# the side stream of every capture's warm-up, one per device: cuBLAS keeps
+# a workspace (32 MiB on Hopper) for each stream it has run on, and each
+# can pin a cached segment of up to 2 GiB that empty_cache cannot return
+_WARMUP_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _warmup_stream(device: torch.device) -> "torch.cuda.Stream":
+    stream = _WARMUP_STREAMS.get(device)
+    if stream is None:
+        stream = _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
 class _Steps:
     """A pipeline's steps: one ``_Slot`` for each ``GraphKey``, run eagerly
     or, with ``graph``, as replays of the slot's CUDA graph.  ``state``
@@ -194,7 +207,7 @@ class _Steps:
         that fails raises; there is no fallback to the eager step."""
         saved = [t.clone() for t in self.state]
         current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        side = _warmup_stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):

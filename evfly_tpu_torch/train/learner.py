@@ -16,7 +16,13 @@ else bf16; the host's f32 frames above ``DEVICE_DATA_MAX_BYTES``), padded
 to a fixed size with a validity mask.  The JAX package's ``traj_scan``,
 ``epoch_scan`` and ``scan_group`` choose how that loop is dispatched on a
 TPU and compute the same thing; they are accepted and change nothing here.
-``dp_devices > 0`` raises until ``parallel/`` is ported.
+``dp_devices > 0`` trains by chunk-level data parallelism instead
+(``_dp_train_epoch``, ``parallel/``): G = ``dp_devices`` x
+``dp_chunks_per_device`` chunks per Adam step, on the device-resident
+split.  ``dp_devices = 1`` is one process (G chunks in one forward on the
+card); more needs a process group of that many processes, one per card
+(``torchrun --nproc_per_node``), each writing its own workspace (rank r > 0
+with the suffix ``_rank{r}``).
 
 The Learner runs on the card unless the config says ``device = cpu`` or the
 caller passes ``device="cpu"``.  Shuffling uses numpy's global RNG as the
@@ -82,6 +88,15 @@ def dataloader_kwargs(c: EvflyConfig, train_val_dirs=None) -> dict:
         rescale_evs=c.rescale_evs,
         evs_min_cutoff=c.evs_min_cutoff,
     )
+
+
+def _rank_suffix() -> str:
+    """``_rank{r}`` for rank r > 0 of a process group, so that the ranks of
+    a data-parallel run each write a workspace of their own."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized() and dist.get_rank() > 0:
+        return f"_rank{dist.get_rank()}"
+    return ""
 
 
 def _seed_of(c: EvflyConfig) -> int:
@@ -152,7 +167,7 @@ class Learner:
 
         # ---------------- workspace ----------------
         expname = datetime.now().strftime("d%m_%d_t%H_%M")
-        base_ws = opj(c.basedir, c.logdir, expname) + c.ws_suffix
+        base_ws = opj(c.basedir, c.logdir, expname) + c.ws_suffix + _rank_suffix()
         ws = base_ws
         ctr = 2
         while os.path.exists(ws):
@@ -620,15 +635,113 @@ class Learner:
         split = self.train if mode == "train" else self.val
         return int(max(split.trajlength)) if len(split.trajlength) else 1
 
+    # ------------------------------------------------------- DP train epoch
+
+    def _get_dp_step(self, B: int):
+        from ..parallel.data_parallel import make_dp_chunked_train_step
+        from ..parallel.mesh import make_mesh
+
+        key = ("dp", B)
+        if key in self._step_cache:
+            return self._step_cache[key]
+        if getattr(self, "_dp_mesh", None) is None:
+            self._dp_mesh = make_mesh(self.cfg.dp_devices, self.device)
+        step = make_dp_chunked_train_step(
+            self.model, self._kind(), self.optimizer, self._dp_mesh, B,
+            num_in_channels=self.cfg.num_in_channels,
+            num_out_channels=self.cfg.num_out_channels,
+            loss_weights=self.loss_weights,
+            optional_loss_param=self.optional_loss_param,
+            data_augmentation=self.cfg.data_augmentation != 0.0,
+            input_frame_scale=self.cfg.input_frame_scale,
+        )
+        self._step_cache[key] = step
+        return step
+
+    def _dp_train_epoch(self, shuffled, traj_starts, traj_lengths, B: int):
+        """One epoch of chunk-level data-parallel training, as the JAX
+        Learner's (``evfly_tpu/train/learner.py:851-933``; the reference
+        trains on one GPU) -> (ep_loss, ep_terms, gradnorm): the mean over
+        trajectories of their chunk-loss sums, as the sequential path's.
+
+        The epoch's chunks in the shuffled trajectory order, padded to a
+        multiple of G with n_valid 0 copies of chunk 0; one Adam step per G
+        chunks on their gradient averaged over the real chunks, where the
+        reference steps per chunk (``tools/dp_quality`` measures what that
+        does to training).  The LR schedule counts trajectories, so a
+        fractional counter ``it_float`` advances n_real x
+        (num_training_steps / n_chunks) per step: warm-up and decay land at
+        the sequential path's epoch fractions; int(it_float) sets each
+        step's LR.  The step's sums stay on the device until the epoch
+        ends (n_real is known on the host)."""
+        from ..parallel.mesh import replicate_params
+
+        c = self.cfg
+        dd = self._get_device_data("train", B)
+        if dd is None:
+            raise RuntimeError(
+                "data-parallel training needs the split resident on the device; this one is "
+                f"above DEVICE_DATA_MAX_BYTES ({self.DEVICE_DATA_MAX_BYTES} bytes)")
+        device_data, ev_offsets = dd
+        step = self._get_dp_step(B)
+        mesh = self._dp_mesh
+        replicate_params(self.model, mesh)
+        replicate_params(self.optimizer, mesh)
+
+        starts, ev_starts, n_valids = [], [], []
+        for it in range(self.num_training_steps):
+            ids = np.arange(traj_starts[it] + 1, traj_starts[it] + traj_lengths[it])
+            for i in range(0, len(ids), B):
+                chunk = ids[i : i + B]
+                starts.append(int(chunk[0]))
+                ev_starts.append(int(ev_offsets[shuffled[it]] + (chunk[0] - 1 - traj_starts[it])))
+                n_valids.append(len(chunk))
+        n_chunks = len(starts)
+        G = max(c.dp_devices, 1) * max(c.dp_chunks_per_device, 1)
+        pad = (-n_chunks) % G
+        starts += [starts[0]] * pad
+        ev_starts += [ev_starts[0]] * pad
+        n_valids += [0] * pad
+        # every rank takes rank 0's chunk order (its shuffle)
+        order = mesh.broadcast_(torch.tensor([starts, ev_starts, n_valids], dtype=torch.int64,
+                                             device=mesh.device)).cpu().numpy()
+
+        losses, values, gradnorms = [], [], []
+        n_steps = len(starts) // G
+        it_scale = self.num_training_steps / max(n_chunks, 1)
+        it_float = float(self.total_its)
+        for s in range(n_steps):
+            sl = slice(s * G, (s + 1) * G)
+            new_lr = self.lr_scheduler(int(it_float))
+            for group in self.optimizer.param_groups:
+                group["lr"] = new_lr
+            idxs = {"start": order[0, sl], "ev_start": order[1, sl], "n_valid": order[2, sl]}
+            loss_sum, values_sum, gn, _ = step(device_data, idxs, self._generator)
+            losses.append(loss_sum)
+            values.append(values_sum)
+            gradnorms.append(gn)
+            it_float += max(int((order[2, sl] > 0).sum()), 1) * it_scale
+        self._last_lr = self.lr_scheduler(int(it_float))
+        ep_loss_sum = 0.0
+        for v in torch.stack(losses).cpu().numpy().astype(np.float64):
+            ep_loss_sum += float(v)
+        ep_values_sum = None
+        for v in torch.stack(values).cpu().numpy():
+            ep_values_sum = v if ep_values_sum is None else ep_values_sum + v
+        gradnorm = float(sum(float(g) for g in torch.stack(gradnorms).cpu().numpy()))
+        assert not math.isnan(ep_loss_sum), "[DP] Loss is NaN"
+        return (
+            ep_loss_sum / self.num_training_steps,
+            ep_values_sum / self.num_training_steps,
+            gradnorm / max(n_steps, 1),
+        )
+
     # ------------------------------------------------------------ train loop
 
     def train_loop(self):
-        """Reference ``Learner.train`` (learner.py:670-749)."""
+        """Reference ``Learner.train`` (learner.py:670-749); with
+        ``dp_devices > 0`` each epoch is ``_dp_train_epoch``."""
         c = self.cfg
-        if c.dp_devices > 0:
-            raise NotImplementedError(
-                f"dp_devices = {c.dp_devices}: data-parallel training is not ported yet "
-                "(ROADMAP §1 item 5, parallel/ as DDP)")
         self.mylogger(f"[TRAIN] Training for {self.N_eps} epochs")
         train_start = time.time()
         traj_starts_base = self.train.traj_starts
@@ -651,25 +764,31 @@ class Learner:
             traj_starts = traj_starts_base[shuffled]
             traj_lengths = self.train.trajlength[shuffled]
 
-            for it in range(self.num_training_steps):
-                # total_its starts from the checkpoint's epoch, so a resumed
-                # run continues the warm-up and decay (learner.py:718-720)
-                new_lr = self.lr_scheduler(self.total_its)
-                for group in self.optimizer.param_groups:
-                    group["lr"] = new_lr
-                (loss, loss_terms), _ = self.run_model(
-                    it, traj_starts, traj_lengths, shuffled, "train",
-                    batch_size=self.batch_size,
-                )
-                gradnorm += getattr(self, "_last_gradnorm", 0.0)
-                ep_loss += loss
-                ep_loss_terms.append(loss_terms)
-                self.total_its += 1
-            self._last_lr = new_lr
+            if c.dp_devices > 0:
+                ep_loss, ep_loss_terms, gradnorm = self._dp_train_epoch(
+                    shuffled, traj_starts, traj_lengths, B=self._chunk_B("train"))
+                self.total_its += self.num_training_steps
+                new_lr = self._last_lr
+            else:
+                for it in range(self.num_training_steps):
+                    # total_its starts from the checkpoint's epoch, so a resumed
+                    # run continues the warm-up and decay (learner.py:718-720)
+                    new_lr = self.lr_scheduler(self.total_its)
+                    for group in self.optimizer.param_groups:
+                        group["lr"] = new_lr
+                    (loss, loss_terms), _ = self.run_model(
+                        it, traj_starts, traj_lengths, shuffled, "train",
+                        batch_size=self.batch_size,
+                    )
+                    gradnorm += getattr(self, "_last_gradnorm", 0.0)
+                    ep_loss += loss
+                    ep_loss_terms.append(loss_terms)
+                    self.total_its += 1
+                self._last_lr = new_lr
 
-            ep_loss /= self.num_training_steps
-            gradnorm /= self.num_training_steps
-            ep_loss_terms = np.mean(ep_loss_terms, axis=0)
+                ep_loss /= self.num_training_steps
+                gradnorm /= self.num_training_steps
+                ep_loss_terms = np.mean(ep_loss_terms, axis=0)
 
             if ep % c.print_trainprogress_freq == 0:
                 terms = ", ".join(f"{t:.3f}" for t in ep_loss_terms)

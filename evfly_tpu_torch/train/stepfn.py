@@ -23,6 +23,11 @@ drawn from the step's generator; an eval step runs in eval mode under
 ``torch.no_grad``, so on the card the LSTM is one launch of kernel K4 (or
 K5) over the chunk as its time axis.  Both run at the precision of
 ``evfly_tpu_torch.set_precision``.
+
+``make_chunk_gather`` and ``make_chunked_forward_loss`` are the G-chunk
+forms that chunk-level data parallelism (``parallel/``) runs: G chunks
+gathered at once and forwarded as the models' stream axis, a loss per
+chunk.
 """
 
 from __future__ import annotations
@@ -41,8 +46,8 @@ Batch = Dict[str, torch.Tensor]
 
 
 def _zero_z(vel: torch.Tensor) -> torch.Tensor:
-    """vel with its z column set to 0 (no gradient reaches it)."""
-    return torch.cat([vel[:, :2], torch.zeros_like(vel[:, 2:])], dim=1)
+    """vel (..., 3) with its z column set to 0 (no gradient reaches it)."""
+    return torch.cat([vel[..., :2], torch.zeros_like(vel[..., 2:])], dim=-1)
 
 
 def apply_for_loss(model, kind: str, inp: torch.Tensor, desvel: torch.Tensor,
@@ -51,7 +56,10 @@ def apply_for_loss(model, kind: str, inp: torch.Tensor, desvel: torch.Tensor,
     """Run the model per the reference dispatch -> (pred_vel, pred_vision or
     None).  ``generator`` draws dropout in training; None means none.
     ``frame_mask`` (N,) marks the valid frames of a padded chunk for every
-    BatchNorm; None in eval."""
+    BatchNorm; None in eval.  With G chunks, inp (G, N, 1, H, W), desvel
+    (G, N, 1) and ``frame_mask`` (G, N): the chunks are the models' stream
+    axis, each from a zero recurrent state with its own BatchNorm
+    statistics, and the outputs keep the leading (G, N)."""
     if kind == "origunet":
         vel, (y_interp, _up, _h) = model(inp, None, generator, frame_mask)
         return vel, y_interp
@@ -160,6 +168,70 @@ def make_batch_slicer(B: int, num_in_channels: int, num_out_channels: int) -> Ca
                 "mask": mask}
 
     return get_batch
+
+
+def make_chunk_gather(B: int, num_in_channels: int, num_out_channels: int) -> Callable:
+    """(data, idxs) -> batch of G chunks: ``make_batch_slicer``'s chunk for
+    each of idxs' (G,) ``start``, ``ev_start`` and ``n_valid`` (integer
+    tensors on the data's device), each array read with one indexed gather
+    of (G, B) rows: input and gt_frames (G, B, 1, H, W), desvel (G, B, 1)
+    (1 on padded frames), gt_vel (G, B, 3), mask (G, B)."""
+
+    def gather(data: Mapping[str, torch.Tensor], idxs: Mapping[str, torch.Tensor]) -> Batch:
+        dev = data["depths"].device
+        offs = torch.arange(B, device=dev)
+        rows = idxs["start"].to(dev, torch.int64)[:, None] + offs
+        ev_rows = idxs["ev_start"].to(dev, torch.int64)[:, None] + offs
+        evs = data["evs"][ev_rows][:, :, None] if 2 in (num_in_channels, num_out_channels) else None
+        depths = data["depths"][rows][:, :, None]
+        inp = _decode(evs if num_in_channels == 2 else depths)
+        gt_frames = _decode(evs if num_out_channels == 2 else depths)
+        mask = (offs < idxs["n_valid"].to(dev)[:, None]).to(torch.float32)
+        desvel = torch.where(mask[..., None] > 0, data["desvel"][rows][..., None], 1.0)
+        return {"input": inp, "desvel": desvel, "gt_vel": data["velcmd"][rows],
+                "gt_frames": gt_frames, "mask": mask}
+
+    return gather
+
+
+def make_chunked_forward_loss(model, kind: str, loss_weights: Optional[Sequence[float]],
+                              optional_loss_param: Optional[Sequence[float]],
+                              data_augmentation: bool = False, num_out_channels: int = 1,
+                              input_frame_scale: float = 1.0) -> Callable:
+    """The training forward over G chunks at once: batch (``make_chunk_
+    gather``'s, leading (G, B)), generator -> (losses (G,), values
+    (G, n_terms)).  The model runs once with the chunks as its stream axis;
+    each chunk's loss and logged terms are ``combined_loss`` over that
+    chunk's mask alone (a chunk with no valid frame gives 0), the JAX
+    package's ``vmap`` of ``make_forward_loss`` over chunks.  Augmentation
+    draws per chunk, in chunk order, from ``generator``, which must then be
+    given; dropout draws from it too, and None means no dropout."""
+
+    def forward_loss(batch: Batch, generator: Optional[torch.Generator]):
+        inp, desvel, mask = batch["input"], batch["desvel"], batch["mask"]
+        if input_frame_scale != 1.0:
+            inp = torch.clamp(inp * input_frame_scale, 0.0, 1.0)
+        gt_norm_vel = batch["gt_vel"] / desvel
+        gt_frames = batch["gt_frames"]
+        if data_augmentation:
+            if generator is None:
+                raise ValueError("data augmentation draws from a generator; none was given")
+            chunks = [augment_chunk(generator, inp[g], gt_norm_vel[g], gt_frames[g],
+                                    num_out_channels) for g in range(inp.shape[0])]
+            inp, gt_norm_vel, gt_frames = (torch.stack(t) for t in zip(*chunks))
+        pred_vel, pred_vision = apply_for_loss(model, kind, inp, desvel, generator, mask)
+        if pred_vision is None:
+            pred_vision = torch.zeros_like(gt_frames)
+        losses, values = [], []
+        for g in range(inp.shape[0]):
+            loss, vals = combined_loss([gt_norm_vel[g], gt_frames[g]],
+                                       [pred_vel[g], pred_vision[g]], mask[g], loss_weights,
+                                       optional_loss_param)
+            losses.append(loss)
+            values.append(torch.stack(vals))
+        return torch.stack(losses), torch.stack(values)
+
+    return forward_loss
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -104,7 +104,9 @@ def test_data_parallel_raises_until_ported(tmp_path):
     data_path = _toy_dataset(tmp_path, np.random.default_rng(2), n_traj=2, T=4, hw=(60, 90))
     learner = Learner(EvflyConfig(**_kw(tmp_path, data_path, model_type=["LSTMNetVIT"],
                                         resize_input=None, dp_devices=2)))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
+    # ported: dp_devices > 1 without a process group of 2 raises with how
+    # to launch one
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node=2"):
         learner.train_loop()
 
 

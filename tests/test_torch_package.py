@@ -68,6 +68,8 @@ def test_import_check_covers_every_module():
                    "evfly_tpu_torch.tools.extract_combine", "evfly_tpu_torch.utils.profiling",
                    "evfly_tpu_torch.utils.checkpoint_surgery",
                    "evfly_tpu_torch.utils.search_logs", "evfly_tpu_torch.utils.recording_to_gif",
+                   "evfly_tpu_torch.parallel", "evfly_tpu_torch.parallel.mesh",
+                   "evfly_tpu_torch.parallel.data_parallel", "evfly_tpu_torch.tools.dp_quality",
                    "chip_smoke",
                    "tools.k2_phase_stamps", "tools.path_rates", "tools.torch_latency_bench"):
         assert module in MODULES
@@ -158,6 +160,7 @@ DRIVERS = {
     "hil_real_model": ["--ckpt", "artifacts/policy_best.pth"],
     "esim_divergence_report": ["--frames", "2"],
     "upsample_report": ["--frames", "2"],
+    "dp_quality": ["--trajs", "1", "--epochs", "1"],
 }
 
 
