@@ -139,7 +139,15 @@ just before it and read just after:
   trial; its Learner reads the cache, K4 in validation); ``train_rl`` for
   each env and its greedy rollout on the card against the CPU; an 8 s
   ``hil_real_model`` episode with ``policy_best.pth``; and the two reports
-  at their defaults against the JAX records.
+  at their defaults against the JAX records;
+- the probes (the JSON entries' ``probes_launches``), on the DAgger
+  trajectories: ``overfit_probe`` at its defaults (150 steps, 192 frames,
+  chunks of 32; its final check's K4 output against the plain loop),
+  ``openloop_probe`` with ``policy_best.pth`` (joint) and
+  ``pretrain_v_final.pth`` (vit_depth) over 64 frames, carried and reset
+  every 16 (ms a frame; the first 8 frames against the CPU), and
+  ``bf16_accept`` at 256 windows (each arm's K4 output against the plain
+  loop; ``overfit_ok`` and ``accept`` reported, not required).
 
 It then times a streaming step and the G-stream rates, each as graphs and
 eagerly in turns, in the manner of ``tools/torch_latency_bench.py``, and
@@ -179,7 +187,7 @@ from evfly_tpu_torch.data.dataloading import cache_dataset
 from evfly_tpu_torch.models import port
 from evfly_tpu_torch.models.composites import OrigUNet_w_VITFLY_ViTLSTM
 from evfly_tpu_torch.models.port import load_state_dict
-from evfly_tpu_torch.models.recurrent import set_fused_lstm
+from evfly_tpu_torch.models.recurrent import lstm_loop, set_fused_lstm
 from evfly_tpu_torch.models import legacy_vit, vitfly
 from evfly_tpu_torch.models.common import param_count
 from evfly_tpu_torch.models.registry import build_model
@@ -266,8 +274,9 @@ from evfly_tpu_torch.stream import BatchedStreamingPipeline, StreamingPipeline, 
 from evfly_tpu_torch.stream.pipeline import event_bucket
 from evfly_tpu_torch.train import Learner, stepfn
 from evfly_tpu_torch.train.learner import dataloader_kwargs
-from evfly_tpu_torch.tools import (datagen, e2e_demo, esim_divergence_report, hil_real_model,
-                                   train_policy, train_rl, upsample_report)
+from evfly_tpu_torch.tools import (bf16_accept, datagen, e2e_demo, esim_divergence_report,
+                                   hil_real_model, openloop_probe, overfit_probe, train_policy,
+                                   train_rl, upsample_report)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(REPO, "artifacts", "pretrain_v_final.pth")
@@ -472,6 +481,16 @@ HIL_DRIVER_SECONDS, HIL_SEED, HIL_MIN_X = 8.0, 77, 20.0
 # at full size REPORT_SHARE; quantiles and maxima of counts, adaptive
 # factors within one step
 REPORT_SHARE = 0.02
+
+# the probes (overfit_probe, openloop_probe, bf16_accept) on the DAgger
+# trajectories of the DAgger -> data -> training phase: the open-loop probe
+# over a trajectory's first PROBE_FRAMES frames, carried and reset every
+# PROBE_CHUNK, its first PROBE_HELD frames held against the CPU (1e-4 at
+# full f32, PROBE_TF32_ATOL at the tool's TF32, PROTOCOL_TF32_ATOL's
+# reasoning); the bf16 A/B at the tool's 256 windows
+PROBE_FRAMES, PROBE_CHUNK, PROBE_HELD = 64, 16, 8
+OVERFIT_STEPS = 150  # the overfit probe's defaults: 150 steps, 192 frames, chunks of 32
+PROBE_TF32_ATOL = 2e-3
 
 BUDGET_S = 600  # the whole run, cold build included
 # H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s
@@ -3888,10 +3907,161 @@ def phase_driver_data(dev, smi):
                 and np.isfinite(train_losses + val_losses).all(), "e2e_demo's training")
         require(launches["K4 cluster"] > 0, "e2e_demo launched no K4 (validation, evaluation)")
         return dict(launches=launches, datagen_trials_per_min=DATAGEN_TRIALS / datagen_s * 60,
-                    datagen_peak_gib=peak, e2e_s=e2e_s, dagger_s=dagger_s)
+                    datagen_peak_gib=peak, e2e_s=e2e_s, dagger_s=dagger_s,
+                    trajectories=dagger)
     finally:
         train_policy.OUT = out
         shutil.rmtree(root, ignore_errors=True)
+
+
+def _k4_vs_plain(lstm, run):
+    """``run()`` (a forward through the LSTM module ``lstm`` on the card) at
+    full f32, K4's input and output recorded, then the plain loop on that
+    input: (max |diff| of the output and h, of c over max(1, max|c|)).
+    Requires that the run launched K4 once, on the cluster route."""
+    seen = {}
+    hook = lstm.register_forward_hook(
+        lambda m, args, out: seen.update(x=args[0], hidden=args[1] if len(args) > 1 else None,
+                                         out=out))
+    saved = get_precision()
+    set_precision("highest")
+    try:
+        lstm_stacked_cluster.launches = 0
+        with torch.inference_mode():
+            run()
+        torch.cuda.synchronize()
+        require(lstm_stacked_cluster.launches == 1, "the probe's LSTM did not launch K4 once")
+        with torch.inference_mode():
+            ref, (h, c) = lstm_loop(dict(lstm.named_parameters()), seen["x"], seen["hidden"],
+                                    lstm.num_layers, lstm.hidden_size)
+    finally:
+        hook.remove()
+        set_precision(saved)
+    out, (hk, ck) = seen["out"]
+    return (max((out - ref).abs().max().item(), (hk - h).abs().max().item()),
+            (ck - c).abs().max().item() / max(1.0, c.abs().max().item()))
+
+
+def _probe_held(dev, label, model_of, kind, traj, tf32_vels):
+    """The open-loop probe's first PROBE_HELD frames on the card against the
+    CPU (``model_of(device)`` builds the model): at full f32 within 1e-4,
+    and the card's run at the tool's TF32 (``tf32_vels``) within
+    PROBE_TF32_ATOL."""
+    frames, _gt, dv, _ = openloop_probe.probe_inputs(traj, kind, PROBE_HELD)
+    cpu, card = model_of(torch.device("cpu")), model_of(dev)
+    saved = get_precision()
+    set_precision("highest")  # after the builds, which set the drivers' TF32
+    try:
+        rv, rd = openloop_probe.run_traj(cpu, frames, dv, kind=kind)
+        gv, gd = openloop_probe.run_traj(card, frames, dv, kind=kind)
+    finally:
+        set_precision(saved)
+    err = max(np.abs(gv - rv).max(), np.abs(gd - rd).max())
+    tf32 = np.abs(tf32_vels[:PROBE_HELD] - rv).max()
+    log(f"{label}: first {PROBE_HELD} frames card against CPU, f32 max|diff| {err:.3e} (atol "
+        f"{VEL_ATOL}); the tool's TF32 run against the CPU {tf32:.3e} (atol {PROBE_TF32_ATOL})")
+    require(err <= VEL_ATOL, f"{label}: the card's f32 probe disagrees with the CPU's")
+    require(tf32 <= PROBE_TF32_ATOL, f"{label}: the card's TF32 probe disagrees with the CPU's")
+
+
+def phase_probes(dev, smi, trajs):
+    """The three probes of evfly_tpu_torch/tools on the DAgger trajectories,
+    each through its own functions with the kernels' launches counted:
+    overfit_probe at its defaults on the longest trajectory (its final
+    check's K4 output against the plain loop); openloop_probe's two kinds
+    over PROBE_FRAMES frames, carried and reset (ms a frame; the first
+    frames against the CPU); bf16_accept at 256 windows (each arm's K4
+    output against the plain loop).  Reports are printed, and must be
+    finite; ``overfit_ok`` and ``accept`` are reported, not required."""
+    traj = max(trajs, key=lambda t: len(t["depths"]))
+    launches = {k: 0 for k in KERNELS}
+
+    def counted(fn):
+        _zero_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, n in _launches().items():
+            launches[k] += n
+        return out
+
+    numbers = {}
+    with driver_precision():
+        # stamped at each log line: the header, then after steps 0, 10, ..., 140, 149
+        stamps = []
+        t0 = time.perf_counter()
+        out = counted(lambda: overfit_probe.overfit(
+            traj, steps=OVERFIT_STEPS, device=dev,
+            log=lambda m: (stamps.append(time.perf_counter()), log(m))))
+        total = time.perf_counter() - t0
+        n_frames = out["vel"].shape[0]
+        rep = overfit_probe.report(out)
+        s_step = (stamps[-1] - stamps[1]) / (OVERFIT_STEPS - 1)
+        log(f"overfit_probe on {traj['name']} ({n_frames} frames, {OVERFIT_STEPS} steps, chunk "
+            f"32, lr 1e-3) in {total:.1f} s, {s_step:.4f} s a step (steps 1-{OVERFIT_STEPS - 1}) "
+            f"on {smi}, TF32: {json.dumps(rep)}")
+        require(all(np.isfinite(rep[k]) for k in ("floor_mse", "final_vel_mse", "pred_vy_std",
+                                                    "corr_vy")), "overfit_probe's report")
+        if not rep["overfit_ok"]:
+            log("overfit_probe: overfit_ok is false (a finding, not a failure)")
+        model = out["model"]
+        x, _gt, dv, _nvy, _floor = overfit_probe.probe_frames(traj, n_frames)
+        inp = torch.clamp(torch.as_tensor(x, device=dev) * 2.0, 0.0, 1.0)
+        dv = torch.as_tensor(dv, device=dev)
+        err, cerr = _k4_vs_plain(model.lstm, lambda: stepfn.apply_for_loss(model, "vitfly",
+                                                                          inp, dv))
+        log(f"overfit_probe's final check (T = {n_frames}): K4 against the plain loop, out and h "
+            f"max|diff| {err:.3e}, c {cerr:.3e} relative (atol {K4_ATOL})")
+        require(err <= K4_ATOL and cerr <= K4_ATOL, "overfit_probe's K4 disagrees with the plain loop")
+        numbers["overfit_s_per_step"] = s_step
+        numbers["overfit"] = rep
+        del model, out
+        _free_device_memory()
+
+        for kind, ckpt in (("joint", JOINT_CHECKPOINT), ("vit_depth", CHECKPOINT)):
+            model = openloop_probe.build(ckpt, kind, dev)
+            frames, _gt, dvs, _ = openloop_probe.probe_inputs(traj, kind, PROBE_FRAMES)
+            openloop_probe.run_traj(model, frames[:2], dvs[:2], kind=kind)  # warm-up
+            t0 = time.perf_counter()
+            tf32_vels, _ = counted(lambda: openloop_probe.run_traj(model, frames, dvs, kind=kind))
+            ms = (time.perf_counter() - t0) / len(frames) * 1e3
+            rep = counted(lambda: openloop_probe.probe_trajectory(
+                model, traj, traj["name"], kind, PROBE_FRAMES, PROBE_CHUNK))
+            log(f"openloop_probe {kind} over {len(frames)} frames: {ms:.2f} ms a frame eager "
+                f"(carried, TF32) on {smi}; report {json.dumps(rep)}")
+            require(np.isfinite(rep["carried"]["mean_abs_vy_pred"])
+                    and np.isfinite(rep["chunk_reset"]["mean_abs_vy_pred"])
+                    and rep["carried"]["frames"] == len(frames), f"openloop_probe {kind}'s report")
+            _probe_held(dev, f"openloop_probe {kind}", lambda d: openloop_probe.build(ckpt, kind, d),
+                        kind, traj, tf32_vels)
+            numbers[f"openloop_{kind}_ms_per_frame"] = ms
+            ol_frames = len(frames)
+            del model
+
+        set_precision(train_policy.PRECISION)
+        model = LSTMNetVIT(device=dev).eval()
+        small, desvel = bf16_accept.inputs(bf16_accept.WINDOWS, dev)
+        vf, vb = counted(lambda: bf16_accept.arms(model, small, desvel))
+        rep = bf16_accept.accept_report(vf, vb)
+        print(json.dumps(rep), flush=True)
+        log(f"bf16_accept on {smi}, both arms TF32: {json.dumps(rep)} (accept is reported, "
+            "not required)")
+        require(np.isfinite(rep["max_abs_dvel_normalized"])
+                and rep["windows"] == bf16_accept.WINDOWS,
+                "bf16_accept's report")
+        b16 = bf16_accept.bf16enc(model)
+        for arm, m, x in (("f32", model, small), ("bf16", b16, small.to(torch.bfloat16))):
+            err, cerr = _k4_vs_plain(m.lstm, lambda: m(x, desvel))
+            log(f"bf16_accept's {arm} arm (T = {bf16_accept.WINDOWS}): K4 against the plain "
+                f"loop, out and h "
+                f"max|diff| {err:.3e}, c {cerr:.3e} relative (atol {K4_ATOL})")
+            require(err <= K4_ATOL and cerr <= K4_ATOL,
+                    f"bf16_accept's {arm} arm: K4 disagrees with the plain loop")
+        numbers["bf16"] = rep
+    log(f"probes' launches: {({n: c for n, c in launches.items() if c})}")
+    # one a probe's sequence: the overfit check; three runs of PROBE_FRAMES
+    # frames a kind (timed, carried, reset); the two arms
+    require(launches["K4 cluster"] == 1 + 2 * 3 * ol_frames + 2, "the probes' K4 launches")
+    return dict(launches=launches, **numbers)
 
 
 def phase_driver_rl(dev, smi):
@@ -4109,6 +4279,10 @@ def main() -> int:
                "e2e_demo"):
         driver_data = phase_driver_data(dev, smi)
     _free_device_memory()
+    with Phase(f"probes: overfit_probe at its defaults, openloop_probe (joint, vit_depth) over "
+               f"{PROBE_FRAMES} frames, bf16_accept at {bf16_accept.WINDOWS} windows"):
+        probes = phase_probes(dev, smi, driver_data.pop("trajectories"))
+    _free_device_memory()
     with Phase(f"RL driver: train_rl, {RL_ITERS} iterations for each env, greedy card vs CPU"):
         driver_rl = phase_driver_rl(dev, smi)
     with Phase(f"HIL with the trained model: hil_real_model, {HIL_DRIVER_SECONDS} s"):
@@ -4121,6 +4295,7 @@ def main() -> int:
     driver_launches = lambda key: dict(
         protocol_launches=protocol["launches"][key],
         e2e_demo_launches=driver_data["launches"][key],
+        probes_launches=probes["launches"][key],
         hil_driver_launches=driver_hil["launches"][key])
 
     def entry(name, source, replaces, n, key, **times):
@@ -4227,6 +4402,7 @@ def main() -> int:
         + f"; closed loop {closed_numbers}; PPO {rl_numbers}"
         + f"; protocol {({k: v for k, v in protocol.items() if k != 'launches'})}"
         + f"; driver data {({k: v for k, v in driver_data.items() if k != 'launches'})}"
+        + f"; probes {({k: v for k, v in probes.items() if k != 'launches'})}"
         + f"; driver RL {driver_rl}; driver HIL "
         f"{({k: v for k, v in driver_hil.items() if k != 'launches'})}; reports {reports}"
         + f"; training {train_numbers}; data parallel {dp_numbers}, dry run {dp_dry}"

@@ -146,8 +146,14 @@ def pixel_shuffle(x: torch.Tensor, upscale_factor: int) -> torch.Tensor:
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None):
-    """torch F.linear: weight (out, in)."""
-    return F.linear(x, weight, bias)
+    """torch F.linear: weight (out, in).  Mixed floating dtypes compute in
+    the promoted one, as ``jnp.matmul`` promotes (an f32 input times bf16
+    weights: f32), where ``F.linear`` refuses them."""
+    dtype = torch.promote_types(x.dtype, weight.dtype)
+    if bias is not None:
+        dtype = torch.promote_types(dtype, bias.dtype)
+        bias = bias.to(dtype)
+    return F.linear(x.to(dtype), weight.to(dtype), bias)
 
 
 def spectral_sigma(weight: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Runs the port's ``gpu``-marked tests (the voxelizer kernels, K1 over
 time windows, K4 and K5, the graph step, the deployment loop, a train step,
 the velocity heads' LSTM, the model zoo, the real-data path, the
-simulator's render and one lockstep tick, the chunk-DP train step) on a
+simulator's render and one lockstep tick, the chunk-DP train step, the
+open-loop probe's steps and the bf16 A/B's arms) on a
 machine with a CUDA card and without JAX (the GPU machine):
 
     python3 tests/run_gpu_tests.py [REPO]
@@ -26,7 +27,8 @@ FILES = ("tests/test_torch_voxelizer.py", "tests/test_torch_voxelizer_cluster.py
          "tests/test_torch_hil.py", "tests/test_torch_train.py", "tests/test_torch_heads.py",
          "tests/test_torch_lstm_grid.py", "tests/test_torch_zoo.py", "tests/test_torch_events.py",
          "tests/test_torch_realdata.py", "tests/test_torch_render.py",
-         "tests/test_torch_closed_loop.py", "tests/test_torch_parallel.py")
+         "tests/test_torch_closed_loop.py", "tests/test_torch_parallel.py",
+         "tests/test_torch_tools_openloop.py", "tests/test_torch_tools_bf16.py")
 INERT = ("jax", "optax", "evfly_tpu")
 
 

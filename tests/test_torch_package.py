@@ -70,6 +70,8 @@ def test_import_check_covers_every_module():
                    "evfly_tpu_torch.utils.search_logs", "evfly_tpu_torch.utils.recording_to_gif",
                    "evfly_tpu_torch.parallel", "evfly_tpu_torch.parallel.mesh",
                    "evfly_tpu_torch.parallel.data_parallel", "evfly_tpu_torch.tools.dp_quality",
+                   "evfly_tpu_torch.tools.overfit_probe", "evfly_tpu_torch.tools.openloop_probe",
+                   "evfly_tpu_torch.tools.bf16_accept",
                    "chip_smoke",
                    "tools.k2_phase_stamps", "tools.path_rates", "tools.torch_latency_bench"):
         assert module in MODULES
