@@ -28,6 +28,7 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..precision import with_precision
+from ..utils import profiling
 from .common import Params
 from .layers import VelPredictor, dynamic_convnet, head_features
 from .origunet import OrigUNet
@@ -69,9 +70,12 @@ class OrigUNet_w_VITFLY_ViTLSTM(nn.Module):
         is no dropout.  ``frame_mask`` reaches D(theta)'s head, if it has one.
 
         Returns (velocity, (depth, y_upconv, ((h_unet, h_velpred), h_vitlstm))).
+        D(theta) is the span ``evfly.depth``, V(phi) ``evfly.head``
+        (``utils.profiling``).
         """
-        _, (x_depth, y_upconv, h_unet_pair) = self.origunet(x, hidden_unet, generator,
-                                                            frame_mask)
+        with profiling.span("evfly.depth"):
+            _, (x_depth, y_upconv, h_unet_pair) = self.origunet(x, hidden_unet, generator,
+                                                                frame_mask)
         x_vel, h_vit = self.vitfly_vitlstm(
             torch.clamp(x_depth * 2.0, 0.0, 1.0), desvel, None, hidden_vit, generator
         )

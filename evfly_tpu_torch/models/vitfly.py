@@ -26,6 +26,7 @@ from torch import nn
 from ..device import DeviceLike, resolve_device
 from ..ops import imageops
 from ..precision import with_precision
+from ..utils import profiling
 from .common import BatchNorm2d, Conv2d, ConvTranspose2d, Linear, Params, SpectralLinear
 from .recurrent import LSTM
 from .vit import MixTransformerEncoderLayer
@@ -81,12 +82,14 @@ class LSTMNetVIT(nn.Module):
         the JAX package's ``rng``; without one there is no dropout.
         ``frame_mask`` is taken for the zoo's common signature and unused:
         the model has no BatchNorm.  Runs at the precision of
-        ``evfly_tpu_torch.set_precision``.
+        ``evfly_tpu_torch.set_precision``; the span ``evfly.head``
+        (``utils.profiling``).
         Returns (velocity (..., 3), (h, c))."""
-        lead, img, desvel, quat = _flatten(img, desvel, quat)
-        out = torch.cat([self._encode(img), desvel / 10.0, quat], dim=1)
-        out, h = self.lstm(out.reshape(*lead, out.shape[-1]), hidden, generator)
-        return self.nn_fc2(out), h
+        with profiling.span("evfly.head"):
+            lead, img, desvel, quat = _flatten(img, desvel, quat)
+            out = torch.cat([self._encode(img), desvel / 10.0, quat], dim=1)
+            out, h = self.lstm(out.reshape(*lead, out.shape[-1]), hidden, generator)
+            return self.nn_fc2(out), h
 
 
 def _generator(generator: Optional[torch.Generator]) -> torch.Generator:

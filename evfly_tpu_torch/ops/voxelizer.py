@@ -50,6 +50,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..precision import with_precision
+from ..utils import profiling
 from . import _build
 from .imageops import resize_matrix
 from .percentile import bisect_abs_quantile
@@ -1106,13 +1107,15 @@ def event_histogram_scaled_resized(
     kernel K3 on CUDA, or where K3 cannot take the batch (``scaled_route``)
     through K1 and ``scale_counts_resized`` (``hist_scaled_resized_routed``),
     at the precision of
-    ``evfly_tpu_torch.set_precision``.
+    ``evfly_tpu_torch.set_precision``.  The span ``evfly.frame``
+    (``utils.profiling``).
     """
-    dev = resolve_device(device)
-    x, y, pol = (torch.as_tensor(v, device=dev) for v in (x, y, pol))
-    if x.dim() != 2:
-        raise ValueError(f"event_histogram_scaled_resized expects (B, N) events, got {tuple(x.shape)}")
-    small, _ = hist_scaled_resized_routed(
-        x, y, pol, H, W, h_out, w_out, thresh, q, iters, align_corners
-    )
-    return small
+    with profiling.span("evfly.frame"):
+        dev = resolve_device(device)
+        x, y, pol = (torch.as_tensor(v, device=dev) for v in (x, y, pol))
+        if x.dim() != 2:
+            raise ValueError(f"event_histogram_scaled_resized expects (B, N) events, got {tuple(x.shape)}")
+        small, _ = hist_scaled_resized_routed(
+            x, y, pol, H, W, h_out, w_out, thresh, q, iters, align_corners
+        )
+        return small

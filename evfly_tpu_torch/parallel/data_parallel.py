@@ -43,6 +43,7 @@ from ..train.stepfn import (
     make_train_step,
     spectral_update_,
 )
+from ..utils import profiling
 from .mesh import Mesh, make_mesh, shard_batch, spawn_ranks
 
 
@@ -87,7 +88,12 @@ def make_dp_chunked_train_step(model, kind: str, optimizer: torch.optim.Optimize
     step of ``optimizer``; the BatchNorm buffers set to the mean of the
     real chunks' updates.  loss_sum and values_sum are sums over the real
     chunks; all four are tensors on the mesh's device.  Two terms (the
-    velocity and vision losses of ``combined_loss``).
+    velocity and vision losses of ``combined_loss``).  Spans
+    (``utils.profiling``): ``evfly.train.step`` holding
+    ``evfly.train.forward`` (the power iteration and the forward;
+    ``chunks``, this rank's real chunks), ``evfly.train.backward`` and
+    ``evfly.train.update`` (the zero gradients, the all-reduce, the norm,
+    the optimizer's step and the BatchNorm update).
     """
     gather = make_chunk_gather(B, num_in_channels, num_out_channels)
     forward = make_chunked_forward_loss(model, kind, loss_weights, optional_loss_param,
@@ -96,6 +102,10 @@ def make_dp_chunked_train_step(model, kind: str, optimizer: torch.optim.Optimize
     norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
 
     def step(data: Dict[str, torch.Tensor], idxs, generator: Optional[torch.Generator] = None):
+        with profiling.span("evfly.train.step"):
+            return _step(data, idxs, generator)
+
+    def _step(data, idxs, generator):
         dev = data["depths"].device
         local = shard_batch({k: np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v,
                                            np.int64) for k, v in idxs.items()}, mesh)
@@ -103,47 +113,52 @@ def make_dp_chunked_train_step(model, kind: str, optimizer: torch.optim.Optimize
         n_total = mesh.all_reduce_sum_(torch.tensor(float(real.sum()), device=dev))
         n_real = torch.clamp(n_total, min=1.0)
         with precision_scope():
-            model.train()
-            spectral_update_(model)
-            optimizer.zero_grad(set_to_none=True)
-            # only the real chunks run: a padded one's loss is 0, but its
-            # degenerate BatchNorm statistics (mean 0, variance 0) can
-            # saturate a tanh into the velocity head's sqrt(1 - y^2), whose
-            # infinite derivative times that 0 is NaN
-            dtype = params[0].dtype
-            loss_sum = torch.zeros((), dtype=dtype, device=dev)
-            values_sum = torch.zeros(2, dtype=dtype, device=dev)
-            for m in norms:
-                m.chunk_update = None
+            with profiling.span("evfly.train.forward", chunks=int(real.sum())):
+                model.train()
+                spectral_update_(model)
+                optimizer.zero_grad(set_to_none=True)
+                # only the real chunks run: a padded one's loss is 0, but its
+                # degenerate BatchNorm statistics (mean 0, variance 0) can
+                # saturate a tanh into the velocity head's sqrt(1 - y^2), whose
+                # infinite derivative times that 0 is NaN
+                dtype = params[0].dtype
+                loss_sum = torch.zeros((), dtype=dtype, device=dev)
+                values_sum = torch.zeros(2, dtype=dtype, device=dev)
+                for m in norms:
+                    m.chunk_update = None
+                if real.any():
+                    losses, values = forward(
+                        gather(data, {k: torch.from_numpy(v[real]).to(dev)
+                                      for k, v in local.items()}),
+                        generator)
+                    loss_sum = losses.sum()
             if real.any():
-                losses, values = forward(
-                    gather(data, {k: torch.from_numpy(v[real]).to(dev) for k, v in local.items()}),
-                    generator)
-                loss_sum = losses.sum()
-                (loss_sum / n_real).backward()
+                with profiling.span("evfly.train.backward"):
+                    (loss_sum / n_real).backward()
                 loss_sum, values_sum = loss_sum.detach(), values.detach().sum(0)
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            with torch.no_grad():
-                # every BatchNorm's (mean sum, var sum, chunks seen), zeros
-                # where this rank's forward did not reach it
-                bn = [m.chunk_update or (torch.zeros_like(m.running_mean),
-                                         torch.zeros_like(m.running_var),
-                                         torch.zeros((), device=dev)) for m in norms]
-                parts = ([p.grad for p in params] + [loss_sum, values_sum]
-                         + [t.reshape(-1).to(dtype) for sums in bn for t in sums])
-                if mesh.world_size > 1:
-                    flat = mesh.all_reduce_sum_(torch.cat([t.reshape(-1) for t in parts]))
-                    for t, got in zip(parts, torch.split(flat, [t.numel() for t in parts])):
-                        t.copy_(got.view_as(t))
-                    bn = [tuple(parts[len(params) + 2 + 3 * i + j].reshape(sums[j].shape)
-                                for j in range(3)) for i, sums in enumerate(bn)]
-                gradnorm = global_norm([p.grad for p in params])
-            optimizer.step()
-            for m, (mean_sum, var_sum, seen) in zip(norms, bn):
-                m.apply_chunk_update(mean_sum, var_sum, seen)
-                m.chunk_update = None
+            with profiling.span("evfly.train.update"):
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                with torch.no_grad():
+                    # every BatchNorm's (mean sum, var sum, chunks seen), zeros
+                    # where this rank's forward did not reach it
+                    bn = [m.chunk_update or (torch.zeros_like(m.running_mean),
+                                             torch.zeros_like(m.running_var),
+                                             torch.zeros((), device=dev)) for m in norms]
+                    parts = ([p.grad for p in params] + [loss_sum, values_sum]
+                             + [t.reshape(-1).to(dtype) for sums in bn for t in sums])
+                    if mesh.world_size > 1:
+                        flat = mesh.all_reduce_sum_(torch.cat([t.reshape(-1) for t in parts]))
+                        for t, got in zip(parts, torch.split(flat, [t.numel() for t in parts])):
+                            t.copy_(got.view_as(t))
+                        bn = [tuple(parts[len(params) + 2 + 3 * i + j].reshape(sums[j].shape)
+                                    for j in range(3)) for i, sums in enumerate(bn)]
+                    gradnorm = global_norm([p.grad for p in params])
+                optimizer.step()
+                for m, (mean_sum, var_sum, seen) in zip(norms, bn):
+                    m.apply_chunk_update(mean_sum, var_sum, seen)
+                    m.chunk_update = None
         return loss_sum, values_sum, gradnorm, n_real
 
     return step

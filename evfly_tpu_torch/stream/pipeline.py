@@ -26,10 +26,25 @@ of its key (``graph_key``: everything that picks a kernel or an algorithm
 at capture), after ``WARMUP_STEPS`` eager steps whose state is discarded.
 ``graph=False``, and every pipeline on the CPU, runs the same step on the
 same buffers eagerly.
+
+A pipeline's ``stats`` (``StepStats``) counts, always: steps and captures
+per ``GraphKey`` (a capture, with its warm-up steps, stalls the step that
+takes it: in a deployment's 15 Hz loop, a missed tick), and the real
+events handed to ``step_events`` against the padded events its kernels
+took.  While a ``torch.profiler`` records, each step is a span
+``evfly.stream.step`` (``utils.profiling``) holding ``evfly.stream.fill``
+(the copies into the buffers; ``events`` and ``bucket`` on
+``step_events``), ``evfly.stream.replay`` or the eager body, and
+``evfly.stream.capture``; the body's ``evfly.frame`` (histogram and
+percentile scaling), ``evfly.depth`` and ``evfly.head`` are captured into
+each graph as timing events, so a traced replay gives the device time of
+each.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
@@ -39,6 +54,7 @@ from ..models import recurrent
 from ..ops import lstm_fused, voxelizer
 from ..ops.percentile import approx_abs_quantile
 from ..precision import get_precision, with_precision
+from ..utils import profiling
 
 # windows of events are padded to a power of two of at least this many
 EVENT_BUCKET_MIN = 1024
@@ -122,13 +138,15 @@ def _signs(pol) -> torch.Tensor:
 class _Slot:
     """One step's static input buffers, the step over them (``body``: no
     arguments, writes the new state in place, returns the outputs) and,
-    once captured, its graph and the graph's output buffers."""
+    once captured, its graph, the graph's output buffers and the body's
+    spans as timing marks in the graph."""
 
     def __init__(self, inputs: Dict[str, torch.Tensor], body: Callable[[], tuple]):
         self.inputs = inputs
         self.body = body
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Optional[tuple] = None
+        self.marks: Optional[profiling.Marks] = None
 
 
 class GraphKey(NamedTuple):
@@ -151,11 +169,13 @@ def _step_body(model, hidden, input_hw, quantile_scale: bool, fast_percentile: b
     device = desvel.device
 
     def body():
-        x = frame
-        if events is not None:
-            x = voxelizer.event_histogram(*events, *input_hw, device=device)
-        vel, depth, new_hidden = stream_step(model, x, desvel, hidden, quantile_scale,
-                                             fast_percentile)
+        with profiling.span("evfly.frame"):
+            x = frame
+            if events is not None:
+                x = voxelizer.event_histogram(*events, *input_hw, device=device)
+            if quantile_scale:
+                x = _quantile_scale(x, fast=fast_percentile)
+        vel, depth, new_hidden = stream_step(model, x, desvel, hidden, quantile_scale=False)
         for dst, src in zip(_leaves(hidden), _leaves(new_hidden)):
             dst.copy_(src)
         return vel, depth
@@ -176,6 +196,22 @@ def _warmup_stream(device: torch.device) -> "torch.cuda.Stream":
     return stream
 
 
+@dataclasses.dataclass
+class StepStats:
+    """A pipeline's counters, kept whether or not anything traces.
+
+    ``steps`` and ``captures`` per ``GraphKey``: on a graph pipeline each
+    step replays its key's graph, and the first step of a key captures it
+    after ``WARMUP_STEPS`` eager steps; ``events`` the real events handed
+    to ``step_events``, ``padded_events`` the events its kernels took (each
+    window padded to ``event_bucket``)."""
+    steps: "collections.Counter[GraphKey]" = dataclasses.field(default_factory=collections.Counter)
+    captures: "collections.Counter[GraphKey]" = dataclasses.field(
+        default_factory=collections.Counter)
+    events: int = 0
+    padded_events: int = 0
+
+
 class _Steps:
     """A pipeline's steps: one ``_Slot`` for each ``GraphKey``, run eagerly
     or, with ``graph``, as replays of the slot's CUDA graph.  ``state``
@@ -187,18 +223,24 @@ class _Steps:
         self.graph = graph and device.type == "cuda"
         self.state = state
         self.slots: Dict[GraphKey, _Slot] = {}
+        self.stats = StepStats()
 
     def run(self, key: GraphKey, make: Callable[[], _Slot],
-            fill: Callable[[Dict[str, torch.Tensor]], None]) -> tuple:
+            fill: Callable[[Dict[str, torch.Tensor]], None], **counts: int) -> tuple:
+        """One step; ``counts`` go into its fill span."""
         slot = self.slots.get(key)
         if slot is None:
             slot = self.slots[key] = make()
-        fill(slot.inputs)
+        self.stats.steps[key] += 1
+        with profiling.span("evfly.stream.fill", **counts):
+            fill(slot.inputs)
         if not self.graph:
             return slot.body()
         if slot.graph is None:
-            self._capture(slot)
-        slot.graph.replay()
+            with profiling.span("evfly.stream.capture"):
+                self._capture(slot)
+            self.stats.captures[key] += 1
+        slot.marks.replay(slot.graph, "evfly.stream.replay")
         # the next replay overwrites the graph's outputs
         return tuple(None if o is None else o.clone() for o in slot.outputs)
 
@@ -216,9 +258,9 @@ class _Steps:
         for t, s in zip(self.state, saved):
             t.copy_(s)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph), profiling.capture_marks() as marks:
             outputs = slot.body()
-        slot.graph, slot.outputs = graph, outputs
+        slot.graph, slot.outputs, slot.marks = graph, outputs, marks
 
 
 class _Pipeline:
@@ -236,6 +278,7 @@ class _Pipeline:
         with torch.inference_mode():
             self.hidden = model.init_hidden(streams=streams)
         self._steps = _Steps(self.device, graph, _leaves(self.hidden))
+        self.stats = self._steps.stats
 
     @property
     def graph(self) -> bool:
@@ -294,10 +337,11 @@ class StreamingPipeline(_Pipeline):
         self._desvel = torch.zeros(1, device=self.device)
         self._desvel_set = None
 
-    def _run(self, kind: str, size: int, buffers: Callable[[], Dict[str, torch.Tensor]], fill):
+    def _run(self, kind: str, size: int, buffers: Callable[[], Dict[str, torch.Tensor]], fill,
+             **counts: int):
         """Step through the slot of ``graph_key(kind, size)``; ``buffers()``
         makes a new slot's inputs: a "frame", or the events "x", "y",
-        "pol"."""
+        "pol"; ``counts`` go into the fill span."""
         if self._desvel_set != self.desvel:
             with torch.inference_mode():
                 self._desvel.fill_(self.desvel)
@@ -309,7 +353,7 @@ class StreamingPipeline(_Pipeline):
             return _Slot(bufs, self._body(bufs.get("frame"), self._desvel, events))
 
         with torch.inference_mode():
-            return self._steps.run(self.graph_key(kind, size), make, fill)
+            return self._steps.run(self.graph_key(kind, size), make, fill, **counts)
 
     @with_precision
     def step_frame(self, frame):
@@ -320,8 +364,9 @@ class StreamingPipeline(_Pipeline):
         def fill(bufs):
             bufs["frame"].copy_(torch.as_tensor(frame, dtype=torch.float32).reshape(H, W))
 
-        return self._run("frame", H * W, lambda: {
-            "frame": torch.zeros(H, W, device=self.device)}, fill)
+        with profiling.span("evfly.stream.step"):
+            return self._run("frame", H * W, lambda: {
+                "frame": torch.zeros(H, W, device=self.device)}, fill)
 
     @with_precision
     def step_events(self, ex, ey, ep):
@@ -329,24 +374,27 @@ class StreamingPipeline(_Pipeline):
         device -> (velocity (3,), depth (H, W)).  The frame is
         ``event_histogram`` of the window (K1 on CUDA), the window padded
         to ``event_bucket(N)`` events with pol 0."""
-        ex, ey, ep = (torch.as_tensor(v) for v in (ex, ey, ep))
-        if ex.dim() != 1 or ey.shape != ex.shape or ep.shape != ex.shape:
-            raise ValueError(f"step_events takes one window of (N,) events, got "
-                             f"{tuple(ex.shape)}, {tuple(ey.shape)}, {tuple(ep.shape)}")
-        n = ex.shape[0]
-        size = event_bucket(n)
+        with profiling.span("evfly.stream.step"):
+            ex, ey, ep = (torch.as_tensor(v) for v in (ex, ey, ep))
+            if ex.dim() != 1 or ey.shape != ex.shape or ep.shape != ex.shape:
+                raise ValueError(f"step_events takes one window of (N,) events, got "
+                                 f"{tuple(ex.shape)}, {tuple(ey.shape)}, {tuple(ep.shape)}")
+            n = ex.shape[0]
+            size = event_bucket(n)
+            self.stats.events += n
+            self.stats.padded_events += size
 
-        def buffers():
-            f32 = dict(dtype=torch.float32, device=self.device)
-            return {"x": torch.zeros(size, **f32), "y": torch.zeros(size, **f32),
-                    "pol": torch.zeros(size, dtype=torch.int32, device=self.device)}
+            def buffers():
+                f32 = dict(dtype=torch.float32, device=self.device)
+                return {"x": torch.zeros(size, **f32), "y": torch.zeros(size, **f32),
+                        "pol": torch.zeros(size, dtype=torch.int32, device=self.device)}
 
-        def fill(bufs):
-            for name, v in (("x", ex), ("y", ey), ("pol", _signs(ep))):
-                bufs[name][:n].copy_(v)
-                bufs[name][n:].zero_()
+            def fill(bufs):
+                for name, v in (("x", ex), ("y", ey), ("pol", _signs(ep))):
+                    bufs[name][:n].copy_(v)
+                    bufs[name][n:].zero_()
 
-        return self._run("events", size, buffers, fill)
+            return self._run("events", size, buffers, fill, events=n, bucket=size)
 
 
 class BatchedStreamingPipeline(_Pipeline):
@@ -390,7 +438,7 @@ class BatchedStreamingPipeline(_Pipeline):
         (G, H, W)).  ``reset_mask`` (G,) bool zeroes those streams'
         recurrent state before the forward."""
         G, (H, W) = self.G, self.input_hw
-        with torch.inference_mode():
+        with profiling.span("evfly.stream.step"), torch.inference_mode():
             if reset_mask is not None:
                 mask = torch.as_tensor(reset_mask, dtype=torch.bool, device=self.device)
                 for t in _leaves(self.hidden):

@@ -40,6 +40,7 @@ from ..data.augment import augment_chunk
 from ..models.common import Params
 from ..ops.imageops import spectral_norm_power_iteration
 from ..precision import precision_scope
+from ..utils import profiling
 from .losses import combined_loss
 
 Batch = Dict[str, torch.Tensor]
@@ -253,7 +254,11 @@ def make_train_step(model, kind: str, optimizer: torch.optim.Optimizer,
     before the update; one step of ``optimizer`` (Adam over every
     parameter, as ``optax.masked(optax.adam)`` over the trainable keys).  A
     parameter the loss does not reach gets a zero gradient, so Adam steps it
-    as optax steps every leaf.
+    as optax steps every leaf.  Spans (``utils.profiling``):
+    ``evfly.train.step`` holding ``evfly.train.forward`` (the power
+    iteration and the forward), ``evfly.train.backward`` and
+    ``evfly.train.update`` (the zero gradients, the norm and the
+    optimizer's step).
     """
     forward_loss = make_forward_loss(model, kind, loss_weights, optional_loss_param,
                                      data_augmentation, num_out_channels, train=True,
@@ -261,17 +266,20 @@ def make_train_step(model, kind: str, optimizer: torch.optim.Optimizer,
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(batch: Batch, generator: Optional[torch.Generator] = None):
-        with precision_scope():
-            model.train()
-            spectral_update_(model)
-            optimizer.zero_grad(set_to_none=True)
-            loss, values, _pv, _pd = forward_loss(batch, generator)
-            loss.backward()
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            gradnorm = global_norm([p.grad for p in params])
-            optimizer.step()
+        with profiling.span("evfly.train.step"), precision_scope():
+            with profiling.span("evfly.train.forward"):
+                model.train()
+                spectral_update_(model)
+                optimizer.zero_grad(set_to_none=True)
+                loss, values, _pv, _pd = forward_loss(batch, generator)
+            with profiling.span("evfly.train.backward"):
+                loss.backward()
+            with profiling.span("evfly.train.update"):
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                gradnorm = global_norm([p.grad for p in params])
+                optimizer.step()
         return loss.detach(), values.detach(), gradnorm.detach()
 
     if batch_fn is None:
