@@ -24,26 +24,35 @@ events is padded with pol-0 events, which K1 drops, to ``event_bucket(N)``
 events, one graph for each size.  A graph is captured at the first step
 of its key (``graph_key``: everything that picks a kernel or an algorithm
 at capture), after ``WARMUP_STEPS`` eager steps whose state is discarded.
+The warm-up and the capture run under cuDNN's timed algorithm search
+(``torch.backends.cudnn.benchmark``), so each convolution of the graph
+takes the algorithm that ran fastest at its own shape (batch 1, or G
+streams) on the card at hand; on the H100 cuDNN's heuristic runs some of
+the UNet's 3x3 convolutions as FFTs, 3.5 to 40 times slower.  The search
+happens in the warm-up, the capture reuses its plans.  PyTorch's plan
+cache does not key on the flag: a shape that already ran under the
+heuristic in the process keeps the heuristic's plan.
 ``graph=False``, and every pipeline on the CPU, runs the same step on the
 same buffers eagerly.
 
-A pipeline's ``stats`` (``StepStats``) counts, always: steps and captures
-per ``GraphKey`` (a capture, with its warm-up steps, stalls the step that
-takes it: in a deployment's 15 Hz loop, a missed tick), and the real
-events handed to ``step_events`` against the padded events its kernels
-took.  While a ``torch.profiler`` records, each step is a span
-``evfly.stream.step`` (``utils.profiling``) holding ``evfly.stream.fill``
-(the copies into the buffers; ``events`` and ``bucket`` on
-``step_events``), ``evfly.stream.replay`` or the eager body, and
-``evfly.stream.capture``; the body's ``evfly.frame`` (histogram and
-percentile scaling), ``evfly.depth`` and ``evfly.head`` are captured into
-each graph as timing events, so a traced replay gives the device time of
-each.
+A pipeline's ``stats`` (``StepStats``) counts, always: steps, captures
+and captures taken under the search per ``GraphKey`` (a capture, with its
+warm-up steps and the search, stalls the step that takes it: in a
+deployment's 15 Hz loop, a missed tick), and the real events handed to
+``step_events`` against the padded events its kernels took.  While a
+``torch.profiler`` records, each step is a span ``evfly.stream.step``
+(``utils.profiling``) holding ``evfly.stream.fill`` (the copies into the
+buffers; ``events`` and ``bucket`` on ``step_events``),
+``evfly.stream.replay`` or the eager body, and ``evfly.stream.capture``
+(``searched`` 1); the body's ``evfly.frame`` (histogram and percentile
+scaling), ``evfly.depth`` and ``evfly.head`` are captured into each graph
+as timing events, so a traced replay gives the device time of each.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -59,8 +68,9 @@ from ..utils import profiling
 # windows of events are padded to a power of two of at least this many
 EVENT_BUCKET_MIN = 1024
 # eager steps before a capture: they build the kernels' library, set their
-# shared-memory attributes, pack the LSTM weights and let cuBLAS and cuDNN
-# allocate their workspaces, none of which a graph may do
+# shared-memory attributes, pack the LSTM weights, let cuDNN's search time
+# and pick each convolution's algorithm, and let cuBLAS and cuDNN allocate
+# their workspaces, none of which a graph may do
 WARMUP_STEPS = 2
 
 
@@ -196,17 +206,36 @@ def _warmup_stream(device: torch.device) -> "torch.cuda.Stream":
     return stream
 
 
+@contextlib.contextmanager
+def _cudnn_search():
+    """cuDNN's timed algorithm search on for the block, the caller's
+    ``benchmark`` flag restored on exit.  Nothing else is touched:
+    ``torch.backends.cudnn.flags`` would also set ``enabled`` and
+    ``allow_tf32`` from its own defaults, against ``set_precision``."""
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = saved
+
+
 @dataclasses.dataclass
 class StepStats:
     """A pipeline's counters, kept whether or not anything traces.
 
-    ``steps`` and ``captures`` per ``GraphKey``: on a graph pipeline each
-    step replays its key's graph, and the first step of a key captures it
-    after ``WARMUP_STEPS`` eager steps; ``events`` the real events handed
-    to ``step_events``, ``padded_events`` the events its kernels took (each
-    window padded to ``event_bucket``)."""
+    ``steps``, ``captures`` and ``searched`` per ``GraphKey``: on a graph
+    pipeline each step replays its key's graph, and the first step of a
+    key captures it after ``WARMUP_STEPS`` eager steps; ``searched`` counts
+    the captures whose warm-up ran cuDNN's algorithm search (every capture:
+    its set-up grows by the search, once per new shape in a process);
+    ``events`` the real events handed to ``step_events``,
+    ``padded_events`` the events its kernels took (each window padded to
+    ``event_bucket``)."""
     steps: "collections.Counter[GraphKey]" = dataclasses.field(default_factory=collections.Counter)
     captures: "collections.Counter[GraphKey]" = dataclasses.field(
+        default_factory=collections.Counter)
+    searched: "collections.Counter[GraphKey]" = dataclasses.field(
         default_factory=collections.Counter)
     events: int = 0
     padded_events: int = 0
@@ -237,29 +266,34 @@ class _Steps:
         if not self.graph:
             return slot.body()
         if slot.graph is None:
-            with profiling.span("evfly.stream.capture"):
+            with profiling.span("evfly.stream.capture", searched=1):
                 self._capture(slot)
             self.stats.captures[key] += 1
+            self.stats.searched[key] += 1
         slot.marks.replay(slot.graph, "evfly.stream.replay")
         # the next replay overwrites the graph's outputs
         return tuple(None if o is None else o.clone() for o in slot.outputs)
 
     def _capture(self, slot: _Slot) -> None:
-        """Warm up on a side stream, put the state back, capture.  A capture
-        that fails raises; there is no fallback to the eager step."""
+        """Warm up on a side stream under cuDNN's search, put the state
+        back, capture.  The search times its candidates in the first
+        warm-up step, which a capture could not; the capture finds each
+        convolution's plan in PyTorch's cache.  A capture that fails
+        raises; there is no fallback to the eager step."""
         saved = [t.clone() for t in self.state]
         current = torch.cuda.current_stream(self.device)
         side = _warmup_stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_STEPS):
-                slot.body()
-        current.wait_stream(side)
-        for t, s in zip(self.state, saved):
-            t.copy_(s)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph), profiling.capture_marks() as marks:
-            outputs = slot.body()
+        with _cudnn_search():
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_STEPS):
+                    slot.body()
+            current.wait_stream(side)
+            for t, s in zip(self.state, saved):
+                t.copy_(s)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph), profiling.capture_marks() as marks:
+                outputs = slot.body()
         slot.graph, slot.outputs, slot.marks = graph, outputs, marks
 
 

@@ -15,8 +15,13 @@ Here, on the CPU:
 - every setting that picks a kernel or an algorithm at capture changes the
   graph key, and a changed setting takes a new slot;
 - a capture that fails raises and leaves no graph behind;
+- the warm-up and the capture run under cuDNN's algorithm search, the
+  other cuDNN flags and the precision untouched, and the search flag is
+  restored after a capture that succeeds or fails;
 - on a CUDA card (``gpu`` marker, skipped here): the graph step against the
-  eager step, both event buckets, ``step_frame`` and ``step_frames``.
+  eager step, both event buckets, ``step_frame`` and ``step_frames``; the
+  joint model's graph step captured under the search against its eager
+  step at G = 1 and G = 16.
 
 Tolerances, as tests/test_torch_stream.py: velocity, depth and every h
 within 1e-4, every c within 1e-4 x max(1, max|c|) against JAX; against the
@@ -32,6 +37,7 @@ import jax.numpy as jnp
 
 from evfly_tpu.stream import pipeline as jpipeline
 from evfly_tpu_torch import set_precision
+from evfly_tpu_torch.precision import get_precision
 from evfly_tpu_torch.models import recurrent
 from evfly_tpu_torch.models.composites import OrigUNet_w_VITFLY_ViTLSTM
 from evfly_tpu_torch.ops import lstm_fused, voxelizer
@@ -282,6 +288,64 @@ def test_a_failed_capture_raises_and_leaves_no_graph(monkeypatch):
     assert torch.equal(state[0], torch.zeros(3))
 
 
+def _cudnn_flags():
+    cudnn = torch.backends.cudnn
+    return (cudnn.benchmark, cudnn.allow_tf32, cudnn.enabled, cudnn.deterministic,
+            get_precision())
+
+
+class _Graph:
+    def replay(self):
+        pass
+
+
+@pytest.fixture
+def restore_benchmark():
+    saved = torch.backends.cudnn.benchmark
+    yield
+    torch.backends.cudnn.benchmark = saved
+
+
+@pytest.mark.parametrize("fails", [False, True], ids=["captured", "failed"])
+@pytest.mark.parametrize("earlier", [False, True], ids=["heuristic", "search"])
+def test_the_warmup_and_the_capture_run_under_cudnns_search(monkeypatch, restore_benchmark,
+                                                             earlier, fails):
+    """_Steps with graphs on: every warm-up step and the capture see
+    cudnn.benchmark True, the other cuDNN flags and the precision as
+    before; the flag reads its earlier value after a capture that succeeds
+    and after one that raises; ``searched`` counts the capture once."""
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: _Stream())
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: _NullContext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
+    monkeypatch.setattr(torch.cuda, "graph", _FailingGraph if fails else
+                        (lambda graph: _NullContext()))
+    torch.backends.cudnn.benchmark = earlier
+    before = _cudnn_flags()
+    seen = []
+    state = [torch.zeros(3)]
+
+    def body():
+        seen.append(_cudnn_flags())
+        return (state[0] * 2, None)
+
+    steps = pipeline._Steps(torch.device("cuda"), True, state)
+    key = GraphKey("frame", 1, "highest", (True, False), True, (), None)
+    run = lambda: steps.run(key, lambda: pipeline._Slot({}, body), lambda bufs: None)  # noqa: E731
+    if fails:
+        with pytest.raises(RuntimeError, match="capture failed"):
+            run()
+        assert len(seen) == pipeline.WARMUP_STEPS and not steps.stats.searched
+    else:
+        for _ in range(3):
+            run()
+        assert len(seen) == pipeline.WARMUP_STEPS + 1
+        assert steps.stats.searched[key] == steps.stats.captures[key] == 1
+        assert steps.stats.steps[key] == 3
+    assert all(flags == (True, *before[1:]) for flags in seen)
+    assert _cudnn_flags() == before
+
+
 class _Stream:
     def wait_stream(self, other):
         pass
@@ -328,6 +392,38 @@ def test_graph_step_matches_the_eager_step_on_gpu(cuda_device, mode):
     for mask in (None, None, torch.tensor([False, True, False, True], device=cuda_device)):
         for (a, b) in zip(bg.step_frames(frames, mask), be.step_frames(frames, mask)):
             torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("streams", [1, 16])
+def test_graph_step_captured_under_the_search_matches_the_eager_step_on_gpu(cuda_device,
+                                                                            streams):
+    """The joint model's graph step, its convolutions' algorithms picked by
+    cuDNN's search at the capture's warm-up (the graph steps first, so no
+    shape of it ran under the heuristic before), against the eager step
+    under the heuristic; cudnn.benchmark and the precision flags read as
+    before the capture."""
+    model = _joint(cuda_device)
+    before = _cudnn_flags()
+    assert not before[0]
+    gen = torch.Generator(device=cuda_device).manual_seed(streams)
+    if streams == 1:
+        g = StreamingPipeline(model, device=cuda_device)
+        e = StreamingPipeline(model, device=cuda_device, graph=False)
+        step = lambda p, f: p.step_frame(f[0])  # noqa: E731
+    else:
+        g = BatchedStreamingPipeline(model, streams, device=cuda_device)
+        e = BatchedStreamingPipeline(model, streams, device=cuda_device, graph=False)
+        step = lambda p, f: p.step_frames(f)  # noqa: E731
+    for _ in range(3):
+        frames = torch.where(torch.rand(streams, *HW, device=cuda_device, generator=gen) < 0.1,
+                             0.2, 0.0)
+        for (a, b) in zip(step(g, frames), step(e, frames)):
+            torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
+        _assert_states_close(_cpu(g.hidden), _cpu(e.hidden))
+        assert _cudnn_flags() == before
+    (key,) = g._steps.slots
+    assert g.stats.searched[key] == g.stats.captures[key] == 1
 
 
 def _cpu(hidden):
