@@ -11,6 +11,7 @@ on every device.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Iterable, Optional, Tuple
 
@@ -253,3 +254,26 @@ class LayerNorm(ParamLeaf):
     def forward(self, x):
         return imageops.layer_norm(x, self.weight, self.bias)
 
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamIO:
+    """What a model takes in a streaming step (``stream.pipeline``),
+    declared by the model as ``stream_io``.  Every streaming model steps as
+    ``stream(frame, hidden, desvel) -> (outputs, new hidden)``.
+
+    ``time_bins`` 0: one signed event frame at the pipeline's size (K1's
+    histogram of (x, y, pol)).  ``time_bins`` T > 0: a stacked histogram of
+    the events (x, y, pol, t) from a ``sensor_hw`` sensor, 2 T channels
+    (polarity-major) of ``frame_hw``, coordinates divided by
+    ``downsample``, counts clipped at ``clip``.  ``quantile_scale``: the
+    pipeline may scale the frame by its 97th percentile."""
+    time_bins: int = 0
+    sensor_hw: Optional[Tuple[int, int]] = None
+    frame_hw: Optional[Tuple[int, int]] = None
+    downsample: int = 1
+    clip: float = 0.0
+    quantile_scale: bool = True
+
+
+COMPOSITE_IO = StreamIO()

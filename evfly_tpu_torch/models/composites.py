@@ -17,6 +17,10 @@ Port of ``evfly_tpu/models/composites.py``:
 * ``OrigUNet_w_ConvNet_w_VelPred``: the UNet's decoder output ``y_upconv``
   (1, 68, 148 at 260x346) through a ``ConvNet_w_VelPred``; the hidden state
   is ``((h_unet, None), h_cv)``.
+
+The two composites stream as ``stream(frame, hidden, desvel)`` (the
+pipelines' step protocol), which is ``stream.pipeline.stream_step`` on a
+frame already scaled.
 """
 
 from __future__ import annotations
@@ -36,7 +40,18 @@ from .recurrent import LSTM
 from .vitfly import LSTMNetVIT
 
 
-class OrigUNet_w_VITFLY_ViTLSTM(nn.Module):
+class _Streamed:
+    def stream(self, frame: torch.Tensor, hidden, desvel: torch.Tensor):
+        """One streaming step of a scaled frame (H, W), or (G, H, W) for G
+        streams -> ((velocity scaled by desvel, depth), the new hidden
+        state)."""
+        from ..stream import pipeline  # the pipeline imports the models
+        vel, depth, new_hidden = pipeline.stream_step(self, frame, desvel, hidden,
+                                                      quantile_scale=False)
+        return (vel, depth), new_hidden
+
+
+class OrigUNet_w_VITFLY_ViTLSTM(_Streamed, nn.Module):
     def __init__(self, generator: Optional[torch.Generator] = None, device: DeviceLike = None,
                  **origunet_kwargs):
         super().__init__()
@@ -131,7 +146,7 @@ class ConvNet_w_VelPred(nn.Module):
         return vel.reshape(*lead, vel.shape[-1]), h
 
 
-class OrigUNet_w_ConvNet_w_VelPred(nn.Module):
+class OrigUNet_w_ConvNet_w_VelPred(_Streamed, nn.Module):
     def __init__(self, num_outputs: int = 1, generator: Optional[torch.Generator] = None,
                  device: DeviceLike = None, **origunet_kwargs):
         super().__init__()

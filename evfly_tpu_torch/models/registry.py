@@ -10,6 +10,7 @@
   'VITFLY_ConvNet' / 'ConvNet'         -> ConvNet
   'VITFLY_UNetConvLSTMNet' / 'UNetConvLSTMNet' -> UNetConvLSTMNet
   'ConvNet_w_VelPred'                  -> ConvNet_w_VelPred
+  'RVT'                                -> RVT (RVT-B at 1 Mpx, models/rvt.py)
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from .composites import (
     OrigUNet_w_VITFLY_ViTLSTM,
 )
 from .origunet import OrigUNet
+from .rvt import RVT
 from .vitfly import ConvNet, LSTMNet, LSTMNetVIT, UNetConvLSTMNet, ViT
 
 
@@ -123,4 +125,6 @@ def build_model(cfg: EvflyConfig, is_deployment: bool = False, device: DeviceLik
         )
     if mt in _VITFLY:
         return _VITFLY[mt](generator=generator, device=device)
+    if mt == "RVT":
+        return RVT(generator=generator, device=device)
     raise ValueError(f"Invalid model_type {mt}")

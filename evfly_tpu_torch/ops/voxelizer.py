@@ -16,7 +16,9 @@ with ``counts`` the signed event count frame under np.histogram2d binning:
   W) frames, the stream sorted by time once and every window binned in one
   launch of K1 over offsets into it (``hist_frame_windows``);
 - ``difflog_events``: the quantized log difference of two frames (torch
-  ops).
+  ops);
+- ``stacked_histogram``: RVT's time-binned count frame of one window of
+  events (x, y, pol, t), 2 T channels (torch ops, on any device).
 
 The kernels are in ``csrc/voxelizer.cu``.  Each wrapper ``hist_*`` has a
 plain PyTorch version ``hist_*_plain``, which CPU tensors take and against
@@ -1119,3 +1121,44 @@ def event_histogram_scaled_resized(
             x, y, pol, H, W, h_out, w_out, thresh, q, iters, align_corners
         )
         return small
+
+
+# a stacked histogram's padding events are counted into this many spare
+# cells past the frame, spread so that their adds do not meet on one address
+_STACKED_SPARE = 4096
+
+
+def stacked_histogram(x, y, pol, t, n, bins: int, frame_hw: Tuple[int, int],
+                      downsample: int = 2, clip: float = 10.0) -> torch.Tensor:
+    """RVT's stacked histogram of one window of events -> (2 bins, H, W) f32.
+
+    x, y (N,) integer sensor coordinates, pol (N,) (> 0 positive), t (N,)
+    integer timestamps (microseconds); the first ``n`` events are real (an
+    int, or a 0-d integer tensor on the events' device), the rest padding.
+    A real event counts 1 into channel ``bins * [pol > 0] + tau`` at
+    ``(y // downsample, x // downsample)``, where ``tau = min(floor(bins (t -
+    t_first) / max(t_last - t_first, 1)), bins - 1)`` and t_first, t_last
+    are the smallest and the largest real timestamp; events outside the
+    frame count nothing; every count is clipped at ``clip``.  Integer
+    arithmetic throughout, so that every device bins alike.  Plain torch
+    ops on any device (``index_add_``), with no host synchronization, so a
+    CUDA graph can capture it with ``n`` on the device."""
+    H, W = frame_hw
+    N = x.shape[0]
+    dev = x.device
+    cells = 2 * bins * H * W
+    index = torch.arange(N, device=dev)
+    real = index < torch.as_tensor(n, device=dev)
+    t = t.to(torch.int64)
+    t0 = torch.where(real, t, torch.iinfo(torch.int64).max).amin()
+    t1 = torch.where(real, t, torch.iinfo(torch.int64).min).amax()
+    tau = torch.div(bins * (t - t0), (t1 - t0).clamp_min(1), rounding_mode="floor")
+    tau = tau.clamp(0, bins - 1)
+    xs = torch.div(x.to(torch.int64), downsample, rounding_mode="floor")
+    ys = torch.div(y.to(torch.int64), downsample, rounding_mode="floor")
+    inside = real & (xs >= 0) & (xs < W) & (ys >= 0) & (ys < H)
+    cell = ((torch.where(pol > 0, bins, 0) + tau) * H + ys) * W + xs
+    cell = torch.where(inside, cell, cells + index % _STACKED_SPARE)
+    frame = torch.zeros(cells + _STACKED_SPARE, dtype=torch.float32, device=dev)
+    frame.index_add_(0, cell, inside.to(torch.float32))
+    return frame[:cells].view(2 * bins, H, W).clamp_(max=clip)

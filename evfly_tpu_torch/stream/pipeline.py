@@ -14,6 +14,15 @@ under
 ``BatchedStreamingPipeline`` steps G streams in one forward, each with its
 own state, where the JAX package vmaps the single-stream step.
 
+Every streaming model steps as ``model.stream(frame, hidden, desvel) ->
+(outputs, new hidden)`` and declares its input as ``stream_io``
+(``models.common.StreamIO``; the composites' ``COMPOSITE_IO`` where it
+declares none): the composites take the frame above and give (velocity,
+depth); ``models.rvt.RVT`` takes a stacked histogram of the window's events
+with their timestamps (``voxelizer.stacked_histogram``: time bins, a
+megapixel sensor halved, counts clipped, no scaling) and gives its
+detections, with four LSTM states carried.
+
 The JAX package runs each step as one jitted program with the state
 donated.  Here a pipeline keeps its inputs and its hidden state in static
 device buffers, and on CUDA each step replays one captured
@@ -54,12 +63,14 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import math
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models import recurrent
+from ..models.common import COMPOSITE_IO, StreamIO
 from ..ops import lstm_fused, voxelizer
 from ..ops.percentile import approx_abs_quantile
 from ..precision import get_precision, with_precision
@@ -170,25 +181,49 @@ class GraphKey(NamedTuple):
     k1_route: Optional[Tuple[str, int]]  # K1's route (kind, CTAs), for the events step
 
 
+def stream_io(model: torch.nn.Module) -> StreamIO:
+    """The model's declared streaming input and output (the composites'
+    where it declares none)."""
+    return getattr(model, "stream_io", COMPOSITE_IO)
+
+
+def _events_frame(io: StreamIO, events, input_hw, device) -> torch.Tensor:
+    """The frame of a window of events as the model takes it: K1's
+    histogram of (x, y, pol), or the stacked histogram of (x, y, pol, t, n)."""
+    if io.time_bins:
+        return voxelizer.stacked_histogram(*events, io.time_bins, io.frame_hw, io.downsample,
+                                           io.clip)
+    return voxelizer.event_histogram(*events, *input_hw, device=device)
+
+
+# the buffers of a window's event columns: K1's (float coordinates, int32
+# signs, padding of pol 0), or, for a stacked histogram, a camera's types
+# (16-bit coordinates, 8-bit polarity, 64-bit microseconds), with the count
+# of real events ``n`` by which the histogram leaves the padding out
+_K1_COLUMNS = {"x": torch.float32, "y": torch.float32, "pol": torch.int32}
+_CAMERA_COLUMNS = {"x": torch.int16, "y": torch.int16, "pol": torch.int8, "t": torch.int64}
+
+
 def _step_body(model, hidden, input_hw, quantile_scale: bool, fast_percentile: bool,
                frame: Optional[torch.Tensor], desvel: torch.Tensor, events=None):
     """The step over static buffers: the frame (or the histogram of the
-    events (x, y, pol)), the model, the new state copied into ``hidden``.
-    It holds no reference to its pipeline, so that a pipeline and its
-    graphs are freed as soon as the last reference to the pipeline goes."""
+    events), the model, the new state copied into ``hidden``.  It holds no
+    reference to its pipeline, so that a pipeline and its graphs are freed
+    as soon as the last reference to the pipeline goes."""
     device = desvel.device
+    io = stream_io(model)
 
     def body():
         with profiling.span("evfly.frame"):
             x = frame
             if events is not None:
-                x = voxelizer.event_histogram(*events, *input_hw, device=device)
+                x = _events_frame(io, events, input_hw, device)
             if quantile_scale:
                 x = _quantile_scale(x, fast=fast_percentile)
-        vel, depth, new_hidden = stream_step(model, x, desvel, hidden, quantile_scale=False)
+        outputs, new_hidden = model.stream(x, hidden, desvel)
         for dst, src in zip(_leaves(hidden), _leaves(new_hidden)):
             dst.copy_(src)
-        return vel, depth
+        return outputs
 
     return body
 
@@ -305,8 +340,10 @@ class _Pipeline:
                  streams: Optional[int]):
         self.device = _model_device(model, device)
         self.model = model.eval()
-        self.input_hw = input_hw
-        self.quantile_scale = quantile_scale
+        self.io = stream_io(model)
+        # the events' sensor: the model's where the caller names none
+        self.input_hw = tuple(input_hw or self.io.sensor_hw or (260, 346))
+        self.quantile_scale = quantile_scale and self.io.quantile_scale
         self.fast_percentile = fast_percentile
         self._lstms = [m for m in model.modules() if isinstance(m, recurrent.LSTM)]
         with torch.inference_mode():
@@ -344,23 +381,28 @@ class _Pipeline:
 
 
 class StreamingPipeline(_Pipeline):
-    """Stateful streaming runner around a two-stage model of
+    """Stateful streaming runner around a model that declares its
+    streaming input and output (``stream_io``), or a two-stage model of
     ``models.composites``: the joint ``OrigUNet_w_VITFLY_ViTLSTM`` or
-    ``OrigUNet_w_ConvNet_w_VelPred``.  Its forward takes (frames, desvel,
+    ``OrigUNet_w_ConvNet_w_VelPred``, whose forward takes (frames, desvel,
     hidden_unet, hidden_head) with the composite hidden convention
     ((h_unet, h_velpred), h_head), h_head the ViTLSTM's or the
-    ConvNet_w_VelPred LSTM's (h, c), and it has ``init_hidden(streams)``.
-    ``hidden`` holds the state in static buffers, which each step and
-    ``reset`` write in place; every ``recurrent.LSTM`` of the model is
-    packed for its kernel outside the capture and keys the graph by its
-    mode and route.  ``desvel`` may change between steps.
+    ConvNet_w_VelPred LSTM's (h, c); ``models.rvt.RVT``, whose ``stream``
+    takes a stacked histogram and its four stages' (h, c).  The model has
+    ``init_hidden(streams)``.  ``hidden`` holds the state in static
+    buffers, which each step and ``reset`` write in place; every
+    ``recurrent.LSTM`` of the model is packed for its kernel outside the
+    capture and keys the graph by its mode and route.  ``desvel`` (read by
+    the composites only) may change between steps.  ``input_hw`` is the
+    events' sensor (None: the model's declared ``sensor_hw``, else 260x346);
+    ``quantile_scale`` applies to the composites' frames.
     """
 
     def __init__(
         self,
         model: torch.nn.Module,
         desvel: float = 4.0,
-        input_hw: Tuple[int, int] = (260, 346),
+        input_hw: Optional[Tuple[int, int]] = None,
         quantile_scale: bool = True,
         fast_percentile: bool = False,
         device: DeviceLike = None,
@@ -383,50 +425,73 @@ class StreamingPipeline(_Pipeline):
 
         def make():
             bufs = buffers()
-            events = (bufs["x"], bufs["y"], bufs["pol"]) if "x" in bufs else None
+            events = (tuple(bufs[k] for k in ("x", "y", "pol", "t", "n") if k in bufs)
+                      if "x" in bufs else None)
             return _Slot(bufs, self._body(bufs.get("frame"), self._desvel, events))
 
         with torch.inference_mode():
             return self._steps.run(self.graph_key(kind, size), make, fill, **counts)
 
+    def frame_shape(self) -> Tuple[int, ...]:
+        """The shape of the frame ``step_frame`` takes: (H, W), or the
+        stacked histogram's (2 T, H, W)."""
+        if self.io.time_bins:
+            return (2 * self.io.time_bins, *self.io.frame_hw)
+        return tuple(self.input_hw)
+
     @with_precision
     def step_frame(self, frame):
-        """One event frame (H, W), an array or a tensor on any device ->
-        (velocity (3,), depth (H, W)) on the pipeline's device."""
-        H, W = self.input_hw
+        """One event frame (``frame_shape()``), an array or a tensor on any
+        device -> the model's outputs on the pipeline's device: (velocity
+        (3,), depth (H, W)) for the composites."""
+        shape = self.frame_shape()
 
         def fill(bufs):
-            bufs["frame"].copy_(torch.as_tensor(frame, dtype=torch.float32).reshape(H, W))
+            bufs["frame"].copy_(torch.as_tensor(frame, dtype=torch.float32).reshape(shape))
 
         with profiling.span("evfly.stream.step"):
-            return self._run("frame", H * W, lambda: {
-                "frame": torch.zeros(H, W, device=self.device)}, fill)
+            return self._run("frame", math.prod(shape), lambda: {
+                "frame": torch.zeros(shape, device=self.device)}, fill)
 
     @with_precision
-    def step_events(self, ex, ey, ep):
+    def step_events(self, ex, ey, ep, et=None):
         """One window of raw events (N,) each, arrays or tensors on any
-        device -> (velocity (3,), depth (H, W)).  The frame is
-        ``event_histogram`` of the window (K1 on CUDA), the window padded
-        to ``event_bucket(N)`` events with pol 0."""
+        device -> the model's outputs: (velocity (3,), depth (H, W)) for
+        the composites, whose frame is ``event_histogram`` of (ex, ey, ep)
+        (K1 on CUDA), the window padded to ``event_bucket(N)`` events with
+        pol 0; for a model of time bins (``stream_io``) the stacked
+        histogram of (ex, ey, ep, et), ``et`` the integer timestamps (the
+        window's order), the window padded to ``event_bucket(N)`` events
+        that the histogram leaves out by their index."""
+        binned = bool(self.io.time_bins)
+        columns = _CAMERA_COLUMNS if binned else _K1_COLUMNS
         with profiling.span("evfly.stream.step"):
-            ex, ey, ep = (torch.as_tensor(v) for v in (ex, ey, ep))
-            if ex.dim() != 1 or ey.shape != ex.shape or ep.shape != ex.shape:
+            if binned and et is None:
+                raise ValueError("this model bins events by time: step_events needs et")
+            cols = tuple(torch.as_tensor(v) for v in (ex, ey, ep, et)[:len(columns)])
+            n = cols[0].shape[0]
+            if cols[0].dim() != 1 or any(v.shape != cols[0].shape for v in cols):
                 raise ValueError(f"step_events takes one window of (N,) events, got "
-                                 f"{tuple(ex.shape)}, {tuple(ey.shape)}, {tuple(ep.shape)}")
-            n = ex.shape[0]
+                                 f"{[tuple(v.shape) for v in cols]}")
+            if not binned:
+                cols = cols[:2] + (_signs(cols[2]),)
             size = event_bucket(n)
             self.stats.events += n
             self.stats.padded_events += size
 
             def buffers():
-                f32 = dict(dtype=torch.float32, device=self.device)
-                return {"x": torch.zeros(size, **f32), "y": torch.zeros(size, **f32),
-                        "pol": torch.zeros(size, dtype=torch.int32, device=self.device)}
+                bufs = {name: torch.zeros(size, dtype=dtype, device=self.device)
+                        for name, dtype in columns.items()}
+                if binned:
+                    bufs["n"] = torch.zeros((), dtype=torch.int64, device=self.device)
+                return bufs
 
             def fill(bufs):
-                for name, v in (("x", ex), ("y", ey), ("pol", _signs(ep))):
+                for name, v in zip(columns, cols):
                     bufs[name][:n].copy_(v)
                     bufs[name][n:].zero_()
+                if binned:
+                    bufs["n"].fill_(n)
 
             return self._run("events", size, buffers, fill, events=n, bucket=size)
 
@@ -458,6 +523,10 @@ class BatchedStreamingPipeline(_Pipeline):
     ):
         super().__init__(model, input_hw, quantile_scale, fast_percentile, device, graph,
                          num_streams)
+        if self.io.time_bins:
+            raise NotImplementedError("BatchedStreamingPipeline steps the composites' frames; "
+                                      "a model of time bins streams one camera "
+                                      "(StreamingPipeline.step_events)")
         self.G = num_streams
         self.desvel = torch.broadcast_to(
             torch.as_tensor(desvel, dtype=torch.float32, device=self.device), (num_streams,)

@@ -254,7 +254,7 @@ def span(name: str, **counts: int):
     events captured into the graph, profiler or not."""
     marks = _state.marks
     if marks is not None:
-        return marks.mark(name)
+        return marks.mark(name, counts)
     if not torch.autograd._profiler_enabled():
         return _OFF
     return _Span(name, counts)
@@ -263,22 +263,22 @@ def span(name: str, **counts: int):
 class Marks:
     """The spans of one captured CUDA graph as timing events captured into
     it (``torch.cuda.Event(enable_timing=True, external=True)``: event
-    nodes, recorded on every replay).  ``replay`` replays the graph and,
-    while a profiler records and a span is open, adds each mark's device
-    interval of that replay to the open span's step (each a child of that
-    span); they are read before the graph's next replay records the events
+    nodes, recorded on every replay), each with its span's counts.
+    ``replay`` replays the graph and, while a profiler records and a span
+    is open, adds each mark's device interval of that replay to the open
+    span's step (each a child of that span, with the mark's counts); they are read before the graph's next replay records the events
     again, or by ``spans()``."""
 
     def __init__(self):
-        self.marks: List[tuple] = []   # (name, start event, end event)
+        self.marks: List[tuple] = []   # (name, start event, end event, counts)
         self._pending: List[Record] = []
 
     @contextlib.contextmanager
-    def mark(self, name: str) -> Iterator[None]:
+    def mark(self, name: str, counts: Optional[Dict[str, int]] = None) -> Iterator[None]:
         start = torch.cuda.Event(enable_timing=True, external=True)
         end = torch.cuda.Event(enable_timing=True, external=True)
         start.record()
-        self.marks.append((name, start, end))
+        self.marks.append((name, start, end, dict(counts or {})))
         try:
             yield
         finally:
@@ -298,8 +298,8 @@ class Marks:
         parent, _, root_start = stack[-1]
         if root_start is None:
             return
-        for mark, start, end in self.marks:
-            record = Record(next(_ids), mark, parent.id, parent.root, None, {},
+        for mark, start, end, counts in self.marks:
+            record = Record(next(_ids), mark, parent.id, parent.root, None, counts,
                             _events=(root_start, start, end))
             self._pending.append(record)
             _pending.append(record)

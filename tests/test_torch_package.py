@@ -43,7 +43,8 @@ def test_import_check_covers_every_module():
                    "evfly_tpu_torch.sim.dynamics", "evfly_tpu_torch.sim.native_quad",
                    "evfly_tpu_torch.sim.pilot", "evfly_tpu_torch.configs",
                    "evfly_tpu_torch.configs.config", "evfly_tpu_torch.models.port",
-                   "evfly_tpu_torch.models.registry", "evfly_tpu_torch.data",
+                   "evfly_tpu_torch.models.registry", "evfly_tpu_torch.models.rvt",
+                   "evfly_tpu_torch.data",
                    "evfly_tpu_torch.data.augment", "evfly_tpu_torch.data.dataloading",
                    "evfly_tpu_torch.train", "evfly_tpu_torch.train.__main__",
                    "evfly_tpu_torch.train.losses", "evfly_tpu_torch.train.stepfn",
