@@ -271,7 +271,7 @@ from evfly_tpu_torch.sim import closed_loop, ppo, quadrotor_env, render, vision_
 from evfly_tpu_torch.sim.launch_evaluation import run_evaluation
 from evfly_tpu_torch.sim.obstacles import generate_forest
 from evfly_tpu_torch.stream import BatchedStreamingPipeline, StreamingPipeline, hil
-from evfly_tpu_torch.stream.pipeline import event_bucket
+from evfly_tpu_torch.stream.pipeline import WARMUP_STEPS, event_bucket
 from evfly_tpu_torch.train import Learner, stepfn
 from evfly_tpu_torch.train.learner import dataloader_kwargs
 from evfly_tpu_torch.tools import (bf16_accept, datagen, e2e_demo, esim_divergence_report,
@@ -2055,6 +2055,15 @@ KERNELS = {"K1 cluster": hist_frame_cluster, "K1 band": hist_frame,
            "K5 grid": lstm_wavefront_grid}
 
 
+def _served(head, calls: int, k4: int) -> bool:
+    """Whether V(phi) (``head``, an ``LSTMNetVIT``) served ``calls`` forwards
+    by its CUDA graphs and K4's ``k4`` launches are those of its captures:
+    WARMUP_STEPS + 1 each, none at a replay."""
+    stats = head.serve_stats
+    return (sum(stats.steps.values()) == calls
+            and k4 == (WARMUP_STEPS + 1) * sum(stats.captures.values()))
+
+
 def _recording_run_model(learner, records):
     """Wrap learner.run_model: each trajectory's mode, whether it trained,
     loss, terms, frames, synchronized seconds and the launches of each LSTM
@@ -2263,8 +2272,9 @@ def _training(dev, smi, root):
     require(all(np.isfinite(r["loss"]) and np.isfinite(r["terms"]).all() for r in records),
             "a training or validation loss is not finite")
     require(all(n == 0 for n in k4_train), "an LSTM kernel launched in a train step")
-    require(k4_val == chunks(validated) and sum(sum(r["launches"]) for r in validated) == k4_val,
-            "validation did not run K4 (cluster route) once per chunk")
+    require(_served(learner.model.vitfly_vitlstm, chunks(validated), k4_val)
+            and sum(sum(r["launches"]) for r in validated) == k4_val,
+            "validation did not serve V(phi) (K4, cluster route) once per chunk")
     require(launches == {**{name: 0 for name in KERNELS}, "K4 cluster": k4_val},
             "train_loop launched another kernel than K4's cluster route in validation")
 
@@ -2292,12 +2302,18 @@ def _training(dev, smi, root):
     log(f"workspace {sorted(files)}; model_ep000001.pth reloaded bit for bit; one streaming "
         f"step with it: velocity {vel.tolist()}")
 
-    # validation through K4 against the plain loop, and its rate
+    # validation through K4 against the plain loop, and its rate: V(phi)
+    # serves every chunk by its graphs, the reloaded weights' captured in the
+    # warm-up pass, so the timed pass replays them and launches no K4 itself
+    stats = learner.model.vitfly_vitlstm.serve_stats
+    served = sum(stats.steps.values())
     val_err, n_fused, n_plain, val_s, val_frames = _validation_vs_plain(
         learner, run_model, lstm_stacked_cluster)
-    log(f"validation with K4 ({n_fused} launches) against the plain loop ({n_plain}): max "
-        f"|diff| / max(1, |x|) over losses, terms, velocities and depths {val_err:.3e}")
-    require(n_fused == chunks(validated) // cfg.N_eps and n_plain == 0,
+    served = sum(stats.steps.values()) - served
+    log(f"validation with K4 ({n_fused} launches outside V(phi)'s graphs; {served} served "
+        f"calls over three passes) against the plain loop ({n_plain}): max |diff| / max(1, "
+        f"|x|) over losses, terms, velocities and depths {val_err:.3e}")
+    require(n_fused == 0 and n_plain == 0 and served == 3 * (chunks(validated) // cfg.N_eps),
             "validation's K4 launches")
     require(val_err <= VEL_ATOL, "validation through K4 disagrees with the plain loop")
 
@@ -2508,8 +2524,10 @@ def _data_parallel(dev, smi, root, seq_numbers):
             "the LR schedule did not land at the epoch fractions")
     require(all(n == 0 for _, e in epochs for n in e.values()),
             "a kernel launched in a DP train step")
-    require(launches == {**{name: 0 for name in KERNELS}, "K4 cluster": val_chunks},
-            "DP train_loop: not K4 (cluster) once per validation chunk and nothing else")
+    require(_served(learner.model.vitfly_vitlstm, val_chunks, launches["K4 cluster"])
+            and launches == {**{name: 0 for name in KERNELS},
+                             "K4 cluster": launches["K4 cluster"]},
+            "DP train_loop: not V(phi) (K4, cluster) once per validation chunk and nothing else")
 
     data, ev_offsets = learner._get_device_data("train", B)
     starts = [int(s) + 1 for s in learner.train.traj_starts]
@@ -3914,6 +3932,13 @@ def phase_driver_data(dev, smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _zero_state(model):
+    """V(phi)'s zero (h, c) on ``model``'s device: given to a forward, it
+    runs eagerly (its serving graph takes only a state of None)."""
+    dev = model.nn_fc2.weight_orig.device
+    return torch.zeros(3, 128, device=dev), torch.zeros(3, 128, device=dev)
+
+
 def _k4_vs_plain(lstm, run):
     """``run()`` (a forward through the LSTM module ``lstm`` on the card) at
     full f32, K4's input and output recorded, then the plain loop on that
@@ -4007,8 +4032,7 @@ def phase_probes(dev, smi, trajs):
         x, _gt, dv, _nvy, _floor = overfit_probe.probe_frames(traj, n_frames)
         inp = torch.clamp(torch.as_tensor(x, device=dev) * 2.0, 0.0, 1.0)
         dv = torch.as_tensor(dv, device=dev)
-        err, cerr = _k4_vs_plain(model.lstm, lambda: stepfn.apply_for_loss(model, "vitfly",
-                                                                          inp, dv))
+        err, cerr = _k4_vs_plain(model.lstm, lambda: model(inp, dv, None, _zero_state(model)))
         log(f"overfit_probe's final check (T = {n_frames}): K4 against the plain loop, out and h "
             f"max|diff| {err:.3e}, c {cerr:.3e} relative (atol {K4_ATOL})")
         require(err <= K4_ATOL and cerr <= K4_ATOL, "overfit_probe's K4 disagrees with the plain loop")
@@ -4050,7 +4074,7 @@ def phase_probes(dev, smi, trajs):
                 "bf16_accept's report")
         b16 = bf16_accept.bf16enc(model)
         for arm, m, x in (("f32", model, small), ("bf16", b16, small.to(torch.bfloat16))):
-            err, cerr = _k4_vs_plain(m.lstm, lambda: m(x, desvel))
+            err, cerr = _k4_vs_plain(m.lstm, lambda: m(x, desvel, None, _zero_state(m)))
             log(f"bf16_accept's {arm} arm (T = {bf16_accept.WINDOWS}): K4 against the plain "
                 f"loop, out and h "
                 f"max|diff| {err:.3e}, c {cerr:.3e} relative (atol {K4_ATOL})")
@@ -4058,9 +4082,11 @@ def phase_probes(dev, smi, trajs):
                     f"bf16_accept's {arm} arm: K4 disagrees with the plain loop")
         numbers["bf16"] = rep
     log(f"probes' launches: {({n: c for n, c in launches.items() if c})}")
-    # one a probe's sequence: the overfit check; three runs of PROBE_FRAMES
-    # frames a kind (timed, carried, reset); the two arms
-    require(launches["K4 cluster"] == 1 + 2 * 3 * ol_frames + 2, "the probes' K4 launches")
+    # one a frame of three runs of PROBE_FRAMES frames a kind (timed, carried,
+    # reset; each from a given zero state, so eager); the overfit check and
+    # the two arms are served by V(phi)'s graphs: WARMUP_STEPS + 1 each
+    require(launches["K4 cluster"] == 3 * (WARMUP_STEPS + 1) + 2 * 3 * ol_frames,
+            "the probes' K4 launches")
     return dict(launches=launches, **numbers)
 
 

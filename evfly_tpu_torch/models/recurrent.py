@@ -162,6 +162,12 @@ class LSTM(ParamLeaf):
             self._packed_key = key
         return self._packed
 
+    def kernel(self) -> Tuple[str, str]:
+        """The fused kernel an inference call on CUDA takes: (mode, route),
+        which a captured graph is keyed by."""
+        return (self.mode or lstm_fused.FUSED_LSTM_MODE,
+                lstm_fused.choose_route(self.hidden_size, self.num_layers))
+
     def forward(self, x, hidden=None, generator: Optional[torch.Generator] = None):
         """``lstm_apply`` with the module's parameters, its weights packed
         once for the fused kernel."""

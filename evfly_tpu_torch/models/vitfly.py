@@ -14,19 +14,27 @@ streaming pipeline) they are (G, L, hidden).  LSTMNet's LSTM (hidden 395)
 and UNetConvLSTMNet's (hidden 200) always take the plain loop: the fused
 kernels take hidden sizes that are multiples of 128
 (``recurrent.fused_wanted``), as in the JAX package.
+
+``LSTMNetVIT`` serves an inference call on CUDA of whole sequences from a
+zero state by replaying a CUDA graph of its forward (``ServeKey``), captured
+as the streaming pipelines capture theirs (``stream.pipeline._Steps``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import itertools
+import weakref
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..ops import imageops
-from ..precision import with_precision
+from ..precision import get_precision, with_precision
+from ..stream.pipeline import StepStats, _Slot, _Steps
 from ..utils import profiling
+from . import recurrent
 from .common import BatchNorm2d, Conv2d, ConvTranspose2d, Linear, Params, SpectralLinear
 from .recurrent import LSTM
 from .vit import MixTransformerEncoderLayer
@@ -43,6 +51,45 @@ def refine_inputs(img: torch.Tensor, quat: Optional[torch.Tensor]):
     return img, quat
 
 
+class ServeKey(NamedTuple):
+    """What a serving graph of ``LSTMNetVIT`` depends on beyond its buffers'
+    addresses; a change to any of it captures anew."""
+    inputs: tuple             # (shape, dtype) of img, desvel and quat (None when not given)
+    device: torch.device
+    precision: str            # set_precision
+    fused_lstm: bool          # set_fused_lstm
+    lstm: Tuple[str, str]     # the LSTM's (mode, route)
+    weights: tuple            # (data_ptr, _version) of every parameter and buffer
+
+
+def _serves_by_graph(model: nn.Module, img: torch.Tensor, hidden, generator) -> bool:
+    """Whether ``LSTMNetVIT.forward`` replays a serving graph, from what the
+    call shows alone: a CUDA input, no autograd (``no_grad`` or
+    ``inference_mode``), eval mode, whole sequences from a zero state
+    (``hidden`` None), no generator, and no graph capture around the call
+    (the streaming pipelines capture the joint model's head whole)."""
+    return (img.is_cuda and not torch.is_grad_enabled() and not model.training
+            and hidden is None and generator is None
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def _weights_key(module: nn.Module) -> tuple:
+    """(data_ptr, _version) of every parameter and buffer of ``module``, as
+    ``recurrent.LSTM.packed`` keys its cache: a replaced tensor changes its
+    address, an edit in place (``load_state_dict``, an optimizer step) its
+    version.  A walk of the module dicts: ``parameters()`` takes 2.5 times
+    as long."""
+    out = []
+    stack = [module]
+    while stack:
+        m = stack.pop()
+        for t in itertools.chain(m._parameters.values(), m._buffers.values()):
+            if t is not None:
+                out.append((t.data_ptr(), t._version))
+        stack.extend(m._modules.values())
+    return tuple(out)
+
+
 class LSTMNetVIT(nn.Module):
     """ViT + LSTM, the paper's V(phi): 3,563,663 params."""
 
@@ -54,6 +101,9 @@ class LSTMNetVIT(nn.Module):
         self.lstm = LSTM(517, 128, 3, gen, dev, bias=True, dropout=0.1)
         self.nn_fc2 = SpectralLinear(128, 3, gen, dev)
         self.down_sample = Conv2d(48, 12, 3, gen, dev, padding=1)
+        # the serving graphs' counters (steps, captures, searched per ServeKey)
+        self.serve_stats = StepStats()
+        self._serving: Optional[_Steps] = None
 
     def load_params(self, params: Params) -> "LSTMNetVIT":
         """Load a state_dict (a checkpoint, or ``port.from_jax_params``);
@@ -83,13 +133,75 @@ class LSTMNetVIT(nn.Module):
         ``frame_mask`` is taken for the zoo's common signature and unused:
         the model has no BatchNorm.  Runs at the precision of
         ``evfly_tpu_torch.set_precision``; the span ``evfly.head``
-        (``utils.profiling``).
+        (``utils.profiling``), whose count ``replayed`` is 1 for a replay.
+
+        On CUDA, a call with no autograd, in eval mode, from a zero state
+        and with no generator, outside a graph capture
+        (``_serves_by_graph``), replays a CUDA graph of this forward
+        captured for its ``ServeKey``: the inputs are copied into the
+        graph's buffers, and velocity, h and c come back as clones.  Each
+        key seen once costs one capture (``stream.pipeline._Steps``: two
+        warm-up calls under cuDNN's algorithm search, then the capture; its
+        spans ``evfly.serve.fill``, ``.capture`` and ``.replay``); new
+        weights (``load_params``, an optimizer step) replace the graph of
+        their input shape.  ``serve_stats`` counts the calls and captures
+        per key.  Every other call runs eagerly.
         Returns (velocity (..., 3), (h, c))."""
-        with profiling.span("evfly.head"):
-            lead, img, desvel, quat = _flatten(img, desvel, quat)
-            out = torch.cat([self._encode(img), desvel / 10.0, quat], dim=1)
-            out, h = self.lstm(out.reshape(*lead, out.shape[-1]), hidden, generator)
-            return self.nn_fc2(out), h
+        replay = _serves_by_graph(self, img, hidden, generator)
+        with profiling.span("evfly.head", replayed=int(replay)):
+            if replay:
+                vel, h, c = self._replay(img, desvel, quat)
+                return vel, (h, c)
+            return self._head(img, desvel, quat, hidden, generator)
+
+    def _head(self, img, desvel, quat, hidden=None, generator=None):
+        """The forward's body, run eagerly."""
+        lead, img, desvel, quat = _flatten(img, desvel, quat)
+        out = torch.cat([self._encode(img), desvel / 10.0, quat], dim=1)
+        out, h = self.lstm(out.reshape(*lead, out.shape[-1]), hidden, generator)
+        return self.nn_fc2(out), h
+
+    def serve_key(self, img: torch.Tensor, desvel: torch.Tensor,
+                  quat: Optional[torch.Tensor] = None) -> ServeKey:
+        """The key of a served call on these inputs under the current
+        settings and weights."""
+        return ServeKey(
+            tuple(None if t is None else (tuple(t.shape), t.dtype) for t in (img, desvel, quat)),
+            img.device, get_precision(), recurrent.fused_lstm_enabled(), self.lstm.kernel(),
+            _weights_key(self))
+
+    def _replay(self, img, desvel, quat) -> tuple:
+        """One served call: the slot of its key (the slot of the same
+        inputs under other weights dropped), filled and replayed."""
+        steps = self._serving
+        if steps is None or steps.device != img.device:
+            steps = self._serving = _Steps(img.device, True, [], "evfly.serve")
+            steps.stats = self.serve_stats
+        key = self.serve_key(img, desvel, quat)
+        if key not in steps.slots:
+            for old in [k for k in steps.slots
+                        if k._replace(weights=()) == key._replace(weights=())]:
+                del steps.slots[old]
+        given = {"img": img, "desvel": desvel, "quat": quat}
+        model = weakref.ref(self)  # the graph's body holds no reference to the model
+
+        def make():
+            # ordinary tensors even under inference_mode: later calls may copy under no_grad
+            with torch.inference_mode(False):
+                bufs = {name: torch.empty_like(t, memory_format=torch.contiguous_format)
+                        for name, t in given.items() if t is not None}
+
+            def body():
+                vel, (h, c) = model()._head(bufs["img"], bufs["desvel"], bufs.get("quat"))
+                return vel, h, c
+
+            return _Slot(bufs, body)
+
+        def fill(bufs):
+            for name, buf in bufs.items():
+                buf.copy_(given[name])
+
+        return steps.run(key, make, fill)
 
 
 def _generator(generator: Optional[torch.Generator]) -> torch.Generator:

@@ -71,7 +71,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..models import recurrent
 from ..models.common import COMPOSITE_IO, StreamIO
-from ..ops import lstm_fused, voxelizer
+from ..ops import voxelizer
 from ..ops.percentile import approx_abs_quantile
 from ..precision import get_precision, with_precision
 from ..utils import profiling
@@ -257,10 +257,12 @@ def _cudnn_search():
 
 @dataclasses.dataclass
 class StepStats:
-    """A pipeline's counters, kept whether or not anything traces.
+    """A pipeline's counters (and V(phi)'s serving graphs'), kept whether or
+    not anything traces.
 
-    ``steps``, ``captures`` and ``searched`` per ``GraphKey``: on a graph
-    pipeline each step replays its key's graph, and the first step of a
+    ``steps``, ``captures`` and ``searched`` per key (a pipeline's
+    ``GraphKey``, ``models.vitfly.ServeKey``): on a graph pipeline each
+    step replays its key's graph, and the first step of a
     key captures it after ``WARMUP_STEPS`` eager steps; ``searched`` counts
     the captures whose warm-up ran cuDNN's algorithm search (every capture:
     its set-up grows by the search, once per new shape in a process);
@@ -280,32 +282,43 @@ class _Steps:
     """A pipeline's steps: one ``_Slot`` for each ``GraphKey``, run eagerly
     or, with ``graph``, as replays of the slot's CUDA graph.  ``state``
     holds the static hidden-state tensors, which the warm-up steps before a
-    capture leave as they found them."""
+    capture leave as they found them.  ``spans`` names the steps' spans
+    ``<spans>.fill``, ``<spans>.capture`` and ``<spans>.replay``: the
+    pipelines' ``evfly.stream``, V(phi)'s serving graphs' ``evfly.serve``
+    (``models.vitfly.LSTMNetVIT``).  A copy (``copy.deepcopy``, pickle)
+    keeps the counters and no slot: a graph replays the buffers it was
+    captured on."""
 
-    def __init__(self, device: torch.device, graph: bool, state: List[torch.Tensor]):
+    def __init__(self, device: torch.device, graph: bool, state: List[torch.Tensor],
+                 spans: str = "evfly.stream"):
         self.device = device
         self.graph = graph and device.type == "cuda"
         self.state = state
-        self.slots: Dict[GraphKey, _Slot] = {}
+        self.slots: Dict[tuple, _Slot] = {}
         self.stats = StepStats()
+        self._spans = tuple(f"{spans}.{name}" for name in ("fill", "capture", "replay"))
 
-    def run(self, key: GraphKey, make: Callable[[], _Slot],
+    def __getstate__(self):
+        return {**self.__dict__, "slots": {}}
+
+    def run(self, key: tuple, make: Callable[[], _Slot],
             fill: Callable[[Dict[str, torch.Tensor]], None], **counts: int) -> tuple:
         """One step; ``counts`` go into its fill span."""
+        fill_span, capture_span, replay_span = self._spans
         slot = self.slots.get(key)
         if slot is None:
             slot = self.slots[key] = make()
         self.stats.steps[key] += 1
-        with profiling.span("evfly.stream.fill", **counts):
+        with profiling.span(fill_span, **counts):
             fill(slot.inputs)
         if not self.graph:
             return slot.body()
         if slot.graph is None:
-            with profiling.span("evfly.stream.capture", searched=1):
+            with profiling.span(capture_span, searched=1):
                 self._capture(slot)
             self.stats.captures[key] += 1
             self.stats.searched[key] += 1
-        slot.marks.replay(slot.graph, "evfly.stream.replay")
+        slot.marks.replay(slot.graph, replay_span)
         # the next replay overwrites the graph's outputs
         return tuple(None if o is None else o.clone() for o in slot.outputs)
 
@@ -362,9 +375,7 @@ class _Pipeline:
         H, W = self.input_hw
         return GraphKey(
             kind, size, get_precision(), (self.quantile_scale, self.fast_percentile),
-            recurrent.fused_lstm_enabled(),
-            tuple((m.mode or lstm_fused.FUSED_LSTM_MODE,
-                   lstm_fused.choose_route(m.hidden_size, m.num_layers)) for m in self._lstms),
+            recurrent.fused_lstm_enabled(), tuple(m.kernel() for m in self._lstms),
             voxelizer.k1_route(H, W, False) if kind == "events" else None,
         )
 

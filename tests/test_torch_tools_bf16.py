@@ -44,6 +44,7 @@ import jax.numpy as jnp
 
 from evfly_tpu_torch.models.port import from_jax_params
 from evfly_tpu_torch.models.vitfly import LSTMNetVIT
+from evfly_tpu_torch.stream.pipeline import WARMUP_STEPS
 from evfly_tpu_torch.tools import bf16_accept
 
 from torch_tools_cases import jax_tool
@@ -251,6 +252,8 @@ def test_arms_on_card_match_cpu(cuda_device):
     rf, rb = bf16_accept.arms(cpu, *bf16_accept.inputs(bf16_accept.WINDOWS, CPU))
     lstm_fused.lstm_stacked_cluster.launches = 0
     gf, gb = bf16_accept.arms(card, *bf16_accept.inputs(bf16_accept.WINDOWS, cuda_device))
-    assert lstm_fused.lstm_stacked_cluster.launches == 2
+    # each arm served by its own CUDA graph: K4 at two warm-up calls and the capture
+    assert lstm_fused.lstm_stacked_cluster.launches == 2 * (WARMUP_STEPS + 1)
+    assert sum(card.serve_stats.captures.values()) == 1
     assert (gf.cpu() - rf).abs().max().item() <= 1e-4
     assert (gb.cpu() - rb).abs().max().item() <= 2.0 * (rf - rb).abs().max().item()

@@ -53,6 +53,7 @@ from evfly_tpu_torch.models.vitfly import LSTMNetVIT
 from evfly_tpu_torch.ops import imageops
 from evfly_tpu_torch.train import losses, stepfn
 from evfly_tpu_torch.ops.lstm_fused import lstm_stacked_cluster
+from evfly_tpu_torch.stream.pipeline import WARMUP_STEPS
 from torch_helpers import cuda_device  # noqa: F401 (fixture)
 
 UNET_HW = (190, 190)  # the smallest frame the 5-level valid-padding UNet takes
@@ -397,7 +398,8 @@ def jax_parse_config_from(cfg):
 def test_train_step_on_the_card_matches_the_cpu(cuda_device):
     """V(phi)'s train step (depth in, input_frame_scale 2) on the card
     against the CPU from one init, no augmentation or dropout; then an eval
-    step, which runs the LSTM as one K4 launch and no gradient."""
+    step, served by V(phi)'s CUDA graph: K4 launched at its two warm-up
+    calls and its capture, once each, and no gradient."""
     rng = np.random.default_rng(40)
     n, lr = 8, 1e-4
     mask = (np.arange(n) < 7).astype(np.float32)
@@ -436,5 +438,6 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device):
                                      input_frame_scale=2.0)
     loss, values, pv, _ = evaluate({k: torch.from_numpy(v).to(cuda_device) for k, v in nb.items()})
     torch.cuda.synchronize()
-    assert lstm_stacked_cluster.launches == before + 1
+    assert lstm_stacked_cluster.launches == before + WARMUP_STEPS + 1
+    assert sum(model.serve_stats.captures.values()) == 1
     assert not loss.requires_grad and bool(torch.isfinite(pv).all())
