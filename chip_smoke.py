@@ -25,8 +25,8 @@ just before it and read just after:
 
 - serving: 256 windows x 5,000 raw events -> ``event_histogram_scaled_resized``
   (K3 on clusters) -> ``LSTMNetVIT`` with ``artifacts/pretrain_v_final.pth`` (its LSTM
-  through K4 on the cluster route) -> velocity (256, 3), its rate timed
-  against the L2 route in turns;
+  through K4 on the cluster route) -> velocity (256, 3), and its launches
+  with the LSTM forced onto the L2 route;
 - the fused rung of ``bench.py``: the same windows -> ``event_histogram_scaled``
   (K2 on clusters) -> bilinear resize -> ``LSTMNetVIT`` (K4);
 - streaming: ``StreamingPipeline.step_events`` with the joint model
@@ -149,15 +149,13 @@ just before it and read just after:
   ``bf16_accept`` at 256 windows (each arm's K4 output against the plain
   loop; ``overfit_ok`` and ``accept`` reported, not required).
 
-It then times a streaming step and the G-stream rates, each as graphs and
-eagerly in turns, in the manner of ``tools/torch_latency_bench.py``, and
-profiles a graph step beside an eager one for their idle shares, and
-times the train step (chunks/s, frames/s, idle share, peak memory),
-validation (frames/s) and an epoch, and the velocity heads' train step,
-validation and streaming step.  Every
-phase prints a flushed line when it starts and when it ends.  The last lines of standard output are the card's name and
-power limit, the kernels' JSON line and the result line
-``{"ok": true, "device": {...}}``.
+It also times the train step (chunks/s, frames/s, idle share, peak
+memory), validation (frames/s) and an epoch, and the velocity heads' train
+step, validation and streaming step; the speed of the serving and
+streaming paths is the benchmark's (``perfbench/``).  Every phase prints a
+flushed line when it starts and when it ends.  The last lines of standard
+output are the card's name and power limit, the kernels' JSON line and
+the result line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, and prints no result, when there is no CUDA device, when a
 kernel fails to build, launch or agree, or when the run exceeds its budget.
@@ -182,6 +180,7 @@ import numpy as np
 import torch
 
 from evfly_tpu_torch.configs import EvflyConfig
+from evfly_tpu_torch.graphs import WARMUP_STEPS
 from evfly_tpu_torch.data import evt3, realdata, to_events
 from evfly_tpu_torch.data.dataloading import cache_dataset
 from evfly_tpu_torch.models import port
@@ -271,7 +270,7 @@ from evfly_tpu_torch.sim import closed_loop, ppo, quadrotor_env, render, vision_
 from evfly_tpu_torch.sim.launch_evaluation import run_evaluation
 from evfly_tpu_torch.sim.obstacles import generate_forest
 from evfly_tpu_torch.stream import BatchedStreamingPipeline, StreamingPipeline, hil
-from evfly_tpu_torch.stream.pipeline import WARMUP_STEPS, event_bucket
+from evfly_tpu_torch.stream.pipeline import event_bucket
 from evfly_tpu_torch.train import Learner, stepfn
 from evfly_tpu_torch.train.learner import dataloader_kwargs
 from evfly_tpu_torch.tools import (bf16_accept, datagen, e2e_demo, esim_divergence_report,
@@ -305,21 +304,18 @@ MANY_WINDOWS, FEW_EVENTS, SMALL_H, SMALL_W = 70_000, 16, 64, 86  # past grid.y's
 # (G, T) of the K4 and K5 checks; (G, T) of their timings, in turns
 LSTM_CHECKS = ((1, N_WINDOWS), (1, 2), (1, 1), (16, N_WINDOWS), (16, 2), (16, 1))
 LSTM_TIMED = ((1, N_WINDOWS), (1, 1), (16, 1), (64, 1))
-TURNS = ("l2", "cluster", "cluster", "l2")  # old, new, new, old
 # the same at the serving LSTM's shape for the kernels alone, with the grid
 # route forced there
 KERNEL_TURNS = ("l2", "cluster", "grid", "grid", "cluster", "l2")
 # (G, T) of the grid route at H = 256, L = 3 (which it took from the L2
 # route), timed in turns with L2
 GRID_256_TIMED = ((1, 1), (1, 16))
-GRAPH_TURNS = (False, True, True, False)     # eager, graph, graph, eager
 STREAM_WINDOWS, STREAMS = 8, 16         # streaming steps; batched streams
 HIL_SECONDS = 2.0                       # 30 ticks of the deployment loop at 15 Hz
 # the window of the graph-step phase cut to another event bucket (2,048)
 SECOND_BUCKET_AT, SECOND_BUCKET_EVENTS = 5, 1500
-# tools/latency_bench.py's counts: chained and synchronized streaming
-# steps, and batched steps at each number of streams
-CHAINED_STEPS, SYNC_STEPS, RATE_STEPS, RATE_STREAMS = 100, 20, 30, (16, 64)
+# _streaming_ms's chained and synchronized streaming steps
+CHAINED_STEPS, SYNC_STEPS = 100, 20
 
 # the training phase: the joint configuration of tools/train_policy.py
 # (_cfg :61-98 and _joint_cfg :179-198) at full width, from policy_best.pth,
@@ -1233,9 +1229,9 @@ def serving_rate(step) -> list:
     return reps
 
 
-def phase_main_path(dev, smi):
+def phase_main_path(dev):
     """The serving path through K3 and K4 on the cluster route, against its
-    plain path; its rate against the L2 route's, in turns."""
+    plain path; its launches, and the L2 route's with its LSTM forced there."""
     model = LSTMNetVIT(device=dev).eval().load_params(load_state_dict(CHECKPOINT))
     ex, ey, ep = make_events(2, N_WINDOWS, N_EVENTS, dev)
     desvel = torch.full((N_WINDOWS, 1), 4.0, device=dev)
@@ -1275,8 +1271,7 @@ def phase_main_path(dev, smi):
         # scales with its size
         require(cerr <= VEL_ATOL * max(1.0, cmax), "LSTM cell state disagrees with the plain path")
 
-        # the same path with its LSTM forced onto the L2 route: its launches,
-        # then the two routes' rates in turns
+        # the same path with its LSTM forced onto the L2 route: its launches
         with forced_route("l2"):
             lstm_stacked.launches = lstm_stacked_cluster.launches = 0
             step()
@@ -1284,20 +1279,7 @@ def phase_main_path(dev, smi):
         l2_launches = {"K4 L2": lstm_stacked.launches}
         require(lstm_stacked.launches > 0 and lstm_stacked_cluster.launches == 0,
                 "the L2 route did not run")
-        rates = {"l2": [], "cluster": []}
-        for route in TURNS:
-            with forced_route(route):
-                rates[route].append(serving_rate(step))
-    for route in ("cluster", "l2"):
-        runs = rates[route]
-        log(f"main path, K4 {route} route: windows/s medians "
-            + ", ".join(f"{statistics.median(r):.1f}" for r in runs)
-            + f" (5 reps x 10 steps each, in turns L2, cluster, cluster, L2; min "
-            f"{min(min(r) for r in runs):.1f}, max {max(max(r) for r in runs):.1f}) on {smi}, "
-            f"f32, TF32 off")
-    wps = statistics.median([v for r in rates["cluster"] for v in r])
-    wps_l2 = statistics.median([v for r in rates["l2"] for v in r])
-    return launches, l2_launches, wps, wps_l2, step
+    return launches, l2_launches
 
 
 def phase_fused_rung(dev):
@@ -1425,7 +1407,7 @@ def phase_streaming(dev, model):
             "K1's band route did not run")
     require(berr <= VEL_ATOL, "the streaming path through K1's band route disagrees")
     lstm.mode = None
-    return launches, windows
+    return launches
 
 
 def sparse_frames(seed: int, shape, dev) -> torch.Tensor:
@@ -1590,55 +1572,6 @@ def _free_device_memory():
     torch.cuda.empty_cache()
 
 
-def phase_card_numbers(dev, model, windows, smi):
-    """tools/torch_latency_bench.py's numbers on the card: ms per streaming
-    step over 100 chained steps (one synchronize) and p50 of 20
-    synchronized steps, each LSTM mode on both routes in turns, each route
-    eagerly and as CUDA graphs; and steps/s of G streams stepped together,
-    eager and graph in turns (eager, graph, graph, eager)."""
-    numbers = {}
-    lstm = model.vitfly_vitlstm.lstm
-    with torch.inference_mode():
-        for mode in ("stacked", "wavefront"):
-            lstm.mode = mode
-            for route in TURNS:
-                for graph in (False, True):
-                    _free_device_memory()
-                    pipe = StreamingPipeline(model, fast_percentile=True, device=dev,
-                                             graph=graph)
-                    with forced_route(route):
-                        chained, samples = _streaming_ms(pipe, windows)
-                    p50 = statistics.median(samples)
-                    numbers.setdefault((mode, route, graph), []).append((chained, p50))
-                    log(f"streaming step ({mode}, {route} route, "
-                        f"{'graph' if graph else 'eager'}, fast percentile): {chained:.3f} ms "
-                        f"per step over {CHAINED_STEPS} chained steps; p50 {p50:.3f} ms of "
-                        f"{SYNC_STEPS} synchronized (min {min(samples):.3f}, max "
-                        f"{max(samples):.3f}) on {smi}")
-        lstm.mode = None
-        for G in RATE_STREAMS:
-            frames = sparse_frames(5, (G, H, W), dev)
-            for graph in GRAPH_TURNS:
-                _free_device_memory()
-                pipe = BatchedStreamingPipeline(model, G, fast_percentile=True, device=dev,
-                                                graph=graph)
-                for _ in range(2):
-                    pipe.step_frames(frames)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(RATE_STEPS):
-                    pipe.step_frames(frames)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-                rate = G * RATE_STEPS / dt
-                numbers.setdefault((G, graph), []).append(rate)
-                log(f"batched G={G} ({'graph' if graph else 'eager'}): {rate:.1f} steps/s "
-                    f"({dt / RATE_STEPS * 1e3:.3f} ms per batched step, {int(rate / 15.0)} "
-                    f"streams at 15 Hz) on {smi}")
-                del pipe
-    return numbers
-
-
 def hil_sensor(pos, t):
     """tests/test_hil.py's sensor: 500 random events at 640x480 that
     depend on t alone, so every tick's frame is the same whatever the
@@ -1724,10 +1657,7 @@ def phase_hil(dev, model, smi):
     return {label: statistics.median(t) for label, (_, _, t, _, _) in runs.items()}
 
 
-_SERVING_KERNELS = {"K3": "hist_scaled_cluster_kernel", "K4": "lstm_cluster_kernel"}
-
-
-def phase_profile(step, kernel_names=_SERVING_KERNELS, label="main-path", grad=False):
+def phase_profile(step, kernel_names, label, grad=False):
     """Device time of 3 steps of a path by kernel, under torch.profiler
     (in inference mode unless the steps need autograd, ``grad``);
     ``kernel_names`` maps a label to a substring of a kernel's name.
@@ -4231,34 +4161,17 @@ def main() -> int:
     with Phase(f"fault 4: K1 with {MANY_WINDOWS:,} windows"):
         phase_many_windows(dev)
     with Phase("main path"):
-        launches, l2_launches, wps, wps_l2, step = phase_main_path(dev, smi)
-    with Phase("profile"):
-        phase_profile(step)
+        launches, l2_launches = phase_main_path(dev)
     with Phase("fused rung"):
         rung_launches = phase_fused_rung(dev)
     with Phase("streaming path"):
-        stream_launches, windows = phase_streaming(dev, model)
+        stream_launches = phase_streaming(dev, model)
     with Phase(f"batched streaming, {STREAMS} streams"):
         phase_batched(dev, model)
     with Phase("graph step"):
         phase_graph_step(dev, model)
     with Phase("deployment loop (HIL)"):
         tick_ms = phase_hil(dev, model, smi)
-    with Phase("card numbers"):
-        numbers = phase_card_numbers(dev, model, windows, smi)
-    with Phase("streaming profile, graph and eager"):
-        idle = {}
-        for graph in (True, False):
-            pipe = StreamingPipeline(model, fast_percentile=True, device=dev, graph=graph)
-            prof = phase_profile(lambda: pipe.step_events(*windows[0]),
-                                 {"K1": "hist_frame_cluster_kernel", "K4": "lstm_cluster_kernel"},
-                                 f"streaming ({'graph' if graph else 'eager'})")
-            idle["graph" if graph else "eager"] = None if prof is None else prof["idle_share"]
-    with Phase(f"batched profile, {STREAMS} streams"):
-        bpipe = BatchedStreamingPipeline(model, STREAMS, fast_percentile=True, device=dev)
-        bframes = sparse_frames(6, (STREAMS, H, W), dev)
-        phase_profile(lambda: bpipe.step_frames(bframes), {"K4": "lstm_cluster_kernel"},
-                      f"batched G={STREAMS}")
     with Phase("training: Learner.train_loop, joint model at full width"):
         # what the streaming phases' graph captures leave reserved: a cuBLAS
         # workspace on each stream a warm-up ran on pins a cached segment
@@ -4413,17 +4326,7 @@ def main() -> int:
             closed_loop_launches=closed["launches"][f"K1 windows {route}"],
             **driver_launches(f"K1 windows {route}"), **k1w[route]))
     closed_numbers = {k: v for k, v in closed.items() if k != "launches"}
-    streaming = "; ".join(
-        f"{mode} {route} {'graph' if graph else 'eager'} "
-        + ", ".join(f"{c:.3f}" for c, _ in numbers[(mode, route, graph)])
-        for mode in ("stacked", "wavefront") for route in ("cluster", "l2")
-        for graph in (True, False))
-    log(f"done in {time.perf_counter() - _T0:.1f}s; main path {wps:.1f} windows/s (L2 route "
-        f"{wps_l2:.1f}); streaming ms per chained step: {streaming}; idle share of a "
-        f"streaming step {idle}; p50 ms per HIL tick {tick_ms}; steps/s "
-        + ", ".join(f"G={G} {'graph' if graph else 'eager'} "
-                    + ", ".join(f"{r:.1f}" for r in numbers[(G, graph)])
-                    for G in RATE_STREAMS for graph in (True, False))
+    log(f"done in {time.perf_counter() - _T0:.1f}s; p50 ms per HIL tick {tick_ms}"
         + f"; zoo windows/s {zoo_rates}; event generation ms per trajectory {gen_ms}"
         + f"; closed loop {closed_numbers}; PPO {rl_numbers}"
         + f"; protocol {({k: v for k, v in protocol.items() if k != 'launches'})}"

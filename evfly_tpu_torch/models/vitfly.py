@@ -16,8 +16,8 @@ kernels take hidden sizes that are multiples of 128
 (``recurrent.fused_wanted``), as in the JAX package.
 
 ``LSTMNetVIT`` serves an inference call on CUDA of whole sequences from a
-zero state by replaying a CUDA graph of its forward (``ServeKey``), captured
-as the streaming pipelines capture theirs (``stream.pipeline._Steps``).
+zero state by replaying a CUDA graph of its forward (``ServeKey``, captured
+and replayed by ``graphs.Steps``).
 """
 
 from __future__ import annotations
@@ -30,9 +30,9 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..graphs import Slot, StepStats, Steps
 from ..ops import imageops
 from ..precision import get_precision, with_precision
-from ..stream.pipeline import StepStats, _Slot, _Steps
 from ..utils import profiling
 from . import recurrent
 from .common import BatchNorm2d, Conv2d, ConvTranspose2d, Linear, Params, SpectralLinear
@@ -103,7 +103,7 @@ class LSTMNetVIT(nn.Module):
         self.down_sample = Conv2d(48, 12, 3, gen, dev, padding=1)
         # the serving graphs' counters (steps, captures, searched per ServeKey)
         self.serve_stats = StepStats()
-        self._serving: Optional[_Steps] = None
+        self._serving: Optional[Steps] = None
 
     def load_params(self, params: Params) -> "LSTMNetVIT":
         """Load a state_dict (a checkpoint, or ``port.from_jax_params``);
@@ -140,12 +140,11 @@ class LSTMNetVIT(nn.Module):
         (``_serves_by_graph``), replays a CUDA graph of this forward
         captured for its ``ServeKey``: the inputs are copied into the
         graph's buffers, and velocity, h and c come back as clones.  Each
-        key seen once costs one capture (``stream.pipeline._Steps``: two
-        warm-up calls under cuDNN's algorithm search, then the capture; its
-        spans ``evfly.serve.fill``, ``.capture`` and ``.replay``); new
-        weights (``load_params``, an optimizer step) replace the graph of
-        their input shape.  ``serve_stats`` counts the calls and captures
-        per key.  Every other call runs eagerly.
+        key seen once costs one capture (``graphs.Steps``; spans
+        ``evfly.serve.fill``, ``.capture`` and ``.replay``); new weights
+        (``load_params``, an optimizer step) replace the graph of their
+        input shape.  ``serve_stats`` counts the calls and captures per
+        key.  Every other call runs eagerly.
         Returns (velocity (..., 3), (h, c))."""
         replay = _serves_by_graph(self, img, hidden, generator)
         with profiling.span("evfly.head", replayed=int(replay)):
@@ -175,7 +174,7 @@ class LSTMNetVIT(nn.Module):
         inputs under other weights dropped), filled and replayed."""
         steps = self._serving
         if steps is None or steps.device != img.device:
-            steps = self._serving = _Steps(img.device, True, [], "evfly.serve")
+            steps = self._serving = Steps(img.device, True, [], "evfly.serve")
             steps.stats = self.serve_stats
         key = self.serve_key(img, desvel, quat)
         if key not in steps.slots:
@@ -195,7 +194,7 @@ class LSTMNetVIT(nn.Module):
                 vel, (h, c) = model()._head(bufs["img"], bufs["desvel"], bufs.get("quat"))
                 return vel, h, c
 
-            return _Slot(bufs, body)
+            return Slot(bufs, body)
 
         def fill(bufs):
             for name, buf in bufs.items():

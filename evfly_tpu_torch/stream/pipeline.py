@@ -25,50 +25,35 @@ detections, with four LSTM states carried.
 
 The JAX package runs each step as one jitted program with the state
 donated.  Here a pipeline keeps its inputs and its hidden state in static
-device buffers, and on CUDA each step replays one captured
-``torch.cuda.CUDAGraph`` (``graph=True``, the default): the step writes
-the new state back into the same buffers inside the graph, and only the
-copies of the inputs into their buffers run outside it.  A window of N
-events is padded with pol-0 events, which K1 drops, to ``event_bucket(N)``
-events, one graph for each size.  A graph is captured at the first step
-of its key (``graph_key``: everything that picks a kernel or an algorithm
-at capture), after ``WARMUP_STEPS`` eager steps whose state is discarded.
-The warm-up and the capture run under cuDNN's timed algorithm search
-(``torch.backends.cudnn.benchmark``), so each convolution of the graph
-takes the algorithm that ran fastest at its own shape (batch 1, or G
-streams) on the card at hand; on the H100 cuDNN's heuristic runs some of
-the UNet's 3x3 convolutions as FFTs, 3.5 to 40 times slower.  The search
-happens in the warm-up, the capture reuses its plans.  PyTorch's plan
-cache does not key on the flag: a shape that already ran under the
-heuristic in the process keeps the heuristic's plan.
-``graph=False``, and every pipeline on the CPU, runs the same step on the
-same buffers eagerly.
+device buffers, and on CUDA each step replays one captured CUDA graph
+(``graph=True``, the default) that writes the new state back into the same
+buffers; ``graph=False``, and every pipeline on the CPU, runs the same step
+on the same buffers eagerly.  The capture, its warm-up and cuDNN's search,
+the replay and the counters are ``graphs.Steps``'s (see ``graphs``).  A
+graph is captured at the first step of its key (``graph_key``: everything
+that picks a kernel or an algorithm at capture).  A window of N events is
+padded with pol-0 events, which K1 drops, to ``event_bucket(N)`` events,
+one graph for each size.
 
-A pipeline's ``stats`` (``StepStats``) counts, always: steps, captures
-and captures taken under the search per ``GraphKey`` (a capture, with its
-warm-up steps and the search, stalls the step that takes it: in a
-deployment's 15 Hz loop, a missed tick), and the real events handed to
-``step_events`` against the padded events its kernels took.  While a
-``torch.profiler`` records, each step is a span ``evfly.stream.step``
-(``utils.profiling``) holding ``evfly.stream.fill`` (the copies into the
-buffers; ``events`` and ``bucket`` on ``step_events``),
-``evfly.stream.replay`` or the eager body, and ``evfly.stream.capture``
-(``searched`` 1); the body's ``evfly.frame`` (histogram and percentile
-scaling), ``evfly.depth`` and ``evfly.head`` are captured into each graph
-as timing events, so a traced replay gives the device time of each.
+A pipeline's ``stats`` (``graphs.StepStats``) counts the steps and
+captures per ``GraphKey``, and the real events handed to ``step_events``
+against the padded events its kernels took.  While a ``torch.profiler``
+records, each step is a span ``evfly.stream.step`` holding the steps'
+``evfly.stream.fill`` (``events`` and ``bucket`` on ``step_events``),
+``evfly.stream.replay`` or the eager body, and ``evfly.stream.capture``;
+the body's ``evfly.frame`` (histogram and percentile scaling),
+``evfly.depth`` and ``evfly.head`` are timed inside each graph.
 """
 
 from __future__ import annotations
 
-import collections
-import contextlib
-import dataclasses
 import math
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..graphs import Slot, Steps
 from ..models import recurrent
 from ..models.common import COMPOSITE_IO, StreamIO
 from ..ops import voxelizer
@@ -78,11 +63,6 @@ from ..utils import profiling
 
 # windows of events are padded to a power of two of at least this many
 EVENT_BUCKET_MIN = 1024
-# eager steps before a capture: they build the kernels' library, set their
-# shared-memory attributes, pack the LSTM weights, let cuDNN's search time
-# and pick each convolution's algorithm, and let cuBLAS and cuDNN allocate
-# their workspaces, none of which a graph may do
-WARMUP_STEPS = 2
 
 
 def event_bucket(n: int) -> int:
@@ -156,20 +136,6 @@ def _signs(pol) -> torch.Tensor:
     return torch.where(pol > 0, 1, torch.where(pol < 0, -1, 0))
 
 
-class _Slot:
-    """One step's static input buffers, the step over them (``body``: no
-    arguments, writes the new state in place, returns the outputs) and,
-    once captured, its graph, the graph's output buffers and the body's
-    spans as timing marks in the graph."""
-
-    def __init__(self, inputs: Dict[str, torch.Tensor], body: Callable[[], tuple]):
-        self.inputs = inputs
-        self.body = body
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.outputs: Optional[tuple] = None
-        self.marks: Optional[profiling.Marks] = None
-
-
 class GraphKey(NamedTuple):
     """What a captured step depends on beyond its buffers' addresses."""
     kind: str                 # "frame", "events" or "frames"
@@ -228,123 +194,6 @@ def _step_body(model, hidden, input_hw, quantile_scale: bool, fast_percentile: b
     return body
 
 
-# the side stream of every capture's warm-up, one per device: cuBLAS keeps
-# a workspace (32 MiB on Hopper) for each stream it has run on, and each
-# can pin a cached segment of up to 2 GiB that empty_cache cannot return
-_WARMUP_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
-
-
-def _warmup_stream(device: torch.device) -> "torch.cuda.Stream":
-    stream = _WARMUP_STREAMS.get(device)
-    if stream is None:
-        stream = _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
-    return stream
-
-
-@contextlib.contextmanager
-def _cudnn_search():
-    """cuDNN's timed algorithm search on for the block, the caller's
-    ``benchmark`` flag restored on exit.  Nothing else is touched:
-    ``torch.backends.cudnn.flags`` would also set ``enabled`` and
-    ``allow_tf32`` from its own defaults, against ``set_precision``."""
-    saved = torch.backends.cudnn.benchmark
-    torch.backends.cudnn.benchmark = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.benchmark = saved
-
-
-@dataclasses.dataclass
-class StepStats:
-    """A pipeline's counters (and V(phi)'s serving graphs'), kept whether or
-    not anything traces.
-
-    ``steps``, ``captures`` and ``searched`` per key (a pipeline's
-    ``GraphKey``, ``models.vitfly.ServeKey``): on a graph pipeline each
-    step replays its key's graph, and the first step of a
-    key captures it after ``WARMUP_STEPS`` eager steps; ``searched`` counts
-    the captures whose warm-up ran cuDNN's algorithm search (every capture:
-    its set-up grows by the search, once per new shape in a process);
-    ``events`` the real events handed to ``step_events``,
-    ``padded_events`` the events its kernels took (each window padded to
-    ``event_bucket``)."""
-    steps: "collections.Counter[GraphKey]" = dataclasses.field(default_factory=collections.Counter)
-    captures: "collections.Counter[GraphKey]" = dataclasses.field(
-        default_factory=collections.Counter)
-    searched: "collections.Counter[GraphKey]" = dataclasses.field(
-        default_factory=collections.Counter)
-    events: int = 0
-    padded_events: int = 0
-
-
-class _Steps:
-    """A pipeline's steps: one ``_Slot`` for each ``GraphKey``, run eagerly
-    or, with ``graph``, as replays of the slot's CUDA graph.  ``state``
-    holds the static hidden-state tensors, which the warm-up steps before a
-    capture leave as they found them.  ``spans`` names the steps' spans
-    ``<spans>.fill``, ``<spans>.capture`` and ``<spans>.replay``: the
-    pipelines' ``evfly.stream``, V(phi)'s serving graphs' ``evfly.serve``
-    (``models.vitfly.LSTMNetVIT``).  A copy (``copy.deepcopy``, pickle)
-    keeps the counters and no slot: a graph replays the buffers it was
-    captured on."""
-
-    def __init__(self, device: torch.device, graph: bool, state: List[torch.Tensor],
-                 spans: str = "evfly.stream"):
-        self.device = device
-        self.graph = graph and device.type == "cuda"
-        self.state = state
-        self.slots: Dict[tuple, _Slot] = {}
-        self.stats = StepStats()
-        self._spans = tuple(f"{spans}.{name}" for name in ("fill", "capture", "replay"))
-
-    def __getstate__(self):
-        return {**self.__dict__, "slots": {}}
-
-    def run(self, key: tuple, make: Callable[[], _Slot],
-            fill: Callable[[Dict[str, torch.Tensor]], None], **counts: int) -> tuple:
-        """One step; ``counts`` go into its fill span."""
-        fill_span, capture_span, replay_span = self._spans
-        slot = self.slots.get(key)
-        if slot is None:
-            slot = self.slots[key] = make()
-        self.stats.steps[key] += 1
-        with profiling.span(fill_span, **counts):
-            fill(slot.inputs)
-        if not self.graph:
-            return slot.body()
-        if slot.graph is None:
-            with profiling.span(capture_span, searched=1):
-                self._capture(slot)
-            self.stats.captures[key] += 1
-            self.stats.searched[key] += 1
-        slot.marks.replay(slot.graph, replay_span)
-        # the next replay overwrites the graph's outputs
-        return tuple(None if o is None else o.clone() for o in slot.outputs)
-
-    def _capture(self, slot: _Slot) -> None:
-        """Warm up on a side stream under cuDNN's search, put the state
-        back, capture.  The search times its candidates in the first
-        warm-up step, which a capture could not; the capture finds each
-        convolution's plan in PyTorch's cache.  A capture that fails
-        raises; there is no fallback to the eager step."""
-        saved = [t.clone() for t in self.state]
-        current = torch.cuda.current_stream(self.device)
-        side = _warmup_stream(self.device)
-        with _cudnn_search():
-            side.wait_stream(current)
-            with torch.cuda.stream(side):
-                for _ in range(WARMUP_STEPS):
-                    slot.body()
-            current.wait_stream(side)
-            for t, s in zip(self.state, saved):
-                t.copy_(s)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph), profiling.capture_marks() as marks:
-                outputs = slot.body()
-        slot.graph, slot.outputs, slot.marks = graph, outputs, marks
-
-
 class _Pipeline:
     """What the single-stream and the batched pipeline share: the model on
     its device, the hidden state in static buffers, and the steps."""
@@ -361,7 +210,7 @@ class _Pipeline:
         self._lstms = [m for m in model.modules() if isinstance(m, recurrent.LSTM)]
         with torch.inference_mode():
             self.hidden = model.init_hidden(streams=streams)
-        self._steps = _Steps(self.device, graph, _leaves(self.hidden))
+        self._steps = Steps(self.device, graph, _leaves(self.hidden))
         self.stats = self._steps.stats
 
     @property
@@ -438,7 +287,7 @@ class StreamingPipeline(_Pipeline):
             bufs = buffers()
             events = (tuple(bufs[k] for k in ("x", "y", "pol", "t", "n") if k in bufs)
                       if "x" in bufs else None)
-            return _Slot(bufs, self._body(bufs.get("frame"), self._desvel, events))
+            return Slot(bufs, self._body(bufs.get("frame"), self._desvel, events))
 
         with torch.inference_mode():
             return self._steps.run(self.graph_key(kind, size), make, fill, **counts)
@@ -560,7 +409,7 @@ class BatchedStreamingPipeline(_Pipeline):
 
             def make():
                 bufs = {"frame": torch.zeros(G, H, W, device=self.device)}
-                return _Slot(bufs, self._body(bufs["frame"], self.desvel))
+                return Slot(bufs, self._body(bufs["frame"], self.desvel))
 
             def fill(bufs):
                 bufs["frame"].copy_(torch.as_tensor(frames, dtype=torch.float32)

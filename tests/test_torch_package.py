@@ -22,8 +22,7 @@ from evfly_tpu_torch.train import Learner
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "evfly_tpu_torch"
 # the port's package, its smoke run and its probes under tools/
-TOOLS = ["k1_phases", "k2_phase_stamps", "path_rates", "torch_driver_runs",
-         "torch_latency_bench"]
+TOOLS = ["k1_phases", "k2_phase_stamps", "torch_driver_runs"]
 SCRIPTS = [REPO / "chip_smoke.py"] + [REPO / "tools" / f"{t}.py" for t in TOOLS]
 PORT_FILES = sorted(PORT.rglob("*.py")) + SCRIPTS
 MODULES = sorted(
@@ -34,6 +33,7 @@ MODULES = sorted(
 
 def test_import_check_covers_every_module():
     for module in ("evfly_tpu_torch.stream", "evfly_tpu_torch.stream.pipeline",
+                   "evfly_tpu_torch.graphs",
                    "evfly_tpu_torch.models.origunet", "evfly_tpu_torch.models.composites",
                    "evfly_tpu_torch.models.layers", "evfly_tpu_torch.models.common",
                    "evfly_tpu_torch.models.recurrent", "evfly_tpu_torch.ops.lstm_fused",
@@ -74,7 +74,7 @@ def test_import_check_covers_every_module():
                    "evfly_tpu_torch.tools.overfit_probe", "evfly_tpu_torch.tools.openloop_probe",
                    "evfly_tpu_torch.tools.bf16_accept",
                    "chip_smoke",
-                   "tools.k2_phase_stamps", "tools.path_rates", "tools.torch_latency_bench"):
+                   "tools.k2_phase_stamps"):
         assert module in MODULES
 
 
@@ -91,6 +91,24 @@ def test_imports_load_no_jax_and_nothing_of_evfly_tpu():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_models_load_no_stream_module():
+    """Every module of evfly_tpu_torch.models imports without loading
+    evfly_tpu_torch.stream: the captured step lives below both
+    (evfly_tpu_torch.graphs), and the models reach the pipeline only
+    inside a call."""
+    models = [m for m in MODULES if m.startswith("evfly_tpu_torch.models")]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {models!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(sorted(m for m in sys.modules if m.startswith('evfly_tpu_torch.stream')))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
 
 
 _JAX = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)

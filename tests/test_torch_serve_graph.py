@@ -35,11 +35,10 @@ import numpy as np
 import pytest
 import torch
 
-from evfly_tpu_torch import set_precision
+from evfly_tpu_torch import graphs, set_precision
 from evfly_tpu_torch.models import recurrent
 from evfly_tpu_torch.models.composites import OrigUNet_w_VITFLY_ViTLSTM
 from evfly_tpu_torch.models.vitfly import LSTMNetVIT, ServeKey
-from evfly_tpu_torch.stream import pipeline
 from evfly_tpu_torch.stream.pipeline import StreamingPipeline
 from evfly_tpu_torch.utils import profiling
 from perfbench.metrics import graph_share
@@ -97,7 +96,7 @@ def card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
     monkeypatch.setattr(torch.cuda, "graph", lambda graph: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
-    monkeypatch.setattr(pipeline, "_WARMUP_STREAMS", {})
+    monkeypatch.setattr(graphs, "_WARMUP_STREAMS", {})
     saved = torch.backends.cudnn.benchmark
     yield monkeypatch
     torch.backends.cudnn.benchmark = saved
@@ -273,12 +272,12 @@ def test_the_warmup_and_the_capture_run_under_cudnns_search(card, earlier, fails
     if fails:
         with pytest.raises(RuntimeError, match="capture failed"):
             _no_grad(model, img.as_subclass(_OnCard), desvel)
-        assert len(seen) == pipeline.WARMUP_STEPS and not model.serve_stats.captures
+        assert len(seen) == graphs.WARMUP_STEPS and not model.serve_stats.captures
         assert all(slot.graph is None for slot in model._serving.slots.values())
     else:
         for _ in range(3):
             _no_grad(model, img.as_subclass(_OnCard), desvel)
-        assert len(seen) == pipeline.WARMUP_STEPS + 1
+        assert len(seen) == graphs.WARMUP_STEPS + 1
     assert all(seen) and torch.backends.cudnn.benchmark == earlier
 
 

@@ -36,7 +36,7 @@ import torch
 import jax.numpy as jnp
 
 from evfly_tpu.stream import pipeline as jpipeline
-from evfly_tpu_torch import set_precision
+from evfly_tpu_torch import graphs, set_precision
 from evfly_tpu_torch.precision import get_precision
 from evfly_tpu_torch.models import recurrent
 from evfly_tpu_torch.models.composites import OrigUNet_w_VITFLY_ViTLSTM
@@ -263,7 +263,7 @@ class _FailingGraph:
 
 
 def test_a_failed_capture_raises_and_leaves_no_graph(monkeypatch):
-    """_Steps with graphs on: a capture that raises propagates, the slot
+    """graphs.Steps with graphs on: a capture that raises propagates, the slot
     keeps no graph, and the state is as before the warm-up."""
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
     monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: _Stream())
@@ -271,7 +271,7 @@ def test_a_failed_capture_raises_and_leaves_no_graph(monkeypatch):
     monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
     monkeypatch.setattr(torch.cuda, "graph", _FailingGraph)
     state = [torch.zeros(3)]
-    steps = pipeline._Steps(torch.device("cuda"), True, state)
+    steps = graphs.Steps(torch.device("cuda"), True, state)
     assert steps.graph
     calls = []
 
@@ -282,9 +282,9 @@ def test_a_failed_capture_raises_and_leaves_no_graph(monkeypatch):
 
     key = GraphKey("frame", 1, "highest", (True, False), True, (), None)
     with pytest.raises(RuntimeError, match="capture failed"):
-        steps.run(key, lambda: pipeline._Slot({}, body), lambda bufs: None)
+        steps.run(key, lambda: graphs.Slot({}, body), lambda bufs: None)
     assert steps.slots[key].graph is None
-    assert len(calls) == pipeline.WARMUP_STEPS
+    assert len(calls) == graphs.WARMUP_STEPS
     assert torch.equal(state[0], torch.zeros(3))
 
 
@@ -310,7 +310,7 @@ def restore_benchmark():
 @pytest.mark.parametrize("earlier", [False, True], ids=["heuristic", "search"])
 def test_the_warmup_and_the_capture_run_under_cudnns_search(monkeypatch, restore_benchmark,
                                                              earlier, fails):
-    """_Steps with graphs on: every warm-up step and the capture see
+    """graphs.Steps with graphs on: every warm-up step and the capture see
     cudnn.benchmark True, the other cuDNN flags and the precision as
     before; the flag reads its earlier value after a capture that succeeds
     and after one that raises; ``searched`` counts the capture once."""
@@ -329,17 +329,17 @@ def test_the_warmup_and_the_capture_run_under_cudnns_search(monkeypatch, restore
         seen.append(_cudnn_flags())
         return (state[0] * 2, None)
 
-    steps = pipeline._Steps(torch.device("cuda"), True, state)
+    steps = graphs.Steps(torch.device("cuda"), True, state)
     key = GraphKey("frame", 1, "highest", (True, False), True, (), None)
-    run = lambda: steps.run(key, lambda: pipeline._Slot({}, body), lambda bufs: None)  # noqa: E731
+    run = lambda: steps.run(key, lambda: graphs.Slot({}, body), lambda bufs: None)  # noqa: E731
     if fails:
         with pytest.raises(RuntimeError, match="capture failed"):
             run()
-        assert len(seen) == pipeline.WARMUP_STEPS and not steps.stats.searched
+        assert len(seen) == graphs.WARMUP_STEPS and not steps.stats.searched
     else:
         for _ in range(3):
             run()
-        assert len(seen) == pipeline.WARMUP_STEPS + 1
+        assert len(seen) == graphs.WARMUP_STEPS + 1
         assert steps.stats.searched[key] == steps.stats.captures[key] == 1
         assert steps.stats.steps[key] == 3
     assert all(flags == (True, *before[1:]) for flags in seen)

@@ -42,9 +42,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from evfly_tpu_torch.graphs import WARMUP_STEPS
 from evfly_tpu_torch.models.port import from_jax_params
 from evfly_tpu_torch.models.vitfly import LSTMNetVIT
-from evfly_tpu_torch.stream.pipeline import WARMUP_STEPS
 from evfly_tpu_torch.tools import bf16_accept
 
 from torch_tools_cases import jax_tool

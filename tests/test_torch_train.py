@@ -46,6 +46,7 @@ from evfly_tpu.train import losses as jlosses
 from evfly_tpu.train import stepfn as jstepfn
 from evfly_tpu_torch.configs import EvflyConfig, config_device, parse_config_file
 from evfly_tpu_torch.data import augment
+from evfly_tpu_torch.graphs import WARMUP_STEPS
 from evfly_tpu_torch.models import registry
 from evfly_tpu_torch.models.common import param_count
 from evfly_tpu_torch.models.port import from_jax_params
@@ -53,7 +54,6 @@ from evfly_tpu_torch.models.vitfly import LSTMNetVIT
 from evfly_tpu_torch.ops import imageops
 from evfly_tpu_torch.train import losses, stepfn
 from evfly_tpu_torch.ops.lstm_fused import lstm_stacked_cluster
-from evfly_tpu_torch.stream.pipeline import WARMUP_STEPS
 from torch_helpers import cuda_device  # noqa: F401 (fixture)
 
 UNET_HW = (190, 190)  # the smallest frame the 5-level valid-padding UNet takes
