@@ -18,14 +18,19 @@ sizes, traps a stalled grid barrier in a child process, checks the
 port's repaired faults (precision under PyTorch's default flags, an
 eval-mode forward under autograd, more events per window than K2's and
 K3's caps through their entry points and ``scale_counts``' cluster kernels,
-more than 65,535 windows through every K1 route), then drives the
+more than 65,535 windows through every K1 route), holds MixFFN's grouped
+3x3 + GELU kernel (``ops.dwconv``, ``mixffn_dwconv3x3_gelu_kernel``)
+against its plain version at V(phi)'s shapes for 256, 16 and 1 windows and
+times its four calls a forward in turns against the plain version under
+cuDNN's algorithm search, then drives the
 port's paths through the entry points a user calls, each compared with its
 plain path on the card and each with the kernels' launch counts set to 0
 just before it and read just after:
 
 - serving: 256 windows x 5,000 raw events -> ``event_histogram_scaled_resized``
   (K3 on clusters) -> ``LSTMNetVIT`` with ``artifacts/pretrain_v_final.pth`` (its LSTM
-  through K4 on the cluster route) -> velocity (256, 3), and its launches
+  through K4 on the cluster route, MixFFN's grouped 3x3 through
+  ``dwconv3x3_gelu``) -> velocity (256, 3), and its launches
   with the LSTM forced onto the L2 route;
 - the fused rung of ``bench.py``: the same windows -> ``event_histogram_scaled``
   (K2 on clusters) -> bilinear resize -> ``LSTMNetVIT`` (K4);
@@ -167,6 +172,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -193,6 +199,7 @@ from evfly_tpu_torch.models.registry import build_model
 from evfly_tpu_torch.models.vitfly import LSTMNetVIT
 from evfly_tpu_torch.precision import get_precision, set_precision
 from evfly_tpu_torch.ops import _build, esim, lstm_fused, upsample, voxelizer
+from evfly_tpu_torch.ops.dwconv import dwconv3x3_gelu, dwconv3x3_gelu_plain
 from evfly_tpu_torch.ops.imageops import interpolate_bilinear
 from evfly_tpu_torch.ops.lstm_fused import (
     choose_route,
@@ -310,6 +317,14 @@ KERNEL_TURNS = ("l2", "cluster", "grid", "grid", "cluster", "l2")
 # (G, T) of the grid route at H = 256, L = 3 (which it took from the L2
 # route), timed in turns with L2
 GRID_256_TIMED = ((1, 1), (1, 16))
+# MixFFN's grouped 3x3 + GELU (dwconv3x3_gelu): (B, H, W, C) of V(phi)'s two
+# blocks, each called twice a forward (two layers a block), at the serving
+# batch and the streaming batches; the largest |kernel - plain| over the
+# plain output's largest |value|
+DWCONV_SHAPES = {"b256": ((256, 15, 23, 256), (256, 8, 12, 512)),
+                 "G=16": ((16, 15, 23, 256), (16, 8, 12, 512)),
+                 "G=1": ((1, 15, 23, 256), (1, 8, 12, 512))}
+DWCONV_REL_TOL = 2e-6
 STREAM_WINDOWS, STREAMS = 8, 16         # streaming steps; batched streams
 HIL_SECONDS = 2.0                       # 30 ticks of the deployment loop at 15 Hz
 # the window of the graph-step phase cut to another event bucket (2,048)
@@ -596,7 +611,8 @@ def _kernel_label(mangled: str) -> str:
                              "lstm_wavefront_kernel", "hist_scaled_cluster_kernel",
                              "hist_frame_cluster_kernel", "hist_band_partition_kernel",
                              "hist_band_kernel",
-                             "scale_counts_cluster_kernel", "empty_kernel")
+                             "scale_counts_cluster_kernel", "empty_kernel",
+                             "mixffn_dwconv3x3_gelu_kernel")
                  if n in mangled), mangled)
     m = re.search(r"ILi(\d+)ELb([01])E", mangled)
     if m:
@@ -1214,6 +1230,60 @@ def phase_lstm_times(dev, flush):
     return times
 
 
+def _dwconv_problem(dev, seed, B, h, w, C):
+    gen = torch.Generator().manual_seed(seed)
+    bound = 1.0 / math.sqrt(8 * 9)  # MixFFN's initialisation: fan-in 8 x 3 x 3
+    tokens = torch.randn(B, h * w, C, generator=gen)
+    weight = (torch.rand(C, 8, 3, 3, generator=gen) * 2 - 1) * bound
+    bias = (torch.rand(C, generator=gen) * 2 - 1) * bound
+    return tokens.to(dev), weight.to(dev), bias.to(dev), h, w
+
+
+def phase_dwconv(dev, flush):
+    """dwconv3x3_gelu (mixffn_dwconv3x3_gelu_kernel) against its plain
+    version (F.conv2d + exact GELU) at each shape of DWCONV_SHAPES, and the
+    four calls of a forward timed in turns (kernel, plain, plain, kernel)
+    against the plain version under cuDNN's algorithm search (the plan the
+    serving and streaming graphs took before the kernel), beside the
+    bound."""
+    times, errs = {}, {}
+    saved = torch.backends.cudnn.benchmark
+    try:
+        torch.backends.cudnn.benchmark = True
+        with torch.no_grad():
+            for label, shapes in DWCONV_SHAPES.items():
+                problems = [_dwconv_problem(dev, 70 + i, *shape) for i, shape in enumerate(shapes)]
+                for shape, p in zip(shapes, problems):
+                    got, ref = dwconv3x3_gelu(*p), dwconv3x3_gelu_plain(*p)
+                    torch.cuda.synchronize()
+                    errs[(label, shape)] = ((got - ref).abs().max() / ref.abs().max()).item()
+                calls = [p for p in problems for _ in range(2)]
+                turns = in_turns({"kernel": lambda: [dwconv3x3_gelu(*p) for p in calls],
+                                  "plain": lambda: [dwconv3x3_gelu_plain(*p) for p in calls]},
+                                 ("kernel", "plain", "plain", "kernel"), flush)
+                n_bytes = sum(2 * p[0].numel() * 4 + (p[1].numel() + p[2].numel()) * 4
+                              for p in calls)
+                n_flops = sum(2 * 72 * p[0].numel() for p in calls)
+                b_ms, b_by = bound_ms(n_bytes, n_flops)
+                times[label] = dict(ms=statistics.mean(turns["kernel"]),
+                                    plain_ms=statistics.mean(turns["plain"]),
+                                    bound_ms=b_ms, bound_by=b_by)
+                log(f"dwconv3x3_gelu {label} (four calls: {shapes[0]} and {shapes[1]}, "
+                    f"(B, H, W, C), twice each): kernel {turns['kernel'][0]:.4f} / "
+                    f"{turns['kernel'][1]:.4f} ms, plain (cuDNN's searched plan + GELU) "
+                    f"{turns['plain'][0]:.4f} / {turns['plain'][1]:.4f} ms, bound {b_ms:.4f} ms "
+                    f"({b_by}, {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP); "
+                    f"max |diff| / max |plain| "
+                    + ", ".join(f"{errs[(label, s)]:.3e}" for s in shapes))
+    finally:
+        torch.backends.cudnn.benchmark = saved
+    worst = max(errs.values())
+    require(worst <= DWCONV_REL_TOL,
+            f"dwconv3x3_gelu disagrees with its plain version: {worst:.3e} > {DWCONV_REL_TOL}")
+    return dict(max_rel_err=worst, **times["b256"], library_ms=None,
+                streaming={k: v for k, v in times.items() if k != "b256"})
+
+
 def serving_rate(step) -> list:
     """Windows/s of 5 reps x 10 serving steps, after 3 warm-up steps."""
     for _ in range(3):
@@ -1242,12 +1312,13 @@ def phase_main_path(dev):
 
     with torch.inference_mode():
         set_fused_lstm(True)
-        hist_scaled_resized.launches = 0
+        hist_scaled_resized.launches = dwconv3x3_gelu.launches = 0
         lstm_stacked_cluster.launches = lstm_stacked.launches = 0
         vel, (h, c) = step()
         torch.cuda.synchronize()
         launches = {"K3": hist_scaled_resized.launches,
-                    "K4 cluster": lstm_stacked_cluster.launches}
+                    "K4 cluster": lstm_stacked_cluster.launches,
+                    "dwconv": dwconv3x3_gelu.launches}
         log(f"main path launches: {launches}, K4 L2 {lstm_stacked.launches}")
         require(all(n > 0 for n in launches.values()), "a kernel of the path never launched")
         require(lstm_stacked.launches == 0, "the serving LSTM did not take the cluster route")
@@ -4150,6 +4221,8 @@ def main() -> int:
         lstm_errs = phase_lstm_routes(dev)
     with Phase("K4 and K5 times, routes in turns"):
         lstm_times = phase_lstm_times(dev, flush)
+    with Phase("MixFFN's grouped 3x3 + GELU vs plain, timed in turns"):
+        dwconv_numbers = phase_dwconv(dev, flush)
     model = joint_model(dev)
     windows = stream_windows(dev, STREAM_WINDOWS)
     with Phase("fault 1: precision under PyTorch's default flags"):
@@ -4285,6 +4358,13 @@ def main() -> int:
         lstm_entry("wavefront", "cluster", stream_launches["K5 cluster"]),
         lstm_entry("stacked", "l2", l2_launches["K4 L2"]),
         lstm_entry("wavefront", "l2", stream_launches["K5 L2"]),
+        # replaces no Pallas kernel (the JAX package leaves the convolution
+        # to XLA); launches over the serving path: 4 a forward, at the
+        # graph's warm-ups and capture
+        dict(name="dwconv3x3_gelu (MixFFN's grouped 3x3 + bias + exact GELU, "
+                  "mixffn_dwconv3x3_gelu_kernel; the four calls of a forward of 256 windows)",
+             route="cuda", source="evfly_tpu_torch/csrc/dwconv.cu", replaces=None,
+             launches=launches["dwconv"], **dwconv_numbers),
     ]
     # the head LSTM of configuration B (H = 768, L = 1) on the grid route
     # and on the L2 route of before, timed at its streaming step's shape

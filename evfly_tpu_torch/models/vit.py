@@ -14,7 +14,7 @@ import math
 import torch
 from torch import nn
 
-from ..ops import imageops
+from ..ops import dwconv
 from .common import Conv2d, LayerNorm, Linear
 
 
@@ -72,10 +72,9 @@ class MixFFN(nn.Module):
         self.mlp2 = Linear(expanded, channels, gen, device)
 
     def forward(self, x, H: int, W: int):
-        x = self.mlp1(x)
-        B, N, C = x.shape
-        x = self.depthwise(x.transpose(1, 2).reshape(B, C, H, W))
-        x = imageops.gelu_exact(x.reshape(B, C, N).transpose(1, 2))
+        # the grouped 3x3 and GELU over the (B, N, C) tokens: one kernel on the card
+        x = dwconv.dwconv3x3_gelu(self.mlp1(x), self.depthwise.weight, self.depthwise._bias(),
+                                  H, W)
         return self.mlp2(x)
 
 

@@ -63,6 +63,7 @@ _SIGNATURES = {
     "evfly_lstm_grid_occupancy": [_I] * 3 + [_P],
     "evfly_lstm_grid_fits": [_I, _I],
     "evfly_lstm_route": [_I, _I],
+    "evfly_dwconv3x3_gelu": [_P] * 4 + [_I] * 7 + [_P],
     "evfly_error_string": [_I],
 }
 
