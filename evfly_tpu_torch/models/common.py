@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -42,11 +42,12 @@ def _kaiming_uniform_bound(fan_in: int) -> float:
     return 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
 
 
-def init_conv2d(gen, in_ch: int, out_ch: int, kernel_size: int, bias: bool = True,
+def init_conv2d(gen, in_ch: int, out_ch: int, kernel_size, bias: bool = True,
                 groups: int = 1) -> Params:
-    k = kernel_size
-    b = _kaiming_uniform_bound((in_ch // groups) * k * k)
-    p = {"weight": _uniform(gen, (out_ch, in_ch // groups, k, k), b)}
+    """``kernel_size`` k (k x k) or (kh, kw)."""
+    kh, kw = (kernel_size, kernel_size) if isinstance(kernel_size, int) else kernel_size
+    b = _kaiming_uniform_bound((in_ch // groups) * kh * kw)
+    p = {"weight": _uniform(gen, (out_ch, in_ch // groups, kh, kw), b)}
     if bias:
         p["bias"] = _uniform(gen, (out_ch,), b)
     return p
@@ -137,6 +138,17 @@ def param_count(params: Params, trainable_only: bool = True) -> int:
     return n
 
 
+def module_param_count(module: nn.Module) -> int:
+    """A module's trained parameters (BatchNorm's running statistics and
+    counters are buffers, left out; a module shared twice counted once)."""
+    return sum(p.numel() for p in module.parameters())
+
+
+def part_param_counts(model: nn.Module, parts: Dict[str, str]) -> List[Tuple[str, int]]:
+    """(part, trained parameters) of each part name -> submodule attribute."""
+    return [(part, module_param_count(getattr(model, attr))) for part, attr in parts.items()]
+
+
 class ParamLeaf(nn.Module):
     """A leaf module whose tensors are registered under their state_dict
     names: parameters, except the names in ``buffers``."""
@@ -178,7 +190,7 @@ class SpectralLinear(ParamLeaf):
 
 
 class Conv2d(ParamLeaf):
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, gen, device,
+    def __init__(self, in_ch: int, out_ch: int, kernel_size, gen, device,
                  stride=1, padding=0, groups: int = 1, bias: bool = True):
         super().__init__(init_conv2d(gen, in_ch, out_ch, kernel_size, bias, groups), device)
         self.stride, self.padding, self.groups = stride, padding, groups
@@ -266,14 +278,19 @@ class StreamIO:
     histogram of (x, y, pol)).  ``time_bins`` T > 0: a stacked histogram of
     the events (x, y, pol, t) from a ``sensor_hw`` sensor, 2 T channels
     (polarity-major) of ``frame_hw``, coordinates divided by
-    ``downsample``, counts clipped at ``clip``.  ``quantile_scale``: the
-    pipeline may scale the frame by its 97th percentile."""
+    ``downsample``, counts clipped at ``clip``.  ``rectify_map`` (H, W, 2),
+    the rectified (x, y) of each sensor pixel: in place of the stacked
+    histogram, E-RAFT's voxel grid of the events (``time_bins`` channels of
+    ``frame_hw``, trilinear over the coordinates rectified through the map,
+    normalised).  ``quantile_scale``: the pipeline may scale the frame by
+    its 97th percentile."""
     time_bins: int = 0
     sensor_hw: Optional[Tuple[int, int]] = None
     frame_hw: Optional[Tuple[int, int]] = None
     downsample: int = 1
     clip: float = 0.0
     quantile_scale: bool = True
+    rectify_map: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
 
 
 COMPOSITE_IO = StreamIO()

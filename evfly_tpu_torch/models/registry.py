@@ -11,6 +11,7 @@
   'VITFLY_UNetConvLSTMNet' / 'UNetConvLSTMNet' -> UNetConvLSTMNet
   'ConvNet_w_VelPred'                  -> ConvNet_w_VelPred
   'RVT'                                -> RVT (RVT-B at 1 Mpx, models/rvt.py)
+  'ERAFT'                              -> ERAFT (E-RAFT at DSEC's 480x640, models/eraft.py)
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from .composites import (
     OrigUNet_w_ConvNet_w_VelPred,
     OrigUNet_w_VITFLY_ViTLSTM,
 )
+from .eraft import ERAFT
 from .origunet import OrigUNet
 from .rvt import RVT
 from .vitfly import ConvNet, LSTMNet, LSTMNetVIT, UNetConvLSTMNet, ViT
@@ -127,4 +129,6 @@ def build_model(cfg: EvflyConfig, is_deployment: bool = False, device: DeviceLik
         return _VITFLY[mt](generator=generator, device=device)
     if mt == "RVT":
         return RVT(generator=generator, device=device)
+    if mt == "ERAFT":
+        return ERAFT(generator=generator, device=device)
     raise ValueError(f"Invalid model_type {mt}")

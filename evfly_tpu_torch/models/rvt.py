@@ -50,7 +50,8 @@ from torch import nn
 from ..device import DeviceLike, resolve_device
 from ..precision import with_precision
 from ..utils import profiling
-from .common import BatchNorm2d, Conv2d, LayerNorm, Linear, ParamLeaf, Params, StreamIO
+from .common import (BatchNorm2d, Conv2d, LayerNorm, Linear, ParamLeaf, Params, StreamIO,
+                     part_param_counts)
 from .recurrent import ConvLSTM
 
 STAGE_DIMS = (64, 128, 256, 512)
@@ -385,13 +386,6 @@ class RVT(nn.Module):
         return (decoded[0], raw[0]), new_hidden
 
 
-def param_count(model: nn.Module) -> int:
-    """Trained parameters (BatchNorm's running statistics and counters left
-    out)."""
-    return sum(p.numel() for p in model.parameters())
-
-
 def layer_counts(model: RVT) -> List[Tuple[str, int]]:
     """(part, trained parameters) of the backbone, the FPN and the head."""
-    return [("backbone", param_count(model.stages)), ("fpn", param_count(model.fpn)),
-            ("head", param_count(model.head))]
+    return part_param_counts(model, {"backbone": "stages", "fpn": "fpn", "head": "head"})

@@ -18,7 +18,10 @@ with ``counts`` the signed event count frame under np.histogram2d binning:
 - ``difflog_events``: the quantized log difference of two frames (torch
   ops);
 - ``stacked_histogram``: RVT's time-binned count frame of one window of
-  events (x, y, pol, t), 2 T channels (torch ops, on any device).
+  events (x, y, pol, t), 2 T channels (torch ops, on any device);
+- ``voxel_grid``: E-RAFT's normalised trilinear voxel grid of one window of
+  events (x, y, pol, t) through a rectification map, T channels (torch ops,
+  on any device).
 
 The kernels are in ``csrc/voxelizer.cu``.  Each wrapper ``hist_*`` has a
 plain PyTorch version ``hist_*_plain``, which CPU tensors take and against
@@ -1162,3 +1165,77 @@ def stacked_histogram(x, y, pol, t, n, bins: int, frame_hw: Tuple[int, int],
     frame = torch.zeros(cells + _STACKED_SPARE, dtype=torch.float32, device=dev)
     frame.index_add_(0, cell, inside.to(torch.float32))
     return frame[:cells].view(2 * bins, H, W).clamp_(max=clip)
+
+
+def voxel_grid(x, y, pol, t, n, rectify_map: torch.Tensor, bins: int) -> torch.Tensor:
+    """E-RAFT's voxel grid of one window of events (``VoxelGrid`` with
+    ``normalize=True``) -> (bins, H, W) f32, (H, W) the rectified frame.
+
+    x, y (N,) integer sensor coordinates, pol (N,) (> 0 positive), t (N,)
+    integer timestamps (microseconds); the first ``n`` events are real (an
+    int, or a 0-d integer tensor on the events' device), the rest padding;
+    events off the (H, W) sensor count as padding.  ``rectify_map`` (H, W, 2)
+    f32 gives each sensor pixel's rectified (x, y).
+
+    A real event at rectified (xr, yr), time ``tn = (bins - 1) u`` with ``u =
+    f32(t - t_first) / f32(t_last - t_first)`` (0 where t_last = t_first;
+    E-RAFT divides by zero there) and t_first, t_last the smallest and the
+    largest real timestamp, adds to each of the 8 corners (xl, yl, tl) in
+    {x0, x0 + 1} x {y0, y0 + 1} x {t0, t0 + 1} inside the grid, with x0, y0,
+    t0 the values truncated toward zero (E-RAFT's ``.int()``: a coordinate in
+    (-1, 0) splats with weights 0.7 and -0.3), ``(2 p - 1) (1 - |xl - xr|)
+    (1 - |yl - yr|) (1 - |tl - tn|)``, multiplied in that order in f32.  Then
+    over the n nonzero cells, mean m and unbiased standard deviation s: each
+    nonzero cell becomes (v - m) / s where s > 0, else v - m (n <= 1
+    included); zero cells stay 0.
+
+    Departure: the contributions are summed in f64 and the statistics and the
+    normalisation taken in f64, then rounded once to f32 (E-RAFT sums in
+    f32).  The sums of a cell's f32 products are then exact, so a cell's
+    value, and whether it is zero, does not depend on the order of the
+    atomic adds.  Plain torch ops on any device (``index_add_``, masked
+    sums), with no host synchronization, so a CUDA graph can capture it with
+    ``n`` on the device."""
+    H, W = rectify_map.shape[:2]
+    N = x.shape[0]
+    dev = x.device
+    f32 = torch.float32
+    index = torch.arange(N, device=dev)
+    xi, yi = x.to(torch.int64), y.to(torch.int64)
+    real = ((index < torch.as_tensor(n, device=dev)) & (xi >= 0) & (xi < W)
+            & (yi >= 0) & (yi < H))
+    t = t.to(torch.int64)
+    t_first = torch.where(real, t, torch.iinfo(torch.int64).max).amin()
+    t_last = torch.where(real, t, torch.iinfo(torch.int64).min).amax()
+    span = t_last - t_first
+    u = (t - t_first).to(f32) / span.to(f32)
+    tn = (bins - 1) * torch.where(span > 0, u, 0.0)
+    rect = rectify_map[yi.clamp(0, H - 1), xi.clamp(0, W - 1)]
+    xr, yr = rect[:, 0], rect[:, 1]
+    value = torch.where(pol > 0, 1.0, -1.0)
+    # the 8 corners (x offset, y offset, t offset), t fastest
+    corner = torch.arange(8, device=dev)
+    xl = xr.to(torch.int64)[:, None] + (corner >> 2)
+    yl = yr.to(torch.int64)[:, None] + ((corner >> 1) & 1)
+    tl = tn.to(torch.int64)[:, None] + (corner & 1)
+    w = (value[:, None] * (1 - (xl.to(f32) - xr[:, None]).abs())
+         * (1 - (yl.to(f32) - yr[:, None]).abs()) * (1 - (tl.to(f32) - tn[:, None]).abs()))
+    inside = (real[:, None] & (xl >= 0) & (xl < W) & (yl >= 0) & (yl < H)
+              & (tl >= 0) & (tl < bins))
+    cells = bins * H * W
+    cell = torch.where(inside, (tl * H + yl) * W + xl,
+                       cells + (8 * index[:, None] + corner) % _STACKED_SPARE)
+    acc = torch.zeros(cells + _STACKED_SPARE, dtype=torch.float64, device=dev)
+    acc.index_add_(0, cell.reshape(-1), torch.where(inside, w, 0.0).to(torch.float64).reshape(-1))
+    return _normalise_nonzero(acc[:cells]).view(bins, H, W)
+
+
+def _normalise_nonzero(v: torch.Tensor) -> torch.Tensor:
+    """E-RAFT's normalisation of f64 cells v over the nonzero ones, by
+    masked sums (no host synchronization), rounded to f32."""
+    nonzero = v != 0
+    count = nonzero.sum().to(torch.float64)
+    mean = v.sum() / count
+    centred = torch.where(nonzero, v - mean, 0.0)
+    std = ((centred * centred).sum() / (count - 1)).sqrt()
+    return torch.where(std > 0, centred / std, centred).to(torch.float32)

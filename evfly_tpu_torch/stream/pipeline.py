@@ -21,7 +21,10 @@ declares none): the composites take the frame above and give (velocity,
 depth); ``models.rvt.RVT`` takes a stacked histogram of the window's events
 with their timestamps (``voxelizer.stacked_histogram``: time bins, a
 megapixel sensor halved, counts clipped, no scaling) and gives its
-detections, with four LSTM states carried.
+detections, with four LSTM states carried; ``models.eraft.ERAFT`` takes
+E-RAFT's voxel grid of the events (``voxelizer.voxel_grid``: rectified
+through the model's map, trilinear over 15 time bins, normalised) and gives
+the window's dense flow, carrying the previous window's grid and its flow.
 
 The JAX package runs each step as one jitted program with the state
 donated.  Here a pipeline keeps its inputs and its hidden state in static
@@ -155,7 +158,10 @@ def stream_io(model: torch.nn.Module) -> StreamIO:
 
 def _events_frame(io: StreamIO, events, input_hw, device) -> torch.Tensor:
     """The frame of a window of events as the model takes it: K1's
-    histogram of (x, y, pol), or the stacked histogram of (x, y, pol, t, n)."""
+    histogram of (x, y, pol), the stacked histogram of (x, y, pol, t, n), or
+    the voxel grid of (x, y, pol, t, n) through ``io.rectify_map``."""
+    if io.rectify_map is not None:
+        return voxelizer.voxel_grid(*events, io.rectify_map, io.time_bins)
     if io.time_bins:
         return voxelizer.stacked_histogram(*events, io.time_bins, io.frame_hw, io.downsample,
                                            io.clip)
@@ -165,7 +171,8 @@ def _events_frame(io: StreamIO, events, input_hw, device) -> torch.Tensor:
 # the buffers of a window's event columns: K1's (float coordinates, int32
 # signs, padding of pol 0), or, for a stacked histogram, a camera's types
 # (16-bit coordinates, 8-bit polarity, 64-bit microseconds), with the count
-# of real events ``n`` by which the histogram leaves the padding out
+# of real events ``n`` by which the histogram or the voxel grid leaves the
+# padding out
 _K1_COLUMNS = {"x": torch.float32, "y": torch.float32, "pol": torch.int32}
 _CAMERA_COLUMNS = {"x": torch.int16, "y": torch.int16, "pol": torch.int8, "t": torch.int64}
 
@@ -248,7 +255,9 @@ class StreamingPipeline(_Pipeline):
     hidden_unet, hidden_head) with the composite hidden convention
     ((h_unet, h_velpred), h_head), h_head the ViTLSTM's or the
     ConvNet_w_VelPred LSTM's (h, c); ``models.rvt.RVT``, whose ``stream``
-    takes a stacked histogram and its four stages' (h, c).  The model has
+    takes a stacked histogram and its four stages' (h, c);
+    ``models.eraft.ERAFT``, whose ``stream`` takes a voxel grid and the
+    previous window's grid, its flow and counters.  The model has
     ``init_hidden(streams)``.  ``hidden`` holds the state in static
     buffers, which each step and ``reset`` write in place; every
     ``recurrent.LSTM`` of the model is packed for its kernel outside the
@@ -293,8 +302,10 @@ class StreamingPipeline(_Pipeline):
             return self._steps.run(self.graph_key(kind, size), make, fill, **counts)
 
     def frame_shape(self) -> Tuple[int, ...]:
-        """The shape of the frame ``step_frame`` takes: (H, W), or the
-        stacked histogram's (2 T, H, W)."""
+        """The shape of the frame ``step_frame`` takes: (H, W), the stacked
+        histogram's (2 T, H, W), or the voxel grid's (T, H, W)."""
+        if self.io.rectify_map is not None:
+            return (self.io.time_bins, *self.io.frame_hw)
         if self.io.time_bins:
             return (2 * self.io.time_bins, *self.io.frame_hw)
         return tuple(self.input_hw)
@@ -320,9 +331,10 @@ class StreamingPipeline(_Pipeline):
         the composites, whose frame is ``event_histogram`` of (ex, ey, ep)
         (K1 on CUDA), the window padded to ``event_bucket(N)`` events with
         pol 0; for a model of time bins (``stream_io``) the stacked
-        histogram of (ex, ey, ep, et), ``et`` the integer timestamps (the
-        window's order), the window padded to ``event_bucket(N)`` events
-        that the histogram leaves out by their index."""
+        histogram or the voxel grid of (ex, ey, ep, et), ``et`` the integer
+        timestamps (the window's order), the window padded to
+        ``event_bucket(N)`` events that the frame leaves out by their
+        index."""
         binned = bool(self.io.time_bins)
         columns = _CAMERA_COLUMNS if binned else _K1_COLUMNS
         with profiling.span("evfly.stream.step"):

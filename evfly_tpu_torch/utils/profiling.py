@@ -4,8 +4,9 @@
 Port of ``evfly_tpu/utils/profiling.py``, with spans added.
 
 * ``span(name, **counts)`` marks a layer of the program (the streaming
-  step's fill, replay and capture, the frame, D(theta) and V(phi), the
-  train step's phases; every name starts ``evfly.``).  It does nothing
+  step's fill, replay and capture, the frame, D(theta) and V(phi), RVT's
+  and E-RAFT's layers, the train step's phases; every name starts
+  ``evfly.``).  It does nothing
   unless a ``torch.profiler`` is recording: then it is a
   ``record_function`` range in the profiler's timeline, and a ``Record``
   kept in memory with its host interval, its device interval on a CUDA

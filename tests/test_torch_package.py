@@ -44,6 +44,7 @@ def test_import_check_covers_every_module():
                    "evfly_tpu_torch.sim.pilot", "evfly_tpu_torch.configs",
                    "evfly_tpu_torch.configs.config", "evfly_tpu_torch.models.port",
                    "evfly_tpu_torch.models.registry", "evfly_tpu_torch.models.rvt",
+                   "evfly_tpu_torch.models.eraft",
                    "evfly_tpu_torch.data",
                    "evfly_tpu_torch.data.augment", "evfly_tpu_torch.data.dataloading",
                    "evfly_tpu_torch.train", "evfly_tpu_torch.train.__main__",

@@ -28,6 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from evfly_tpu_torch.configs import EvflyConfig
 from evfly_tpu_torch.models import rvt
+from evfly_tpu_torch.models.common import module_param_count
 from evfly_tpu_torch.models.registry import build_model
 from evfly_tpu_torch.ops.voxelizer import stacked_histogram
 from evfly_tpu_torch.stream.pipeline import BatchedStreamingPipeline, StreamingPipeline
@@ -180,7 +181,7 @@ def test_build_model_builds_rvt_b_with_the_configurations_parameter_count():
     conf = json.loads((ROOT / "perfbench" / "configs" / "rvt.json").read_text())
     model = build_model(EvflyConfig(model_type="RVT"), device="cpu")
     assert isinstance(model, rvt.RVT)
-    assert rvt.param_count(model) == conf["parameters"] == ref.param_count() == 18538776
+    assert module_param_count(model) == conf["parameters"] == ref.param_count() == 18538776
     assert dict(rvt.layer_counts(model)) == conf["parameters_by_part"]
     assert round(conf["parameters"] / 1e6, 1) == 18.5
     assert model.frame_hw == tuple(conf["frame_hw"]) == ref.FRAME_HW
