@@ -22,7 +22,14 @@ more than 65,535 windows through every K1 route), holds MixFFN's grouped
 3x3 + GELU kernel (``ops.dwconv``, ``mixffn_dwconv3x3_gelu_kernel``)
 against its plain version at V(phi)'s shapes for 256, 16 and 1 windows and
 times its four calls a forward in turns against the plain version under
-cuDNN's algorithm search, then drives the
+cuDNN's algorithm search, holds E-RAFT's separable ConvGRU kernels
+(``ops.sepconvgru``, ``sepconvgru_zr_conv_kernel`` and
+``sepconvgru_q_conv_kernel``) against their plain version at 60x80 and
+times each half-step and the whole call in turns against the plain version
+under cuDNN's heuristic and its search, drives E-RAFT's streaming step at
+480x640 (``build_model`` "ERAFT", ``step_events``) captured and eager
+against its plain GRU, with new weights loaded into the captured step, and
+counts the ConvGRU kernels' launches a step, then drives the
 port's paths through the entry points a user calls, each compared with its
 plain path on the card and each with the kernels' launch counts set to 0
 just before it and read just after:
@@ -200,6 +207,7 @@ from evfly_tpu_torch.models.vitfly import LSTMNetVIT
 from evfly_tpu_torch.precision import get_precision, set_precision
 from evfly_tpu_torch.ops import _build, esim, lstm_fused, upsample, voxelizer
 from evfly_tpu_torch.ops.dwconv import dwconv3x3_gelu, dwconv3x3_gelu_plain
+from evfly_tpu_torch.ops import sepconvgru as sepconvgru_ops
 from evfly_tpu_torch.ops.imageops import interpolate_bilinear
 from evfly_tpu_torch.ops.lstm_fused import (
     choose_route,
@@ -325,6 +333,18 @@ DWCONV_SHAPES = {"b256": ((256, 15, 23, 256), (256, 8, 12, 512)),
                  "G=16": ((16, 15, 23, 256), (16, 8, 12, 512)),
                  "G=1": ((1, 15, 23, 256), (1, 8, 12, 512))}
 DWCONV_REL_TOL = 2e-6
+# E-RAFT's separable ConvGRU (ops.sepconvgru): h (1, 128, 60, 80) and x (1,
+# 256, 60, 80), the 1/8 map of a 480x640 camera; the largest |kernels -
+# plain| over the plain output's largest |value| (tests/test_torch_sepconvgru.py)
+SEPCONVGRU_SHAPE = (1, 128, 256, 60, 80)
+SEPCONVGRU_REL_TOL = 4e-6
+# E-RAFT's streaming step at 480x640 (registry.build_model "ERAFT", drawn
+# from ERAFT_SEEDS: the weights it starts from, those loaded after the
+# capture) over ERAFT_WINDOWS chained windows of ERAFT_EVENTS events, the
+# last two after the load; the flows against the plain GRU's within
+# ERAFT_REL_TOL of their largest |value| (tests/test_torch_eraft.py's TOL)
+ERAFT_SEEDS, ERAFT_WINDOWS, ERAFT_EVENTS = (90, 91), 5, 300_000
+ERAFT_REL_TOL = 2e-5
 STREAM_WINDOWS, STREAMS = 8, 16         # streaming steps; batched streams
 HIL_SECONDS = 2.0                       # 30 ticks of the deployment loop at 15 Hz
 # the window of the graph-step phase cut to another event bucket (2,048)
@@ -1282,6 +1302,156 @@ def phase_dwconv(dev, flush):
             f"dwconv3x3_gelu disagrees with its plain version: {worst:.3e} > {DWCONV_REL_TOL}")
     return dict(max_rel_err=worst, **times["b256"], library_ms=None,
                 streaming={k: v for k, v in times.items() if k != "b256"})
+
+
+def phase_sepconvgru(dev, flush):
+    """E-RAFT's ConvGRU (sepconvgru_zr_conv_kernel, sepconvgru_q_conv_kernel)
+    against its plain version at 60x80: each half-step's kernel pair and the
+    whole call, each timed in turns (kernels, plain, library, library, plain,
+    kernels) against the plain version under cuDNN's heuristic and under its
+    algorithm search (the plan the streaming graph took before the kernels,
+    the library's), beside the bound of a half-step's 7.08 GFLOP."""
+    from evfly_tpu_torch.models.eraft import SepConvGRU
+
+    B, c_h, c_x, H, W = SEPCONVGRU_SHAPE
+    gru = SepConvGRU(torch.Generator().manual_seed(80), dev)
+    gen = torch.Generator().manual_seed(81)
+    h = torch.tanh(torch.randn(B, c_h, H, W, generator=gen)).to(dev)
+    x = torch.relu(torch.randn(B, c_x, H, W, generator=gen)).to(dev)
+    halves = gru.halves()
+    packed = sepconvgru_ops.pack(halves)
+    saved = torch.backends.cudnn.benchmark
+
+    def searched(fn):
+        def call():
+            torch.backends.cudnn.benchmark = True
+            fn()
+            torch.backends.cudnn.benchmark = False
+        return call
+
+    errs, times = {}, {}
+    flops = 2 * B * H * W * (3 * c_h) * (c_h + c_x) * 5   # one half-step
+    try:
+        torch.backends.cudnn.benchmark = False
+        with torch.no_grad():
+            for i, (half, pk) in enumerate(zip(halves, packed)):
+                label = ("1x5", "5x1")[i]
+                got = sepconvgru_ops.sepconvgru_cuda(h, x, [pk])
+                ref = sepconvgru_ops.sepconvgru_plain(h, x, [half])
+                torch.cuda.synchronize()
+                errs[label] = ((got - ref).abs().max() / ref.abs().max()).item()
+                fns = {"kernels": lambda pk=pk: sepconvgru_ops.sepconvgru_cuda(h, x, [pk]),
+                       "plain": lambda half=half: sepconvgru_ops.sepconvgru_plain(h, x, [half])}
+                fns["library"] = searched(fns["plain"])
+                times[label] = in_turns(fns, ("kernels", "plain", "library", "library", "plain",
+                                              "kernels"), flush)
+            got, ref = gru(h, x), sepconvgru_ops.sepconvgru_plain(h, x, halves)
+            torch.cuda.synchronize()
+            errs["call"] = ((got - ref).abs().max() / ref.abs().max()).item()
+            fns = {"kernels": lambda: gru(h, x),
+                   "plain": lambda: sepconvgru_ops.sepconvgru_plain(h, x, halves)}
+            fns["library"] = searched(fns["plain"])
+            times["call"] = in_turns(fns, ("kernels", "plain", "library", "library", "plain",
+                                           "kernels"), flush)
+    finally:
+        torch.backends.cudnn.benchmark = saved
+    # a half-step reads h, x and the weights once and writes z, r h and h'
+    n_bytes = 4 * (B * (c_h + c_x) * H * W + 3 * c_h * (c_h + c_x) * 5 + 3 * B * c_h * H * W)
+    out = {}
+    for label, t in times.items():
+        halves_n = 2 if label == "call" else 1
+        b_ms, b_by = bound_ms(halves_n * n_bytes, halves_n * flops)
+        out[label] = dict(ms=statistics.mean(t["kernels"]), plain_ms=statistics.mean(t["plain"]),
+                          library_ms=statistics.mean(t["library"]), bound_ms=b_ms, bound_by=b_by)
+        log(f"sepconvgru {label} at {H}x{W}: kernels {t['kernels'][0]:.4f} / "
+            f"{t['kernels'][1]:.4f} ms, plain (cuDNN's heuristic) {t['plain'][0]:.4f} / "
+            f"{t['plain'][1]:.4f} ms, library (cuDNN's searched plan) {t['library'][0]:.4f} / "
+            f"{t['library'][1]:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{halves_n * flops / 1e9:.2f} GFLOP); max |diff| / max |plain| "
+            f"{errs[label]:.3e}")
+    worst = max(errs.values())
+    require(worst <= SEPCONVGRU_REL_TOL,
+            f"sepconvgru disagrees with its plain version: {worst:.3e} > {SEPCONVGRU_REL_TOL}")
+    return dict(max_rel_err=worst, **out["call"], half_steps={k: out[k] for k in ("1x5", "5x1")})
+
+
+def eraft_windows(seed: int, n: int):
+    """n windows of ERAFT_EVENTS events at E-RAFT's 480x640, (x, y, pol, t)
+    each, t the window's microseconds in order."""
+    from evfly_tpu_torch.models.eraft import SENSOR_HW
+
+    rng = np.random.default_rng(seed)
+    (H_, W_), n_ev = SENSOR_HW, ERAFT_EVENTS
+    return [(rng.integers(0, W_, n_ev).astype(np.int16), rng.integers(0, H_, n_ev).astype(np.int16),
+             rng.choice(np.array([-1, 1], np.int8), n_ev),
+             np.sort(rng.integers(0, 100_000, n_ev)) + 100_000 * k) for k in range(n)]
+
+
+def phase_eraft_stream(dev):
+    """E-RAFT's streaming step through the entry point a user calls
+    (``registry.build_model`` "ERAFT", ``StreamingPipeline.step_events`` at
+    480x640), captured (the default) and eager, its ConvGRU on
+    ``ops.sepconvgru``'s kernels, against the eager step with the plain GRU
+    (``kernel_takes`` forced off) over ERAFT_WINDOWS chained windows; new
+    weights loaded (``load_params``) before the last two windows, which
+    the captured step replays.  ``sepconvgru.launches`` is set to 0 just
+    before each step and read just after: 48 an eager step (12 iterations x
+    2 half-steps x 2 kernels), 48 at each of the capture's warm-up steps and
+    at the capture, none at a replay, none on the plain route."""
+    from evfly_tpu_torch.stream.pipeline import StreamingPipeline
+
+    def model(seed):
+        return build_model(EvflyConfig(model_type="ERAFT"), device=dev,
+                           generator=torch.Generator().manual_seed(seed)).eval()
+
+    net = model(ERAFT_SEEDS[0])
+    new_weights = {k: v.clone() for k, v in model(ERAFT_SEEDS[1]).state_dict().items()}
+    graphed = StreamingPipeline(net, device=dev)
+    eager = StreamingPipeline(net, device=dev, graph=False)
+    plain = StreamingPipeline(net, device=dev, graph=False)
+    kernel_takes = sepconvgru_ops.kernel_takes
+    counted = {"eager": [], "graphed": [], "plain": []}
+    errs = []
+
+    def step(label, pipe, window):
+        sepconvgru_ops.sepconvgru.launches = 0
+        out = pipe.step_events(*window)
+        torch.cuda.synchronize()
+        counted[label].append(sepconvgru_ops.sepconvgru.launches)
+        return out
+
+    windows = eraft_windows(92, ERAFT_WINDOWS)
+    for k, window in enumerate(windows):
+        if k == ERAFT_WINDOWS - 2:
+            net.load_params(new_weights)
+        e, g = step("eager", eager, window), step("graphed", graphed, window)
+        sepconvgru_ops.kernel_takes = lambda *a: False
+        try:
+            want = step("plain", plain, window)
+        finally:
+            sepconvgru_ops.kernel_takes = kernel_takes
+        require(bool(e[2]) == bool(g[2]) == bool(want[2]) == (k > 0),
+                f"E-RAFT window {k}: valid {bool(e[2])}, {bool(g[2])}, {bool(want[2])}")
+        if k:
+            errs.append({f"{label} {name}": ((got[i] - want[i]).abs().max()
+                                             / want[i].abs().max()).item()
+                         for label, got in (("eager", e), ("graphed", g))
+                         for i, name in ((0, "flow"), (1, "low"))})
+    captures = sum(graphed.stats.captures.values())
+    worst = max(v for err in errs for v in err.values())
+    log(f"E-RAFT streaming step at 480x640 over {ERAFT_WINDOWS} windows, new weights loaded "
+        f"before window {ERAFT_WINDOWS - 2}: sepconvgru launches a step {counted}; "
+        f"captures {captures}; max |diff| / max |plain| per window {errs}")
+    require(counted["eager"] == [48] * ERAFT_WINDOWS,
+            f"an eager E-RAFT step launched {counted['eager']} ConvGRU kernels, not 48")
+    require(counted["graphed"] == [48 * (WARMUP_STEPS + 1)] + [0] * (ERAFT_WINDOWS - 1),
+            f"the captured E-RAFT step launched {counted['graphed']} ConvGRU kernels")
+    require(counted["plain"] == [0] * ERAFT_WINDOWS and captures == 1,
+            "the plain step launched the kernels, or the load captured anew")
+    require(worst <= ERAFT_REL_TOL,
+            f"E-RAFT's step disagrees with its plain GRU: {worst:.3e} > {ERAFT_REL_TOL}")
+    return dict(launches=counted["eager"][0], capture_launches=counted["graphed"][0],
+                replay_launches=max(counted["graphed"][1:]), stream_max_rel_err=worst)
 
 
 def serving_rate(step) -> list:
@@ -4223,6 +4393,10 @@ def main() -> int:
         lstm_times = phase_lstm_times(dev, flush)
     with Phase("MixFFN's grouped 3x3 + GELU vs plain, timed in turns"):
         dwconv_numbers = phase_dwconv(dev, flush)
+    with Phase("E-RAFT's ConvGRU kernels vs plain, timed in turns"):
+        sepconvgru_numbers = phase_sepconvgru(dev, flush)
+    with Phase("E-RAFT's streaming step at 480x640, captured and eager, vs its plain GRU"):
+        eraft_numbers = phase_eraft_stream(dev)
     model = joint_model(dev)
     windows = stream_windows(dev, STREAM_WINDOWS)
     with Phase("fault 1: precision under PyTorch's default flags"):
@@ -4365,6 +4539,13 @@ def main() -> int:
                   "mixffn_dwconv3x3_gelu_kernel; the four calls of a forward of 256 windows)",
              route="cuda", source="evfly_tpu_torch/csrc/dwconv.cu", replaces=None,
              launches=launches["dwconv"], **dwconv_numbers),
+        # replaces no Pallas kernel (the JAX package has no E-RAFT); launches
+        # of one eager E-RAFT streaming step, of the capture (its warm-up
+        # steps and the capture) and of a replay
+        dict(name="sepconvgru (E-RAFT's separable ConvGRU: sepconvgru_zr_conv_kernel + "
+                  "sepconvgru_q_conv_kernel a half-step; one call at 60x80)",
+             route="cuda", source="evfly_tpu_torch/csrc/sepconvgru.cu", replaces=None,
+             **eraft_numbers, **sepconvgru_numbers),
     ]
     # the head LSTM of configuration B (H = 768, L = 1) on the grid route
     # and on the L2 route of before, timed at its streaming step's shape

@@ -55,12 +55,14 @@ windows, cold starts and warm starts since the last reset (``stats``).
 
 While a profiler records, the layers are spans (``utils.profiling``):
 ``evfly.eraft.encode`` (fnet twice, cnet), ``evfly.eraft.corr`` (the GEMM
-and the pyramid), ``evfly.eraft.refine`` (the iterations; count
-``iterations``) holding each iteration's ``evfly.eraft.lookup`` (counts
-``levels``, ``radius``, ``positions``), ``evfly.eraft.upsample`` (the mask
-head and the convex upsampling), ``evfly.eraft.warm`` (the forward
-interpolation; count ``warm`` 1: the step carries its flow to the next
-window); inside a captured CUDA graph they are its marks.
+and the pyramid), ``evfly.eraft.refine`` (the iterations; counts
+``iterations`` and ``gru_kernel``, 1 where the ConvGRU runs as
+``ops.sepconvgru``'s kernels) holding each iteration's
+``evfly.eraft.lookup`` (counts ``levels``, ``radius``, ``positions``),
+``evfly.eraft.upsample`` (the mask head and the convex upsampling),
+``evfly.eraft.warm`` (the forward interpolation; count ``warm`` 1: the step
+carries its flow to the next window); inside a captured CUDA graph they
+are its marks.
 
 Module names follow RAFT's (``fnet``, ``cnet``, ``update_block.encoder``,
 ``.gru``, ``.flow_head``, ``.mask``), so that E-RAFT's checkpoint loads by
@@ -77,7 +79,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from ..ops import imageops
+from ..ops import imageops, sepconvgru
 from ..precision import with_precision
 from ..utils import profiling
 from .common import BatchNorm2d, Conv2d, Params, StreamIO, part_param_counts
@@ -179,7 +181,11 @@ class MotionEncoder(nn.Module):
 
 
 class SepConvGRU(nn.Module):
-    """RAFT's SepConvGRU: a ConvGRU with 1x5 convolutions, then one with 5x1."""
+    """RAFT's SepConvGRU: a ConvGRU with 1x5 convolutions, then one with 5x1.
+    On the card in f32 without autograd each half-step is two hand-written
+    kernels (``ops.sepconvgru``), else the plain formulation.  The kernels'
+    packed weights are packed again after each ``load_state_dict``, into the
+    tensors a captured step reads."""
 
     def __init__(self, gen, device, hidden: int = HIDDEN_DIM, inputs: int = 128 + HIDDEN_DIM):
         super().__init__()
@@ -187,15 +193,20 @@ class SepConvGRU(nn.Module):
             for gate in "zrq":
                 setattr(self, f"conv{gate}{i}",
                         Conv2d(hidden + inputs, hidden, k, gen, device, padding=pad))
+        self._packed = sepconvgru.WeightCache()
+        self.register_load_state_dict_post_hook(_repack_gru)
+
+    def halves(self) -> Tuple[Tuple[torch.Tensor, ...], ...]:
+        """(wz, bz, wr, br, wq, bq) of the 1x5 half-step, then the 5x1's."""
+        convs = [[getattr(self, f"conv{gate}{i}") for gate in "zrq"] for i in (1, 2)]
+        return tuple(tuple(t for c in half for t in (c.weight, c._bias())) for half in convs)
 
     def forward(self, h, x):
-        for i in (1, 2):
-            hx = torch.cat([h, x], 1)
-            z = torch.sigmoid(getattr(self, f"convz{i}")(hx))
-            r = torch.sigmoid(getattr(self, f"convr{i}")(hx))
-            q = torch.tanh(getattr(self, f"convq{i}")(torch.cat([r * h, x], 1)))
-            h = (1 - z) * h + z * q
-        return h
+        return sepconvgru.sepconvgru(h, x, self.halves(), self._packed)
+
+
+def _repack_gru(gru: SepConvGRU, incompatible_keys) -> None:
+    gru._packed.refresh(gru.halves())
 
 
 class FlowHead(nn.Module):
@@ -388,7 +399,9 @@ class ERAFT(nn.Module):
         h, w = fmap1.shape[-2:]
         coords0, delta = self._grid(h, w, fmap1.device)
         coords1 = coords0 if flow_init is None else coords0 + flow_init
-        with profiling.span("evfly.eraft.refine", iterations=ITERATIONS):
+        gru = self.update_block.gru
+        with profiling.span("evfly.eraft.refine", iterations=ITERATIONS,
+                            gru_kernel=int(sepconvgru.kernel_takes(net, inp, gru.halves()))):
             for _ in range(ITERATIONS):
                 with profiling.span("evfly.eraft.lookup", levels=LEVELS, radius=RADIUS,
                                     positions=B * h * w):

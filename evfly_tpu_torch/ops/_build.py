@@ -64,6 +64,7 @@ _SIGNATURES = {
     "evfly_lstm_grid_fits": [_I, _I],
     "evfly_lstm_route": [_I, _I],
     "evfly_dwconv3x3_gelu": [_P] * 4 + [_I] * 7 + [_P],
+    "evfly_sepconvgru_conv": [_I, _I] + [_P] * 8 + [_I] * 11 + [_P],
     "evfly_error_string": [_I],
 }
 

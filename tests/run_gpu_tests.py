@@ -4,7 +4,8 @@ the velocity heads' LSTM, the model zoo, the real-data path, the
 simulator's render and one lockstep tick, the chunk-DP train step, the
 open-loop probe's steps, the bf16 A/B's arms, the graph's timing
 marks, RVT's and V(phi)'s serving graph, MixFFN's grouped 3x3 + GELU,
-E-RAFT's captured step) on a machine with a CUDA card and without JAX (the GPU machine):
+E-RAFT's captured step and its ConvGRU kernels) on a machine with a CUDA
+card and without JAX (the GPU machine):
 
     python3 tests/run_gpu_tests.py [REPO]
 
@@ -32,7 +33,7 @@ FILES = ("tests/test_torch_voxelizer.py", "tests/test_torch_voxelizer_cluster.py
          "tests/test_torch_tools_openloop.py", "tests/test_torch_tools_bf16.py",
          "tests/test_torch_spans.py", "tests/test_torch_rvt.py",
          "tests/test_torch_serve_graph.py", "tests/test_torch_dwconv.py",
-         "tests/test_torch_eraft.py")
+         "tests/test_torch_eraft.py", "tests/test_torch_sepconvgru.py")
 INERT = ("jax", "optax", "evfly_tpu")
 
 
